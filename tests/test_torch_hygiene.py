@@ -1,0 +1,83 @@
+"""The port stands alone: it imports nothing of JAX, Flax, Optax or the JAX
+package, and its entry points run on the CUDA device unless the caller asks
+for the CPU."""
+
+import json
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "vision_pt_tpu_torch"
+FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|optax|vision_pt_tpu)(\.|$)")
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import vision_pt_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    vision_pt_tpu_torch.__path__, "vision_pt_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"imported": names, "modules": sorted(sys.modules)}))
+"""
+
+
+def test_importing_the_whole_port_loads_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
+        text=True, check=True, timeout=120,
+    )
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "vision_pt_tpu_torch.models.jit.pipeline" in report["imported"]
+    assert "vision_pt_tpu_torch.ops.short_attention" in report["imported"]
+    leaked = [m for m in report["modules"] if FORBIDDEN.match(m)]
+    assert leaked == []
+
+
+def test_port_sources_import_no_jax():
+    pattern = re.compile(
+        r"^\s*(?:from|import)\s+(jax|jaxlib|flax|optax|vision_pt_tpu)\b(?!_torch)",
+        re.M,
+    )
+    offenders = [
+        str(path.relative_to(ROOT))
+        for path in sorted(PORT.rglob("*.py"))
+        if pattern.search(path.read_text())
+    ]
+    assert offenders == []
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda(no_cuda, tmp_path):
+    from vision_pt_tpu_torch.models.jit import (
+        ClassContextConfig,
+        DenoiserConfig,
+        JiTConfig,
+        JiTModel,
+    )
+    from vision_pt_tpu_torch.utils import resolve_device
+
+    label2id = tmp_path / "label2id.json"
+    label2id.write_text(json.dumps({"c0": 0}))
+    config = JiTConfig(
+        context_encoder=ClassContextConfig(label2id_map_path=str(label2id)),
+        denoiser=DenoiserConfig(patch_size=4, hidden_size=64, depth=1,
+                                num_heads=2, rope_axes_dims=[8, 12, 12]),
+    )
+    for make in (
+        lambda: resolve_device(None),
+        lambda: JiTModel.new_with_config(config),
+        lambda: JiTModel(config),
+        lambda: JiTModel.from_pretrained(config, str(tmp_path / "missing.safetensors")),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert resolve_device("cpu") == torch.device("cpu")

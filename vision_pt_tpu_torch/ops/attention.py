@@ -1,0 +1,139 @@
+"""Attention dispatch (port of the part of ``vision_pt_tpu/ops/attention.py``
+that the JiT sampler uses).
+
+Layout is (B, S, H, D) throughout, as in the JAX package. fp32 q/k/v are cast
+to the attention dtype (default bf16) first. The ``xla`` backend (and
+``auto``, ``eager``, ``sdpa``) is the forward of ``xla_attention_remat`` in
+plain PyTorch: fp32 logits, ``finfo(float32).min`` masking, weights
+``exp(logits - logsumexp(logits))`` rounded to v's dtype before the PV
+product. The Pallas backends are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Literal
+
+import torch
+
+AttentionImplementation = Literal[
+    "auto", "flash", "short", "xla", "eager", "sdpa", "ring"
+]
+
+_DEFAULT_ATTENTION_DTYPE: torch.dtype | None = torch.bfloat16
+_SENTINEL = object()
+_NOT_PORTED = {
+    "flash": "ROADMAP Queue 2, kernel 7-8 (ops/flash_attention.py)",
+    "short": "ROADMAP Queue 2, kernels 3-6 (ops/short_attention.py)",
+    "ring": "ROADMAP Queue 1, slice 4 (ops/ring_attention.py)",
+}
+
+
+def set_default_attention_dtype(dtype: torch.dtype | None) -> None:
+    global _DEFAULT_ATTENTION_DTYPE
+    _DEFAULT_ATTENTION_DTYPE = dtype
+
+
+def get_default_attention_dtype() -> torch.dtype | None:
+    return _DEFAULT_ATTENTION_DTYPE
+
+
+@contextlib.contextmanager
+def attention_dtype(dtype: torch.dtype | None):
+    """Scoped override of the default attention compute dtype (parity runs
+    use ``attention_dtype(None)`` to stay fp32)."""
+    prev = get_default_attention_dtype()
+    set_default_attention_dtype(dtype)
+    try:
+        yield
+    finally:
+        set_default_attention_dtype(prev)
+
+
+@contextlib.contextmanager
+def _exact_tf32(inputs_dtype: torch.dtype, device: torch.device):
+    """Let a CUDA fp32 matmul use TF32 when its operands were upcast from
+    bf16/fp16: TF32 holds those values and their products exactly, so the
+    result is the low-precision product with fp32 accumulation, at tensor-core
+    speed. Native fp32 operands keep full fp32."""
+    if device.type != "cuda" or inputs_dtype not in (torch.bfloat16, torch.float16):
+        yield
+        return
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _masked_logits(q, k, mask, kv_lens, scale, is_causal):
+    sq, sk = q.shape[1], k.shape[1]
+    with _exact_tf32(q.dtype, q.device):
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    neg = torch.finfo(torch.float32).min
+    if kv_lens is not None:
+        key_valid = (
+            torch.arange(sk, device=q.device)[None, :]
+            < kv_lens.to(q.device)[:, None]
+        )
+        logits = logits.masked_fill(~key_valid[:, None, None, :], neg)
+    if mask is not None:
+        if mask.dim() == 2:  # (B, Sk) key padding
+            mask = mask[:, None, None, :]
+        if mask.dtype == torch.bool:
+            logits = logits.masked_fill(~mask, neg)
+        else:  # additive bias
+            logits = logits + mask.float()
+    if is_causal:
+        causal = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~causal, neg)
+    return logits
+
+
+def plain_attention(q, k, v, mask=None, kv_lens=None, scale=None,
+                    is_causal=False):
+    """The forward of ``xla_attention_remat``: (B, Sq, H, D) -> (B, Sq, H, D)
+    in v's dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = _masked_logits(q, k, mask, kv_lens, scale, is_causal)
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    weights = torch.exp(logits - lse).to(v.dtype)
+    with _exact_tf32(v.dtype, v.device):
+        out = torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float())
+    return out.to(v.dtype)
+
+
+def dot_product_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor | None = None,
+    kv_lens: torch.Tensor | None = None,
+    scale: float | None = None,
+    backend: AttentionImplementation = "auto",
+    attention_dtype: torch.dtype | None = _SENTINEL,  # type: ignore[assignment]
+    is_causal: bool = False,
+) -> torch.Tensor:
+    """Unified attention entry point. fp32 q/k/v are cast to
+    ``attention_dtype``; the output comes back in the input dtype."""
+    if not (q.dim() == k.dim() == v.dim() == 4):
+        raise ValueError("q, k, v must be (B, S, H, D)")
+    if attention_dtype is _SENTINEL:
+        attention_dtype = _DEFAULT_ATTENTION_DTYPE
+    orig_dtype = q.dtype
+    if q.dtype == torch.float32 and attention_dtype is not None:
+        q, k, v = q.to(attention_dtype), k.to(attention_dtype), v.to(attention_dtype)
+
+    if backend in ("auto", "eager", "sdpa"):
+        backend = "xla"
+    if backend in _NOT_PORTED:
+        raise NotImplementedError(
+            f"attention backend {backend!r} is not ported yet: "
+            f"{_NOT_PORTED[backend]}"
+        )
+    if backend != "xla":
+        raise ValueError(f"Unknown backend: {backend}")
+    out = plain_attention(q, k, v, mask, kv_lens, scale, is_causal)
+    return out.to(orig_dtype)
