@@ -34,6 +34,8 @@ def test_importing_the_whole_port_loads_no_jax():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "vision_pt_tpu_torch.models.jit.pipeline" in report["imported"]
     assert "vision_pt_tpu_torch.ops.short_attention" in report["imported"]
+    assert "vision_pt_tpu_torch.training.trainer" in report["imported"]
+    assert "vision_pt_tpu_torch.train.jit.class_to_image" in report["imported"]
     leaked = [m for m in report["modules"] if FORBIDDEN.match(m)]
     assert leaked == []
 
@@ -63,6 +65,9 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
         JiTConfig,
         JiTModel,
     )
+    from vision_pt_tpu_torch.config import TrainConfig
+    from vision_pt_tpu_torch.train.jit.class_to_image import run
+    from vision_pt_tpu_torch.training.trainer import Trainer
     from vision_pt_tpu_torch.utils import resolve_device
 
     label2id = tmp_path / "label2id.json"
@@ -72,11 +77,16 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
         denoiser=DenoiserConfig(patch_size=4, hidden_size=64, depth=1,
                                 num_heads=2, rope_axes_dims=[8, 12, 12]),
     )
+    train_config = {"model": config.model_dump(), "dataset": {"type": "synthetic"}}
+    yml = tmp_path / "train.yml"
+    yml.write_text(json.dumps(train_config))  # JSON is YAML
     for make in (
         lambda: resolve_device(None),
         lambda: JiTModel.new_with_config(config),
         lambda: JiTModel(config),
         lambda: JiTModel.from_pretrained(config, str(tmp_path / "missing.safetensors")),
+        lambda: Trainer(TrainConfig.model_validate(train_config)),
+        lambda: run(str(yml)),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()

@@ -76,9 +76,10 @@ class ClassEncoder(nn.Module):
         super().__init__()
         self.num_classes = len(label2id)
         self.pad_token_id = self.num_classes
+        # a plain table, as in the JAX package: the padding row starts at 0
+        # but takes gradients (a dropped context attends its padding tokens)
         self.embedding = nn.Embedding(
-            self.num_classes + 1, embedding_dim,
-            padding_idx=self.pad_token_id, dtype=param_dtype,
+            self.num_classes + 1, embedding_dim, dtype=param_dtype,
         )
         with torch.no_grad():  # normal(0.02), zero padding row
             self.embedding.weight.normal_(0.0, 0.02, generator=generator)

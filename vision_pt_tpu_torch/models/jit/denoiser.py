@@ -7,7 +7,9 @@ context appended at ``context_start_block`` and stripped after each block
 unless ``do_context_fuse``. RoPE runs rotate-half on a deinterleaved head dim,
 so the JAX package's parameters map onto these modules by transposes alone
 (``convert.from_jax_state``). Attention over the context-free blocks goes
-through the packed short-attention CUDA kernel on a CUDA device.
+through the packed short-attention CUDA kernels (forward and backward) on a
+CUDA device. ``set_gradient_checkpointing`` recomputes each block in the
+backward (``torch.utils.checkpoint``, the JAX package's ``nnx.remat``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import dot_product_attention
 from ...ops.norm import FP32RMSNorm, get_norm_layer
@@ -198,6 +201,20 @@ class Attention(nn.Module):
     def _split_heads(self, x: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
         return x.reshape(b, s, self.num_heads, self.head_dim)
+
+    def qk_logit_bound(self) -> torch.Tensor | None:
+        """Upper bound on |attention logit| under QKNorm:
+        sqrt(D) * max|g_q| * max|g_k| (RMS-normalised rows have L2 norm
+        sqrt(D); RoPE keeps norms). The packed kernel's no-max softmax is
+        exact while it stays <= BOUNDED_LOGIT_CLIP (60). None without QKNorm
+        or with gain-free norms."""
+        q_w = getattr(self.q_norm, "weight", None)
+        k_w = getattr(self.k_norm, "weight", None)
+        if q_w is None or k_w is None:
+            return None
+        dim = torch.tensor(float(self.head_dim), device=q_w.device)
+        return (torch.sqrt(dim) * q_w.detach().float().abs().max()
+                * k_w.detach().float().abs().max())
 
     def _project_qkv(self, hidden_states, rope_freqs):
         q = self._split_heads(self.to_q(hidden_states))
@@ -385,7 +402,20 @@ class JiT(nn.Module):
                 config.out_channels, eps=1e-6, norm_type="rms", **kw,
             )
         self._freqs_cache: dict[tuple, torch.Tensor] = {}
+        self.gradient_checkpointing = False
         self.to(device)
+
+    def set_gradient_checkpointing(self, enable: bool = True):
+        """Recompute each block's forward in the backward instead of keeping
+        its activations."""
+        self.gradient_checkpointing = enable
+
+    def qk_logit_bound(self) -> torch.Tensor | None:
+        """Max over blocks of ``Attention.qk_logit_bound``: the observable of
+        the bounded-softmax assumption, logged during training."""
+        bounds = [b for b in (blk.attn.qk_logit_bound() for blk in self.blocks)
+                  if b is not None]
+        return torch.stack(bounds).max() if bounds else None
 
     def _freqs_for(self, height: int, width: int, context_len: int,
                    device: torch.device) -> torch.Tensor:
@@ -477,8 +507,13 @@ class JiT(nn.Module):
                 key_mask_full[:, :seq_len]
                 if has_context and key_mask_full is not None else None
             )
-            tokens = block(tokens, freqs[:seq_len], kv_lens=kv_lens,
-                           key_mask=key_mask)
+            if self.gradient_checkpointing and torch.is_grad_enabled():
+                tokens = checkpoint(block, tokens, freqs[:seq_len],
+                                    kv_lens=kv_lens, key_mask=key_mask,
+                                    use_reentrant=False)
+            else:
+                tokens = block(tokens, freqs[:seq_len], kv_lens=kv_lens,
+                               key_mask=key_mask)
             if not cfg.do_context_fuse and i >= cfg.context_start_block:
                 tokens = tokens[:, :-context_len, :]
         patches = self.final_layer(tokens[:, :patches_len, :])

@@ -1,12 +1,15 @@
 """Attention dispatch (port of the part of ``vision_pt_tpu/ops/attention.py``
-that the JiT sampler uses).
+that the JiT sampler and training step use).
 
 Layout is (B, S, H, D) throughout, as in the JAX package. fp32 q/k/v are cast
 to the attention dtype (default bf16) first. The ``xla`` backend (and
-``auto``, ``eager``, ``sdpa``) is the forward of ``xla_attention_remat`` in
-plain PyTorch: fp32 logits, ``finfo(float32).min`` masking, weights
+``auto``, ``eager``, ``sdpa``) is ``xla_attention_remat`` in plain PyTorch:
+fp32 logits, ``finfo(float32).min`` masking, weights
 ``exp(logits - logsumexp(logits))`` rounded to v's dtype before the PV
-product. The Pallas backends are not ported yet and raise.
+product. Its backward saves only ``(out, lse)`` and recomputes the
+probabilities, as the JAX package's custom VJP does, so no (B, H, S, S)
+tensor lives from the forward to the backward. The Pallas backends are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -91,18 +94,70 @@ def _masked_logits(q, k, mask, kv_lens, scale, is_causal):
     return logits
 
 
-def plain_attention(q, k, v, mask=None, kv_lens=None, scale=None,
-                    is_causal=False):
-    """The forward of ``xla_attention_remat``: (B, Sq, H, D) -> (B, Sq, H, D)
-    in v's dtype."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
+def _attention_forward(q, k, v, mask, kv_lens, scale, is_causal):
     logits = _masked_logits(q, k, mask, kv_lens, scale, is_causal)
-    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)  # (B, H, Sq, 1)
     weights = torch.exp(logits - lse).to(v.dtype)
     with _exact_tf32(v.dtype, v.device):
         out = torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float())
-    return out.to(v.dtype)
+    return out.to(v.dtype), lse
+
+
+def _low_precision_product(equation, a, b, dtype):
+    """einsum of two tensors of ``dtype`` with fp32 accumulation, rounded to
+    ``dtype`` (the JAX package's einsum of two bf16 arrays)."""
+    with _exact_tf32(dtype, a.device):
+        return torch.einsum(equation, a.float(), b.float()).to(dtype)
+
+
+class _RematAttention(torch.autograd.Function):
+    """``xla_attention_remat``: the forward saves (q, k, v, mask, kv_lens,
+    out, lse); the backward (``_attn_remat_bwd``) recomputes the fp32
+    probabilities, rounds ``p`` and ``ds`` to the input dtype before their
+    products, takes ``delta`` from ``dout . out`` in fp32, and returns the
+    gradient of an additive mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, kv_lens, scale, is_causal):
+        out, lse = _attention_forward(q, k, v, mask, kv_lens, scale, is_causal)
+        ctx.save_for_backward(q, k, v, mask, kv_lens, out, lse)
+        ctx.args = (scale, is_causal)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask, kv_lens, out, lse = ctx.saved_tensors
+        scale, is_causal = ctx.args
+        logits = _masked_logits(q, k, mask, kv_lens, scale, is_causal)
+        p = torch.exp(logits - lse)  # (B, H, Sq, Sk) fp32, transient
+        dv = _low_precision_product("bhqk,bqhd->bkhd", p.to(v.dtype),
+                                    dout.to(v.dtype), v.dtype)
+        with _exact_tf32(dout.dtype, dout.device):
+            dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+        delta = torch.einsum("bqhd,bqhd->bhq", dout.float(), out.float())
+        ds = p * (dp - delta[..., None])  # fp32
+        ds_low = ds.to(q.dtype)
+        dq = _low_precision_product("bhqk,bkhd->bqhd", ds_low, k, q.dtype) * scale
+        dk = _low_precision_product("bhqk,bqhd->bkhd", ds_low, q, q.dtype) * scale
+        dmask = None
+        if mask is not None and mask.dtype != torch.bool and ctx.needs_input_grad[3]:
+            dmask = ds.to(mask.dtype)
+            if mask.dim() == 2:
+                dmask = dmask.sum(dim=(1, 2))
+            else:
+                dims = tuple(i for i in range(ds.dim()) if mask.shape[i] == 1)
+                dmask = dmask.sum(dim=dims, keepdim=True).reshape(mask.shape)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dmask, None,
+                None, None)
+
+
+def plain_attention(q, k, v, mask=None, kv_lens=None, scale=None,
+                    is_causal=False):
+    """``xla_attention_remat``: (B, Sq, H, D) -> (B, Sq, H, D) in v's dtype,
+    differentiable with the recomputing backward."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _RematAttention.apply(q, k, v, mask, kv_lens, scale, is_causal)
 
 
 def dot_product_attention(
