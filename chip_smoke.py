@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's JiT-B/16 class-to-image sampler and training step
-on one CUDA card.
+"""Drive the PyTorch port's JiT-B/16 class-to-image sampler and training step,
+and its latent JiT 1024^2 trainer, on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only   # phases 1-3 alone, no result line
 
 Phases, one JSON line each; any failure raises and the script exits non-zero
 without a result line:
@@ -11,14 +12,21 @@ without a result line:
    the paths from the sources in ``vision_pt_tpu_torch/csrc`` (one ``nvcc``
    per source, started together), with the ptxas register and spill report;
 2. kernel: each kernel against its plain PyTorch version, on the card, at the
-   paths' shapes and at edge shapes (tolerance 2e-2 abs/rel for bf16, 1e-4
-   for fp32; a kv_len 0 row must be exactly 0, and so must the key-gradient
-   rows past kv_len); autograd through ``short_attention_packed`` must give
+   paths' shapes and at edge shapes. Every element must lie within
+   tol * (RMS(ref) + |ref|), tol 2e-2 for bf16 and 1e-4 for fp32, and the
+   flash LSE within 1e-4 absolute; a kv_len 0 row must be exactly 0, and so
+   must the key-gradient rows past kv_len. At the latent shape the same
+   limits must fail the kernel's results against a plain version whose
+   kv_len is 64 keys short, at its tile edge, or one key short. Autograd
+   through ``short_attention_packed`` and ``flash_attention`` must give
    exactly the explicit backward;
 3. timing: each kernel's ms per launch (CUDA events), its bound on an H100
    SXM from the bytes and operations of these inputs, the plain version's ms,
    and one PyTorch library call that computes the same function, at the
-   sampler shape (forward) and the training-step shape (forward, backward);
+   sampler shape (forward) and the training-step shape (forward, backward)
+   of the packed kernels and at the latent trainer's shape (B 16, S 4106) of
+   the flash kernels (their plain versions over the same batch in calls of
+   2 rows);
 4. sampler: ``JiTModel.new_with_config`` at the full width of JiT-B/16, 256^2,
    bf16 compute, answering 3 requests of ``generate`` (batch 8, CFG, 20
    Euler steps); the forward kernel must launch 80 times per request and the
@@ -39,7 +47,20 @@ without a result line:
 8. parity: the same weights and injected noise through the sampler on the
    card (kernel) and on the CPU (plain versions), batch 1, CFG, 2 steps;
    PSNR at least 50 dB in fp32 (under ``attention_dtype(None)``) and 30 dB
-   in bf16.
+   in bf16;
+9. latent_trainer: the port's latent entry point
+   (``train.jit.latent_class_to_image.run``) on
+   ``configs/jit/latent_arb_1024.yml`` with every model and dataset field as
+   shipped (depth 24, 768 wide, patch 2 over a 128 x 128 x 4 latent, so
+   S = 4170 in every block; batch 16, bf16, gradient checkpointing, AdamW
+   1e-4) and only its paths rewritten: a synthetic cache of 64 latents in the
+   JAX package's layout, one epoch = 4 steps; exactly 48 flash forward, 24
+   flash backward and no packed launches per step; the last step runs under
+   the profiler;
+10. latent_parity: one training step of the latent workload at full width,
+   depth cut to 6, a 64 x 64 latent (S = 1098, still the flash path), batch
+   2, on the card (kernels) and on the CPU (plain versions), fp32 and bf16,
+   against the train_parity floors.
 
 Every kernel launch counter is set to 0 just before a path is driven and read
 just after. Then the ``{"kernels": [...]}`` line, the card's name and power
@@ -50,6 +71,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -61,6 +83,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# the flash forward's LSE (fp32 on both sides, about 8.3 at S 4106): absolute
+LSE_ATOL = 1e-4
 STEPS, BATCH, REQUESTS = 20, 8, 3
 LAUNCHES_PER_REQUEST = 4 * STEPS  # blocks 0-3 (before context_start_block)
 PSNR_FLOOR_DB = {"float32": 50.0, "bfloat16": 30.0}
@@ -74,6 +98,14 @@ TRAIN_BATCH, TRAIN_CONTEXT, TIMED_STEPS = 64, 32, 10
 TRAIN_PARITY_FLOOR = {"float32": {"loss": 1e-4, "grad": 1e-3},
                       "bfloat16": {"loss": 2e-2, "grad": 1e-1}}
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# the port's own kernels among a profile's device kernels
+PORT_KERNEL = re.compile(r"attn_fwd_|(packed|flash)_bwd_(dq|dkdv)_")
+SOURCES = ("short_attention", "short_attention_bwd", "flash_attention",
+           "flash_attention_bwd")
+LATENT_BATCH, LATENT_SIDE, LATENT_ITEMS = 16, 128, 64
+# flash launches per latent training step: 24 blocks forward, 24 recomputed
+# under gradient checkpointing, 24 backward
+LATENT_STEP_LAUNCHES = (0, 0, 48, 24)
 
 
 class SmokeFailure(RuntimeError):
@@ -126,7 +158,7 @@ def phase_device() -> str:
     check(torch.cuda.device_count() >= 1, "no CUDA device")
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    _build.build(["short_attention", "short_attention_bwd"])
+    _build.build(list(SOURCES))
     seconds = time.perf_counter() - t0
     ptxas = [line.strip() for log, _ in _build.build_logs.values()
              for line in log.splitlines()
@@ -153,9 +185,27 @@ def _kv_lens(gen, lens, batch, sk):
     return None if lens is None else torch.tensor(lens, device="cuda")
 
 
-def _compare(out, ref, tol):
-    diff = (out.float() - ref.float()).abs()
-    return float(diff.max()), bool((diff <= tol + tol * ref.float().abs()).all())
+def _compare(out, ref, tol, atol=None):
+    """The largest |out - ref|, and the largest share of its limit
+    atol + tol * |ref| that an element uses (at most 1 to agree). ``atol``
+    defaults to tol times the RMS of ref, so the limit follows the size of
+    what is compared: at S = 4170 an attention output or gradient is about
+    0.025 in RMS, and a fixed 2e-2 would pass a kernel that drops a key
+    tile."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    if atol is None:
+        atol = tol * float(ref.square().mean().sqrt())
+    limit = (atol + tol * ref.abs()).clamp_min(1e-30)
+    return float(diff.max()), float((diff / limit).max())
+
+
+def _agree(compared) -> tuple[float, float, bool]:
+    """(largest error, largest limit share, every tensor within its limit)
+    over the ``_compare`` results of one kernel's outputs."""
+    err = max(e for e, _ in compared)
+    share = max(s for _, s in compared)
+    return err, share, share <= 1.0
 
 
 def phase_kernel() -> dict:
@@ -200,9 +250,8 @@ def phase_kernel() -> dict:
                                                          kv_lens, bounded=bounded)
         for kernel, outs, refs in (("short_attention_packed", [out], [ref]),
                                    ("short_attention_packed_bwd", grads, ref_grads)):
-            compared = [_compare(o, r, tol) for o, r in zip(outs, refs)]
-            err = max(e for e, _ in compared)
-            within = all(w for _, w in compared)
+            err, share, within = _agree(
+                [_compare(o, r, tol) for o, r in zip(outs, refs)])
             finite = all(bool(torch.isfinite(o).all()) for o in outs)
             zero_row = past_kv_zero = None
             if kv_lens is not None and int(kv_lens[1]) == 0:
@@ -212,8 +261,9 @@ def phase_kernel() -> dict:
                 past_kv_zero = all(bool((g[0, k0:] == 0).all()) for g in grads[1:])
             emit("kernel", kernel=kernel, case=name,
                  shape=[batch, sq, sk, heads, dim], dtype=str(dtype),
-                 bounded=bounded, max_abs_err=err, tolerance=tol, finite=finite,
-                 zero_row=zero_row, past_kv_zero=past_kv_zero)
+                 bounded=bounded, max_abs_err=err, tolerance=tol,
+                 limit_share=share, finite=finite, zero_row=zero_row,
+                 past_kv_zero=past_kv_zero)
             check(finite and within and zero_row is not False
                   and past_kv_zero is not False,
                   f"{kernel} disagrees with its plain version at {name}")
@@ -235,16 +285,150 @@ def phase_kernel() -> dict:
     return errors
 
 
+FLASH_CASES = [
+    # (name, batch, sq, sk, heads, dim, dtype, causal, kv_lens)
+    ("path_s4170_kv", 4, 4170, 4170, 12, 64, torch.bfloat16, False,
+     [4106, 4170, 4107, 0]),
+    ("path_s4106", 4, 4106, 4106, 12, 64, torch.bfloat16, False, None),
+    ("s1000_kv", 2, 1000, 1000, 12, 64, torch.bfloat16, False, [1000, 0]),
+    ("sq1000_sk1500", 2, 1000, 1500, 6, 64, torch.bfloat16, False, [1337, 0]),
+    ("causal_s1000", 2, 1000, 1000, 12, 64, torch.bfloat16, True, [1000, 777]),
+    ("d128", 2, 1000, 1100, 6, 128, torch.bfloat16, False, [1100, 0]),
+    ("fp32_s1000", 2, 1000, 1000, 4, 64, torch.float32, False, [1000, 0]),
+    ("fp32_d128_causal", 2, 700, 700, 2, 128, torch.float32, True, [700, 333]),
+]
+
+
+def _bshd(gen, batch, s, heads, dim, dtype):
+    return torch.randn(batch, s, heads, dim, generator=gen, device="cuda").to(dtype)
+
+
+def _flash_compare(outs, refs, tol):
+    """``_compare`` over (out, lse) or (dq, dk, dv); the LSE, the one (B, H,
+    Sq) tensor, is held to LSE_ATOL absolute."""
+    return [_compare(o, r, 0.0, LSE_ATOL) if o.dim() == 3 else _compare(o, r, tol)
+            for o, r in zip(outs, refs)]
+
+
+def _flash_limits_can_fail(q, k, v, do, out, lse, grads, lens, tol):
+    """The limits must fail a kernel that is slightly wrong: the kernel's
+    results for row 2 (kv_len 4107) against the plain version of that row
+    with 64 keys fewer, with kv_len rounded down to its tile edge (4096) and
+    with one key fewer. Each must make the forward and the backward
+    disagree; 64 keys fewer must make every tensor disagree on its own."""
+    from vision_pt_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+    )
+
+    i, n = 2, lens[2]
+    row = [x[i:i + 1] for x in (q, k, v, out, lse, do)]
+    kernel = [out[i:i + 1], lse[i:i + 1], *(g[i:i + 1] for g in grads)]
+    shares = {}
+    for label, wrong in (("64_keys_fewer", n - 64), ("tile_edge", n // 64 * 64),
+                         ("one_key_fewer", n - 1)):
+        wrong_lens = torch.tensor([wrong], device="cuda")
+        refs = [*flash_attention_reference(*row[:3], wrong_lens),
+                *flash_attention_bwd_reference(*row, wrong_lens)]
+        shares[label] = dict(zip(("out", "lse", "dq", "dk", "dv"), (
+            s for _, s in (_flash_compare(kernel[:2], refs[:2], tol)
+                           + _flash_compare(kernel[2:], refs[2:], tol)))))
+    emit("kernel", kernel="flash_attention", case="limits_can_fail", kv_len=n,
+         limit_shares=shares)
+    for label, s in shares.items():
+        check(max(s["out"], s["lse"]) > 1 and max(s["dq"], s["dk"], s["dv"]) > 1,
+              f"the flash limits pass a kernel with kv_len off ({label}): {s}")
+    check(min(shares["64_keys_fewer"].values()) > 1,
+          f"a flash limit passes 64 keys left out: {shares['64_keys_fewer']}")
+
+
+def phase_flash_kernel() -> dict:
+    """Kernels #7 and #8 against their plain versions; returns the largest
+    error of each at the latent trainer's shape (S 4170 with kv_lens)."""
+    from vision_pt_tpu_torch.ops.flash_attention import (
+        NEG_INF,
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+        flash_attention_with_lse,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    errors = {}
+    for name, batch, sq, sk, heads, dim, dtype, causal, lens in FLASH_CASES:
+        q, do = (_bshd(gen, batch, sq, heads, dim, dtype) for _ in range(2))
+        k, v = (_bshd(gen, batch, sk, heads, dim, dtype) for _ in range(2))
+        kv_lens = None if lens is None else torch.tensor(lens, device="cuda")
+        tol = TOL[dtype]
+        out, lse = flash_attention_with_lse(q, k, v, kv_lens, causal=causal)
+        # the backward's plain version takes the kernel's (out, lse) too
+        grads = flash_attention_bwd(q, k, v, out, lse, do, kv_lens, causal=causal)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_attention_reference(q, k, v, kv_lens, causal=causal)
+        ref_grads = flash_attention_bwd_reference(q, k, v, out, lse, do, kv_lens,
+                                                  causal=causal)
+        zero_rows = [i for i, n in enumerate(lens or []) if n == 0]
+        partial = [(i, n) for i, n in enumerate(lens or []) if 0 < n < sk]
+        for kernel, outs, refs in (("flash_attention", [out, lse], [ref, ref_lse]),
+                                   ("flash_attention_bwd", grads, ref_grads)):
+            err, share, within = _agree(_flash_compare(outs, refs, tol))
+            finite = all(bool(torch.isfinite(o).all()) for o in outs)
+            # a kv_len 0 row: output and gradients 0, LSE -1e30
+            zero_row = all(bool((o[i] == (NEG_INF if o is lse else 0)).all())
+                           for o in outs for i in zero_rows) if zero_rows else None
+            past_kv_zero = None
+            if kernel.endswith("bwd") and partial:
+                past_kv_zero = all(bool((g[i, n:] == 0).all())
+                                   for g in grads[1:] for i, n in partial)
+            emit("kernel", kernel=kernel, case=name,
+                 shape=[batch, sq, sk, heads, dim], dtype=str(dtype),
+                 causal=causal, kv_lens=lens, max_abs_err=err, tolerance=tol,
+                 lse_atol=LSE_ATOL if kernel == "flash_attention" else None,
+                 limit_share=share, finite=finite, zero_row=zero_row,
+                 past_kv_zero=past_kv_zero)
+            check(finite and within and zero_row is not False
+                  and past_kv_zero is not False,
+                  f"{kernel} disagrees with its plain version at {name}")
+            if name == "path_s4170_kv":
+                errors[kernel] = err
+        if name == "path_s4170_kv":
+            _flash_limits_can_fail(q, k, v, do, out, lse, grads, lens, tol)
+        del ref, ref_lse, ref_grads, grads
+        torch.cuda.empty_cache()
+
+    # autograd through the Function runs exactly the backward kernel
+    q, k, v = (_bshd(gen, 2, 1000, 12, 64, torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    do = _bshd(gen, 2, 1000, 12, 64, torch.bfloat16)
+    kv_lens = torch.tensor([1000, 611], device="cuda")
+    out = flash_attention(q, k, v, kv_lens)
+    auto = torch.autograd.grad(out, (q, k, v), do)
+    leaves = [x.detach() for x in (q, k, v)]
+    again, lse = flash_attention_with_lse(*leaves, kv_lens)
+    explicit = flash_attention_bwd(*leaves, again, lse, do, kv_lens)
+    equal = torch.equal(out, again) and all(
+        torch.equal(a, b) for a, b in zip(auto, explicit))
+    emit("kernel", kernel="flash_attention_bwd", case="autograd",
+         autograd_equals_explicit=equal)
+    check(equal, "autograd through flash_attention differs from its backward")
+    return errors
+
+
 def _time_kernel(name, fn, plain, library, nbytes, flops, dtype, replaces,
-                 source, shape, library_name):
-    ms = cuda_ms(fn, 50)
-    plain_ms = cuda_ms(plain, 5)
-    library_ms = cuda_ms(library, 50)
+                 source, shape, library_name, plain_chunk=None, iters=50):
+    """One row of the kernels line. Every time is of the same inputs;
+    ``plain_chunk`` notes that the plain version went over the batch in
+    chunks of that many rows, one call each."""
+    ms = cuda_ms(fn, iters)
+    plain_ms = cuda_ms(plain, 3 if plain_chunk else 5, warmup=1 if plain_chunk else 3)
+    library_ms = cuda_ms(library, iters)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     row = dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+        ms=ms, plain_ms=plain_ms, plain_chunk=plain_chunk,
+        bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=library_ms,
     )
@@ -304,23 +488,93 @@ def phase_timing() -> dict:
     return rows
 
 
+def phase_flash_timing() -> dict:
+    """Kernels #7 and #8 at the latent trainer's shape without kv_lens
+    (B 16, S 4106, H 12, D 64, bf16); their plain versions on the same
+    inputs in 8 calls of batch 2, whose (B, H, S, S) fp32 tensors are 1.6 GB
+    each (12.9 GB at batch 16)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from vision_pt_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+        flash_attention_with_lse,
+    )
+
+    batch, s, heads, dim, dtype = LATENT_BATCH, 4106, 12, 64, torch.bfloat16
+    chunk = 2
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (_bshd(gen, batch, s, heads, dim, dtype) for _ in range(4))
+    out, lse = flash_attention_with_lse(q, k, v)
+    chunks = [[x[i:i + chunk] for x in (q, k, v, out, lse, do)]
+              for i in range(0, batch, chunk)]
+    size = q.numel() * q.element_size()
+    lse_bytes = lse.numel() * lse.element_size()
+    product = 2 * batch * heads * s * s * dim  # one (S, S, D) product
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        sdpa_out = F.scaled_dot_product_attention(*leaves)
+    rows = {}
+    shape = ["latent", batch, s, s, heads, dim]
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        rows["flash_attention"] = _time_kernel(
+            "flash_attention",
+            lambda: flash_attention_with_lse(q, k, v),
+            lambda: [flash_attention_reference(*c[:3]) for c in chunks],
+            lambda: F.scaled_dot_product_attention(qh, kh, vh),
+            4 * size + lse_bytes, 2 * product, dtype,
+            "vision_pt_tpu/ops/flash_attention.py:115",
+            "vision_pt_tpu_torch/csrc/flash_attention.cu", shape,
+            "F.scaled_dot_product_attention (FLASH_ATTENTION backend)",
+            plain_chunk=chunk, iters=20,
+        )
+        rows["flash_attention_bwd"] = _time_kernel(
+            "flash_attention_bwd",
+            lambda: flash_attention_bwd(q, k, v, out, lse, do),
+            lambda: [flash_attention_bwd_reference(*c) for c in chunks],
+            lambda: torch.autograd.grad(sdpa_out, leaves, doh, retain_graph=True),
+            8 * size + lse_bytes, 5 * product, dtype,
+            "vision_pt_tpu/ops/flash_attention.py:325",
+            "vision_pt_tpu_torch/csrc/flash_attention_bwd.cu", shape,
+            "torch.autograd.grad of F.scaled_dot_product_attention "
+            "(FLASH_ATTENTION backend)",
+            plain_chunk=chunk, iters=20,
+        )
+    del q, k, v, do, out, lse, chunks, leaves, sdpa_out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _wrappers():
+    """The kernel wrappers, in the order of every launch-count tuple:
+    packed forward, packed backward, flash forward, flash backward."""
+    from vision_pt_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from vision_pt_tpu_torch.ops.short_attention import (
+        short_attention_packed,
+        short_attention_packed_bwd,
+    )
+
+    return (short_attention_packed, short_attention_packed_bwd,
+            flash_attention, flash_attention_bwd)
+
+
 def _reset_counts():
-    from vision_pt_tpu_torch.ops.short_attention import (
-        short_attention_packed,
-        short_attention_packed_bwd,
-    )
-
-    short_attention_packed.launches = 0
-    short_attention_packed_bwd.launches = 0
+    for fn in _wrappers():
+        fn.launches = 0
 
 
-def _counts() -> tuple[int, int]:
-    from vision_pt_tpu_torch.ops.short_attention import (
-        short_attention_packed,
-        short_attention_packed_bwd,
-    )
+def _counts() -> tuple[int, int, int, int]:
+    return tuple(fn.launches for fn in _wrappers())
 
-    return short_attention_packed.launches, short_attention_packed_bwd.launches
+
+def _diff(after, before) -> tuple[int, ...]:
+    return tuple(a - b for a, b in zip(after, before))
 
 
 def _jit_b16_config(label2id: str, dtype: str):
@@ -332,7 +586,7 @@ def _jit_b16_config(label2id: str, dtype: str):
     )
 
 
-def phase_sampler(label2id: str) -> int:
+def phase_sampler(label2id: str) -> tuple[int, ...]:
     from vision_pt_tpu_torch.models.jit import JiTModel
 
     t0 = time.perf_counter()
@@ -358,17 +612,18 @@ def phase_sampler(label2id: str) -> int:
         per_request.append(_counts()[0] - before)
         check(tuple(out.shape) == (BATCH, 256, 256, 3), f"shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out).all()), "non-finite image")
-    launches, bwd_launches = _counts()
+    launches, bwd_launches, *flash = _counts()
     emit("sampler", model="JiT-B/16", resolution=256, batch=BATCH, cfg=True,
          steps=STEPS, build_seconds=round(build_s, 3), request_seconds=seconds,
          steps_per_second=[STEPS / s for s in seconds],
          kernel_launches_per_request=per_request, bwd_launches=bwd_launches,
-         peak_memory_bytes=torch.cuda.max_memory_allocated())
-    check(per_request == [LAUNCHES_PER_REQUEST] * REQUESTS and bwd_launches == 0,
+         flash_launches=flash, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    check(per_request == [LAUNCHES_PER_REQUEST] * REQUESTS and bwd_launches == 0
+          and flash == [0, 0],
           f"packed kernel launches per request {per_request} (backward "
-          f"{bwd_launches}), expected {LAUNCHES_PER_REQUEST} (0)")
+          f"{bwd_launches}, flash {flash}), expected {LAUNCHES_PER_REQUEST} (0)")
     profile("sampler", lambda: request(7))
-    return launches
+    return launches, bwd_launches, *flash
 
 
 def profile(path: str, run):
@@ -396,14 +651,14 @@ def profile(path: str, run):
     emit("profile", path=path, wall_seconds=wall,
          device_kernel_seconds=device_us / 1e6,
          device_busy_share=(device_us / 1e6) / wall,
-         packed_kernels=rows([e for e in kernels if "packed_" in e.key],
-                             "device_time_total", 6),
+         port_kernels=rows([e for e in kernels if PORT_KERNEL.search(e.key)],
+                           "device_time_total", 8),
          top_ops=rows(ops, "self_device_time_total", 14),
          top_kernels=rows(kernels, "device_time_total", 8))
     return result
 
 
-def phase_train_step() -> tuple[int, int]:
+def phase_train_step() -> tuple[int, ...]:
     """``bench_headline``'s step (vision_pt_tpu/benchmarks.py:83-135) in the
     port; returns the kernel launches of the timed steps."""
     from vision_pt_tpu_torch.models.jit import Denoiser, JiT_B_16_Config
@@ -445,7 +700,8 @@ def phase_train_step() -> tuple[int, int]:
     losses = [step(i) for i in range(1, TIMED_STEPS + 1)]
     torch.cuda.synchronize()
     seconds = (time.perf_counter() - t0) / TIMED_STEPS
-    fwd, bwd = _counts()
+    counts = _counts()
+    fwd, bwd = counts[:2]
     losses = [float(x) for x in losses]
     emit("train_step", model="JiT-B/16", resolution=256, batch=batch,
          context_tokens=TRAIN_CONTEXT, compute="bfloat16", params="float32",
@@ -455,16 +711,16 @@ def phase_train_step() -> tuple[int, int]:
          fwd_launches_per_step=fwd / TIMED_STEPS,
          bwd_launches_per_step=bwd / TIMED_STEPS)
     check(all(np.isfinite(losses)), f"non-finite loss {losses}")
-    check((fwd, bwd) == (12 * TIMED_STEPS, 12 * TIMED_STEPS),
-          f"kernel launches {fwd} + {bwd} over {TIMED_STEPS} steps, "
-          "expected 12 + 12 per step")
+    check(counts == (12 * TIMED_STEPS, 12 * TIMED_STEPS, 0, 0),
+          f"kernel launches {counts} over {TIMED_STEPS} steps, "
+          "expected 12 + 12 packed per step and no flash")
     profile("train_step", lambda: step(TIMED_STEPS + 1))
     del model, optimizer
     torch.cuda.empty_cache()
-    return fwd, bwd
+    return counts
 
 
-def phase_trainer(tmp: str) -> tuple[int, int]:
+def phase_trainer(tmp: str) -> tuple[int, ...]:
     """The port's entry point on the synthetic config at JiT-B/16 width;
     returns the kernel launches of the whole run (steps and preview)."""
     import yaml
@@ -507,8 +763,7 @@ def phase_trainer(tmp: str) -> tuple[int, int]:
             out = inner(self, *args, **kwargs)
         torch.cuda.synchronize()
         step_seconds.append(time.perf_counter() - t0)
-        after = _counts()
-        per_step.append((after[0] - before[0], after[1] - before[1]))
+        per_step.append(_diff(_counts(), before))
         return out
 
     Trainer.train_step = counting
@@ -519,7 +774,7 @@ def phase_trainer(tmp: str) -> tuple[int, int]:
     finally:
         Trainer.train_step = inner
     seconds = time.perf_counter() - t0
-    fwd, bwd = _counts()
+    counts = _counts()
     with open(os.path.join(tmp, "logs", "verify_run.metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
     losses = [r["train/loss"] for r in records if "train/loss" in r]
@@ -535,18 +790,19 @@ def phase_trainer(tmp: str) -> tuple[int, int]:
          model="JiT-B/16", resolution=256, batch=TRAIN_BATCH,
          steps=trainer.global_step, run_seconds=seconds,
          step_seconds=step_seconds, losses=losses,
-         launches_per_step=per_step, run_launches=[fwd, bwd], saved=saved,
+         launches_per_step=per_step, run_launches=counts, saved=saved,
          previews=len(previews), reloaded=reloaded,
          qk_logit_bound=[r.get("train/qk_logit_bound") for r in records
                          if "train/loss" in r])
     check(trainer.global_step == 4 and len(losses) == 4
           and all(np.isfinite(losses)), f"trainer losses {losses}")
-    check(per_step == [(4, 4)] * 4, f"launches per step {per_step}, expected 4 + 4")
+    check(per_step == [(4, 4, 0, 0)] * 4,
+          f"launches per step {per_step}, expected 4 + 4 packed, no flash")
     check(len(saved) == 2 and len(previews) == 1 and reloaded,
           f"saved {saved}, previews {previews}, reloaded {reloaded}")
     del trainer, loaded
     torch.cuda.empty_cache()
-    return fwd, bwd
+    return counts
 
 
 def phase_train_parity(label2id: str) -> None:
@@ -612,7 +868,7 @@ def phase_train_parity(label2id: str) -> None:
              launches_cpu=counts_h, seconds_cuda=sec_c, seconds_cpu=sec_h)
         check(all(bool(torch.isfinite(g).all()) for g in grads_c.values()),
               "non-finite grads")
-        check(counts_c == (4, 4) and counts_h == (0, 0),
+        check(counts_c == (4, 4, 0, 0) and counts_h == (0, 0, 0, 0),
               f"the card step must launch 4 + 4 kernels ({counts_c}), the CPU "
               f"step none ({counts_h})")
         check(loss_err <= floor["loss"] and worst[0][1] <= floor["grad"],
@@ -654,30 +910,231 @@ def phase_parity(label2id: str) -> None:
               f"{dtype} card-vs-CPU PSNR {value:.2f} dB < {PSNR_FLOOR_DB[dtype]}")
 
 
-def main() -> int:
+def _write_latent_cache(cache_dir: str, label2id: str) -> None:
+    """A cache in the JAX package's layout (``vision_pt_tpu/data/
+    latent_cache.py``): LATENT_ITEMS latents of 128 x 128 x 4 fp16
+    mean/std, SDXL sizes of 1024, captions of 1-4 of four classes, so the
+    context (and kv_lens) differ per row."""
+    rng = np.random.default_rng(0)
+    os.makedirs(cache_dir, exist_ok=True)
+    rows = []
+    side, size = LATENT_SIDE, 8 * LATENT_SIDE
+    for i in range(LATENT_ITEMS):
+        name = f"{i:040x}.npz"
+        np.savez(os.path.join(cache_dir, name),
+                 mean=rng.normal(size=(side, side, 4)).astype(np.float16),
+                 std=rng.uniform(0.05, 0.3, size=(side, side, 4)).astype(np.float16))
+        rows.append({"caption": " ".join(f"c{(i + j) % 4}" for j in range(1 + i % 4)),
+                     "height": size, "width": size,
+                     "original_size": [size, size], "target_size": [size, size],
+                     "crop_coords_top_left": [0, 0], "scaling_factor": 0.13025,
+                     "dtype": "float16", "file": name, "latent_height": side,
+                     "latent_width": side})
+    with open(os.path.join(cache_dir, "manifest.jsonl"), "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    with open(label2id, "w") as f:
+        json.dump({f"c{i}": i for i in range(4)}, f)
+
+
+def phase_latent_trainer(tmp: str) -> tuple[int, ...]:
+    """The port's latent entry point on ``configs/jit/latent_arb_1024.yml`` as
+    shipped, paths rewritten; returns the kernel launches of the whole run
+    (the sanity check and 4 steps)."""
+    import yaml
+
+    from vision_pt_tpu_torch.train.jit.latent_class_to_image import run
+    from vision_pt_tpu_torch.training.trainer import Trainer
+
+    with open(os.path.join(ROOT, "configs/jit/latent_arb_1024.yml")) as f:
+        cfg = yaml.safe_load(f)
+    label2id = os.path.join(tmp, "latent_label2id.json")
+    _write_latent_cache(os.path.join(tmp, "latent_cache"), label2id)
+    cfg["model"]["context_encoder"]["label2id_map_path"] = label2id
+    cfg["dataset"]["cache_dir"] = os.path.join(tmp, "latent_cache")
+    cfg["saving"]["callbacks"][0]["save_dir"] = os.path.join(tmp, "latent_out")
+    cfg["tracker"]["log_dir"] = os.path.join(tmp, "latent_logs")
+    cfg["num_train_epochs"] = 1
+    path = os.path.join(tmp, "latent.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+
+    per_step, step_seconds, context_lens = [], [], []
+    inner = Trainer.train_step
+
+    def counting(self, batch, *args, **kwargs):
+        context_lens.append(batch["context_mask"].sum(dim=1).tolist())
+        before = _counts()
+        t0 = time.perf_counter()
+        if len(per_step) == 3:  # the last step runs under the profiler
+            out = profile("latent_trainer",
+                          lambda: inner(self, batch, *args, **kwargs))
+        else:
+            out = inner(self, batch, *args, **kwargs)
+        torch.cuda.synchronize()
+        step_seconds.append(time.perf_counter() - t0)
+        per_step.append(_diff(_counts(), before))
+        return out
+
+    Trainer.train_step = counting
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer = run(path)
+    finally:
+        Trainer.train_step = inner
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(tmp, "latent_logs", "JiT", "latent-1024.metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    saved = sorted(os.listdir(os.path.join(tmp, "latent_out")))
+    denoiser = trainer.model.model.denoiser
+    tokens = (LATENT_SIDE // denoiser.config.patch_size) ** 2 + 6 + \
+        denoiser.config.num_time_tokens + trainer.model.model_config.max_token_length
+    steady = step_seconds[1:3]  # after the first, before the profiled step
+    emit("latent_trainer", config="configs/jit/latent_arb_1024.yml",
+         depth=denoiser.config.depth, hidden=denoiser.config.hidden_size,
+         latent=[LATENT_SIDE, LATENT_SIDE, 4], tokens=tokens,
+         batch=LATENT_BATCH, steps=trainer.global_step, run_seconds=seconds,
+         step_seconds=step_seconds,
+         seconds_per_step=sum(steady) / len(steady),
+         latents_per_second=LATENT_BATCH * len(steady) / sum(steady),
+         peak_memory_bytes=peak, losses=losses,
+         context_tokens_per_step=context_lens,
+         launches_per_step=per_step, run_launches=counts, saved=saved)
+    check(denoiser.config.depth == 24 and tokens == 4170,
+          f"latent config: depth {denoiser.config.depth}, {tokens} tokens")
+    check(trainer.global_step == 4 and len(losses) == 4
+          and all(np.isfinite(losses)), f"latent trainer losses {losses}")
+    check(per_step == [LATENT_STEP_LAUNCHES] * 4,
+          f"launches per step {per_step}, expected {LATENT_STEP_LAUNCHES}")
+    check(len(saved) == 1, f"saved {saved}")
+    del trainer, denoiser
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_latent_parity(tmp: str) -> None:
+    """One latent training step's loss and gradients on the card and on the
+    CPU: full width, depth 6, a 64 x 64 latent (S = 1098), batch 2."""
+    import yaml
+
+    import vision_pt_tpu_torch.ops.attention as attention
+    from vision_pt_tpu_torch.config import TrainConfig
+    from vision_pt_tpu_torch.workloads.jit_variants import (
+        JiTForArbClassToImageTraining,
+    )
+
+    with open(os.path.join(ROOT, "configs/jit/latent_arb_1024.yml")) as f:
+        model = yaml.safe_load(f)["model"]
+    model["context_encoder"]["label2id_map_path"] = os.path.join(
+        tmp, "latent_label2id.json")
+    model["denoiser"]["depth"] = 6
+    model["drop_context_rate"] = 0.0
+    rng = np.random.default_rng(1)
+    batch = {"latents": rng.normal(size=(2, 64, 64, 4)).astype(np.float32),
+             "caption": ["c1", "c0 c2 c3"],
+             **{k: np.full((2, 2), v, np.int32) for k, v in
+                (("original_size", 512), ("target_size", 512),
+                 ("crop_coords_top_left", 0))}}
+    t_draw = rng.normal(size=(2,)).astype(np.float32)
+    noise = rng.normal(size=(2, 64, 64, 4)).astype(np.float32)
+    for dtype in ("float32", "bfloat16"):
+        config = TrainConfig.model_validate({"model": {**model, "dtype": dtype},
+                                             "dataset": {}, "seed": 0})
+        results = {}
+        for device in ("cuda", "cpu"):
+            workload = JiTForArbClassToImageTraining(config, torch.device(device))
+            workload.setup_model()
+            trainable = workload.trainable()
+            arrays = workload.prepare_batch(batch)
+            draws = {"timesteps": torch.sigmoid(torch.from_numpy(t_draw) * 0.8 - 0.8),
+                     "noise": torch.from_numpy(noise)}
+            draws = {k: v.to(device) for k, v in draws.items()}
+            _reset_counts()
+            gate = attention._on_cuda
+            # the CPU runs the same path, through the plain versions
+            attention._on_cuda = lambda x: True
+            t0 = time.perf_counter()
+            try:
+                with attention.attention_dtype(None if dtype == "float32"
+                                               else torch.bfloat16):
+                    loss, _ = workload.compute_loss(trainable, arrays, draws)
+                    loss.backward()
+            finally:
+                attention._on_cuda = gate
+            results[device] = (
+                float(loss.detach()),
+                {n: p.grad.detach().float().cpu() for n, p in trainable.named_parameters()},
+                _counts(), time.perf_counter() - t0,
+            )
+            del workload, trainable
+        (loss_c, grads_c, counts_c, sec_c), (loss_h, grads_h, counts_h, sec_h) = (
+            results["cuda"], results["cpu"])
+        loss_err = abs(loss_c - loss_h) / abs(loss_h)
+        grad_err = {n: float(torch.linalg.vector_norm(grads_c[n] - g)
+                             / torch.linalg.vector_norm(g).clamp_min(1e-30))
+                    for n, g in grads_h.items()}
+        worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:5]
+        floor = TRAIN_PARITY_FLOOR[dtype]
+        emit("latent_parity", dtype=dtype, batch=2, depth=6, latent=[64, 64, 4],
+             loss_cuda=loss_c, loss_cpu=loss_h, loss_rel_err=loss_err,
+             grad_rel_l2_max=worst[0][1],
+             grad_rel_l2_median=float(np.median(list(grad_err.values()))),
+             worst_params=worst, floor=floor, launches_cuda=counts_c,
+             launches_cpu=counts_h, seconds_cuda=sec_c, seconds_cpu=sec_h)
+        check(all(bool(torch.isfinite(g).all()) for g in grads_c.values()),
+              "non-finite grads")
+        check(counts_c == (0, 0, 6, 6) and counts_h == (0, 0, 0, 0),
+              f"the card step must launch 6 + 6 flash kernels ({counts_c}), "
+              f"the CPU step none ({counts_h})")
+        check(loss_err <= floor["loss"] and worst[0][1] <= floor["grad"],
+              f"{dtype} latent parity: loss {loss_err:.2e}, grad {worst[0]}")
+    torch.cuda.empty_cache()
+
+
+def main(args: list[str]) -> int:
+    if args not in ([], ["--kernels-only"]):
+        print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     started = time.perf_counter()
     smi = phase_device()
-    errors = phase_kernel()
+    errors = {**phase_kernel(), **phase_flash_kernel()}
     rows = phase_timing()
+    rows.update(phase_flash_timing())
+    if args:  # no path was driven: no kernels line and no result line
+        emit("done", seconds=time.perf_counter() - started)
+        return 0
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         label2id = os.path.join(tmp, "label2id.json")
         with open(label2id, "w") as f:
             json.dump({f"c{i}": i for i in range(4)}, f)
-        launches["sampler"] = (phase_sampler(label2id), 0)
+        launches["sampler"] = phase_sampler(label2id)
         launches["train_step"] = phase_train_step()
         launches["trainer"] = phase_trainer(tmp)
         phase_train_parity(label2id)
         phase_parity(label2id)
+        launches["latent_trainer"] = phase_latent_trainer(tmp)
+        phase_latent_parity(tmp)
     kernels = []
-    for i, (row, kernel) in enumerate(((rows["train"], "short_attention_packed"),
-                                       (rows["train_bwd"], "short_attention_packed_bwd"))):
-        kernels.append({**row, "launches": launches["train_step"][i],
+    # each kernel's launches are those of its main path: the training step
+    # for the packed kernels, the latent trainer for the flash kernels
+    for i, (row, kernel, path) in enumerate((
+            (rows["train"], "short_attention_packed", "train_step"),
+            (rows["train_bwd"], "short_attention_packed_bwd", "train_step"),
+            (rows["flash_attention"], "flash_attention", "latent_trainer"),
+            (rows["flash_attention_bwd"], "flash_attention_bwd", "latent_trainer"))):
+        kernels.append({**row, "launches": launches[path][i],
                         "launches_by_path": {k: v[i] for k, v in launches.items()},
                         "max_abs_err": errors[kernel]})
+        check(launches[path][i] > 0, f"{kernel} never launched on {path}")
     emit("done", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -689,4 +1146,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

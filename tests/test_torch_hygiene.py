@@ -36,6 +36,9 @@ def test_importing_the_whole_port_loads_no_jax():
     assert "vision_pt_tpu_torch.ops.short_attention" in report["imported"]
     assert "vision_pt_tpu_torch.training.trainer" in report["imported"]
     assert "vision_pt_tpu_torch.train.jit.class_to_image" in report["imported"]
+    for name in ("ops.flash_attention", "data.latent_cache",
+                 "workloads.jit_variants", "train.jit.latent_class_to_image"):
+        assert f"vision_pt_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["modules"] if FORBIDDEN.match(m)]
     assert leaked == []
 
@@ -67,6 +70,9 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
     )
     from vision_pt_tpu_torch.config import TrainConfig
     from vision_pt_tpu_torch.train.jit.class_to_image import run
+    from vision_pt_tpu_torch.train.jit.latent_class_to_image import (
+        run as latent_run,
+    )
     from vision_pt_tpu_torch.training.trainer import Trainer
     from vision_pt_tpu_torch.utils import resolve_device
 
@@ -87,6 +93,7 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
         lambda: JiTModel.from_pretrained(config, str(tmp_path / "missing.safetensors")),
         lambda: Trainer(TrainConfig.model_validate(train_config)),
         lambda: run(str(yml)),
+        lambda: latent_run(str(yml)),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()

@@ -47,7 +47,7 @@
 // The TPU kernel's head pairing is not ported: it only fills the TPU's
 // 128-deep matrix unit. wgmma, TMA and pipelining are left for later work.
 
-#include "short_attention_common.cuh"
+#include "attention_common.cuh"
 
 using namespace vpt;
 
@@ -81,62 +81,16 @@ __device__ __forceinline__ float clipped_exp2(float x) {
   return exp2f(fminf(fmaxf(x, -lim), lim));
 }
 
-// ---------------------------------------------------------------- bf16 / mma
-
-// rows [r0, r0 + rows) of a (S, D) head slice -> shared memory with row
-// stride D + 8; rows at or past `limit` are written as zeros
-template <int D>
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long stride, int r0,
-                                               int rows, int limit) {
-  constexpr int LD = D + 8, CH = D / 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
-    const int r = i / CH, c = i % CH;
-    uint4 val = zero;
-    if (r0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// acc (16 x 8NT) = A rows [r0, r0+16) of `as` times the first 8NT rows of
-// `bs`, transposed; both (rows, D) in shared memory. r0 = warp * 16 + g.
-template <int D, int NT>
-__device__ __forceinline__ void warp_abt(float acc[NT][4],
-                                         const __nv_bfloat16* as,
-                                         const __nv_bfloat16* bs, int r0,
-                                         int g, int t) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* ab = as + r0 * LD + kk * 16 + 2 * t;
-    const uint32_t a[4] = {ld32(ab), ld32(ab + 8 * LD), ld32(ab + 8),
-                           ld32(ab + 8 * LD + 8)};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const __nv_bfloat16* bb = bs + (j * 8 + g) * LD + kk * 16 + 2 * t;
-      mma_bf16_16816(acc[j], a, ld32(bb), ld32(bb + 8));
-    }
-  }
-}
-
 // out (16 x D) += bf16(f) (16 x 8NT, C fragments) times the first 8NT rows
-// of `xs` ((rows, D) in shared memory)
+// of `xs` ((rows, D) in shared memory), B built from 16-bit shared loads.
+// The header's warp_fx (ldmatrix.trans) computes the same; here it raised the
+// dk/dv kernel to 186 registers and the backward from 1.07 to 1.26 ms at
+// B 64, S 298 (H100, chip_smoke.py), so this kernel keeps its own.
 template <int D, int NT>
-__device__ __forceinline__ void warp_fx(float out[D / 8][4],
-                                        const float f[NT][4],
-                                        const __nv_bfloat16* xs, int g,
-                                        int t) {
+__device__ __forceinline__ void warp_fx_u16(float out[D / 8][4],
+                                            const float f[NT][4],
+                                            const __nv_bfloat16* xs, int g,
+                                            int t) {
   constexpr int LD = D + 8;
 #pragma unroll
   for (int kc = 0; kc < NT / 2; ++kc) {
@@ -155,25 +109,7 @@ __device__ __forceinline__ void warp_fx(float out[D / 8][4],
   }
 }
 
-// writes rows r0 + g and r0 + g + 8 of a (16 x D) fragment accumulator,
-// times `mul`, to rows [row0 ...) of a (S, D) head slice, below `limit`
-template <int D>
-__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* dst,
-                                                long long stride,
-                                                const float acc[D / 8][4],
-                                                int row0, int limit, float mul,
-                                                int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= limit) continue;
-    __nv_bfloat16* out = dst + row * stride + 2 * t;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(out + dn * 8) =
-          pack_bf16(acc[dn][2 * r] * mul, acc[dn][2 * r + 1] * mul);
-  }
-}
+// ---------------------------------------------------------------- bf16 / mma
 
 template <int D, int KT>
 __global__ void __launch_bounds__(128) packed_bwd_dq_bf16(BwdParams p) {
@@ -203,8 +139,7 @@ __global__ void __launch_bounds__(128) packed_bwd_dq_bf16(BwdParams p) {
   const __nv_bfloat16* dog =
       static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * D;
 
-  load_rows_bf16<D>(qs, qg, p.q_ss, q0, kRows, p.sq);
-  load_rows_bf16<D>(dos, dog, p.do_ss, q0, kRows, p.sq);
+  load_rows2_bf16<D>(qs, dos, qg, dog, p.q_ss, p.do_ss, q0, kRows, p.sq);
 
   // pass 1: row statistics (this thread's partial sums of rows g, g + 8)
   float m_run[2] = {kNegInf, kNegInf};
@@ -212,8 +147,7 @@ __global__ void __launch_bounds__(128) packed_bwd_dq_bf16(BwdParams p) {
   float d_run[2] = {0.f, 0.f};  // sum_j e * dp
   for (int k0 = 0; k0 < kv; k0 += KT) {
     __syncthreads();
-    load_rows_bf16<D>(ks, kg, p.k_ss, k0, KT, kv);
-    load_rows_bf16<D>(vs, vg, p.v_ss, k0, KT, kv);
+    load_rows2_bf16<D>(ks, vs, kg, vg, p.k_ss, p.v_ss, k0, KT, kv);
     __syncthreads();
     float s[NT][4], dp[NT][4];
     warp_abt<D, NT>(s, qs, ks, r0, g, t);
@@ -288,8 +222,7 @@ __global__ void __launch_bounds__(128) packed_bwd_dq_bf16(BwdParams p) {
     for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
   for (int k0 = 0; k0 < kv; k0 += KT) {
     __syncthreads();
-    load_rows_bf16<D>(ks, kg, p.k_ss, k0, KT, kv);
-    load_rows_bf16<D>(vs, vg, p.v_ss, k0, KT, kv);
+    load_rows2_bf16<D>(ks, vs, kg, vg, p.k_ss, p.v_ss, k0, KT, kv);
     __syncthreads();
     float s[NT][4], dp[NT][4];
     warp_abt<D, NT>(s, qs, ks, r0, g, t);
@@ -305,7 +238,7 @@ __global__ void __launch_bounds__(128) packed_bwd_dq_bf16(BwdParams p) {
         const float pr = col < kv ? ex / denom[r] : 0.f;
         s[j][e] = pr * (dp[j][e] - delta[r]);  // ds
       }
-    warp_fx<D, NT>(acc, s, ks, g, t);
+    warp_fx_u16<D, NT>(acc, s, ks, g, t);
   }
   __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * D;
   store_rows_bf16<D>(dqg, p.dq_ss, acc, q0 + r0, p.sq, p.scale, t);
@@ -356,8 +289,7 @@ __global__ void __launch_bounds__(128) packed_bwd_dkdv_bf16(BwdParams p) {
       static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * D;
   const float* st = p.stats + ((long long)b * p.heads + h) * p.sq;
 
-  load_rows_bf16<D>(ks, kg, p.k_ss, k0, kRows, kv);
-  load_rows_bf16<D>(vs, vg, p.v_ss, k0, kRows, kv);
+  load_rows2_bf16<D>(ks, vs, kg, vg, p.k_ss, p.v_ss, k0, kRows, kv);
 
   float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
@@ -367,8 +299,7 @@ __global__ void __launch_bounds__(128) packed_bwd_dkdv_bf16(BwdParams p) {
 
   for (int q0 = 0; q0 < p.sq; q0 += QT) {
     __syncthreads();
-    load_rows_bf16<D>(qs, qg, p.q_ss, q0, QT, p.sq);
-    load_rows_bf16<D>(dos, dog, p.do_ss, q0, QT, p.sq);
+    load_rows2_bf16<D>(qs, dos, qg, dog, p.q_ss, p.do_ss, q0, QT, p.sq);
     for (int i = threadIdx.x; i < QT; i += blockDim.x) {
       const bool in = q0 + i < p.sq;
       st_m[i] = in ? st[q0 + i] : 0.f;
@@ -391,8 +322,8 @@ __global__ void __launch_bounds__(128) packed_bwd_dkdv_bf16(BwdParams p) {
         s[j][e] = pr;                               // p^T
         dp[j][e] = pr * (dp[j][e] - st_delta[qi]);  // ds^T
       }
-    warp_fx<D, NQ>(dv, s, dos, g, t);
-    warp_fx<D, NQ>(dk, dp, qs, g, t);
+    warp_fx_u16<D, NQ>(dv, s, dos, g, t);
+    warp_fx_u16<D, NQ>(dk, dp, qs, g, t);
   }
   store_rows_bf16<D>(dkg, p.dk_ss, dk, k0 + r0, p.sk, p.scale, t);
   store_rows_bf16<D>(dvg, p.dv_ss, dv, k0 + r0, p.sk, 1.f, t);
@@ -402,13 +333,6 @@ __global__ void __launch_bounds__(128) packed_bwd_dkdv_bf16(BwdParams p) {
 //
 // D / 32 adjacent threads share a row: each holds 32 of its D columns and
 // the partial dot products are summed with shuffles.
-
-template <int P>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int m = 1; m < P; m <<= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
-  return x;
-}
 
 template <int D>
 __global__ void __launch_bounds__(kRows * (D / kColsF32)) packed_bwd_dq_f32(BwdParams p) {

@@ -1,15 +1,18 @@
 """Attention dispatch (port of the part of ``vision_pt_tpu/ops/attention.py``
-that the JiT sampler and training step use).
+that the JiT sampler and training paths use).
 
 Layout is (B, S, H, D) throughout, as in the JAX package. fp32 q/k/v are cast
 to the attention dtype (default bf16) first. The ``xla`` backend (and
-``auto``, ``eager``, ``sdpa``) is ``xla_attention_remat`` in plain PyTorch:
-fp32 logits, ``finfo(float32).min`` masking, weights
+``eager``, ``sdpa``) is ``xla_attention_remat`` in plain PyTorch: fp32
+logits, ``finfo(float32).min`` masking, weights
 ``exp(logits - logsumexp(logits))`` rounded to v's dtype before the PV
 product. Its backward saves only ``(out, lse)`` and recomputes the
 probabilities, as the JAX package's custom VJP does, so no (B, H, S, S)
-tensor lives from the forward to the backward. The Pallas backends are not
-ported yet and raise.
+tensor lives from the forward to the backward. The ``flash`` backend is
+``ops.flash_attention`` (CUDA kernels on the card, plain versions on the
+CPU); ``auto`` picks it on the card for long unmasked sequences, as the JAX
+package does on the TPU. The ``short`` and ``ring`` backends are not ported
+yet and raise.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Literal
 
 import torch
 
+from .flash_attention import flash_attention
+
 AttentionImplementation = Literal[
     "auto", "flash", "short", "xla", "eager", "sdpa", "ring"
 ]
@@ -26,10 +31,18 @@ AttentionImplementation = Literal[
 _DEFAULT_ATTENTION_DTYPE: torch.dtype | None = torch.bfloat16
 _SENTINEL = object()
 _NOT_PORTED = {
-    "flash": "ROADMAP Queue 2, kernel 7-8 (ops/flash_attention.py)",
     "short": "ROADMAP Queue 2, kernels 3-6 (ops/short_attention.py)",
     "ring": "ROADMAP Queue 1, slice 4 (ops/ring_attention.py)",
 }
+
+# Gate of the flash kernels, kept at the JAX package's value. It was tuned on
+# a TPU and is not yet measured on an H100.
+MIN_FLASH_SEQ = 1024
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    """Where the flash kernels can run (the JAX gate's ``_on_tpu()``)."""
+    return x.is_cuda
 
 
 def set_default_attention_dtype(dtype: torch.dtype | None) -> None:
@@ -181,14 +194,30 @@ def dot_product_attention(
     if q.dtype == torch.float32 and attention_dtype is not None:
         q, k, v = q.to(attention_dtype), k.to(attention_dtype), v.to(attention_dtype)
 
-    if backend in ("auto", "eager", "sdpa"):
+    if backend in ("eager", "sdpa"):
         backend = "xla"
+    if backend == "auto":
+        flash_ok = (
+            mask is None
+            and q.shape[-1] % 64 == 0
+            and q.shape[1] >= MIN_FLASH_SEQ
+            and k.shape[1] >= MIN_FLASH_SEQ
+            and _on_cuda(q)
+        )
+        backend = "flash" if flash_ok else "xla"
     if backend in _NOT_PORTED:
         raise NotImplementedError(
             f"attention backend {backend!r} is not ported yet: "
             f"{_NOT_PORTED[backend]}"
         )
-    if backend != "xla":
+    if backend == "flash":
+        if mask is not None:
+            raise ValueError(
+                "flash backend takes kv_lens (suffix padding), not a full mask"
+            )
+        out = flash_attention(q, k, v, kv_lens, scale=scale, causal=is_causal)
+    elif backend == "xla":
+        out = plain_attention(q, k, v, mask, kv_lens, scale, is_causal)
+    else:
         raise ValueError(f"Unknown backend: {backend}")
-    out = plain_attention(q, k, v, mask, kv_lens, scale, is_causal)
     return out.to(orig_dtype)

@@ -72,8 +72,15 @@ class JiTForClassToImageTraining(ModelForTraining):
 
     @torch.no_grad()
     def sanity_check(self):
-        size, batch = 64, 2
-        noise = torch.zeros(batch, size, size, 3, device=self.device)
+        """One forward on a zero probe. Unlike the JAX package's check (a
+        3-channel 64^2 image, which fails for other channel counts), the probe
+        takes the denoiser's ``in_channels`` and a side that is a multiple of
+        ``patch_size``."""
+        denoiser_cfg = self.model.config.denoiser
+        patch, batch = denoiser_cfg.patch_size, 2
+        size = patch * -(-64 // patch)
+        noise = torch.zeros(batch, size, size, denoiser_cfg.in_channels,
+                            device=self.device)
         prompt = torch.zeros(batch, self.model_config.max_token_length,
                              self.model.config.denoiser.context_dim,
                              device=self.device)
