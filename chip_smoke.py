@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's JiT-B/16 class-to-image sampler and training step,
-and its latent JiT 1024^2 trainer, on one CUDA card.
+its latent JiT 1024^2 trainer and its SDXL 1024^2 text-to-image sampler (bf16
+and NF4), on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only   # phases 1-3 alone, no result line
+    python3 chip_smoke.py --kernels-only   # phases 1-3 (with nf4_kernel and
+                                           # nf4_timing) alone, no result line
 
 Phases, one JSON line each; any failure raises and the script exits non-zero
 without a result line:
@@ -60,7 +62,30 @@ without a result line:
 10. latent_parity: one training step of the latent workload at full width,
    depth cut to 6, a 64 x 64 latent (S = 1098, still the flash path), batch
    2, on the card (kernels) and on the CPU (plain versions), fp32 and bf16,
-   against the train_parity floors.
+   against the train_parity floors;
+11. sdxl_sampler: SDXL-base at full width (UNet 320/640/1280, context 2048,
+   CLIP-L + bigG, the VAE), random weights from a seed, built on the card,
+   bf16 compute with fp32 parameters, through the CLI's ``run``
+   (``tools.inference_cli``) at 1024^2, batch 1, CFG 5, 20 steps, with the
+   word-hash tokenizer: a warm and a timed request in bf16, then again after
+   ``quantize_inplace(..., "bnb_nf4")`` with the CLI's keys; exactly 1,400
+   flash launches per request, and 2,800 of kernel #9 under NF4 (0 without);
+   a profiled 2-step request each; the image finite and not constant;
+12. sdxl_parity: full widths at reduced depth (layers_per_block 1, one
+   transformer per stage), 512^2, bf16, one UNet call and a 2-step CFG
+   generate with injected latents and noise, on the card (kernels) and on
+   the CPU (plain versions), before and after NF4 quantization; the floors
+   must also fail the card's run with kernel #9 given one scale row 25% off,
+   or that chunk left out, in every launch.
+
+After phase 2, nf4_kernel holds kernel #9 (``dequant_matmul_4bit``) against
+its plain version at the sampler's shapes and at edge shapes (M 1, 37, 1024;
+K 128, 5120; N 8, 136, 10240), nf4 and fp4, bf16, fp16 and fp32, under
+phase 2's limits (fp16's tol 2e-3), which must fail a plain version with one absmax row 25% off or one
+64-row chunk left out. Phase 3 also times kernel #7 at SDXL's two
+self-attention shapes, and nf4_timing times kernel #9 at the sampler's
+shapes and at the JAX package's bench shape (M 64, K = N = 8192), beside
+F.linear on the weight dequantized beforehand.
 
 Every kernel launch counter is set to 0 just before a path is driven and read
 just after. Then the ``{"kernels": [...]}`` line, the card's name and power
@@ -82,7 +107,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense
-TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-3, torch.float32: 1e-4}
 # the flash forward's LSE (fp32 on both sides, about 8.3 at S 4106): absolute
 LSE_ATOL = 1e-4
 STEPS, BATCH, REQUESTS = 20, 8, 3
@@ -99,13 +124,13 @@ TRAIN_PARITY_FLOOR = {"float32": {"loss": 1e-4, "grad": 1e-3},
                       "bfloat16": {"loss": 2e-2, "grad": 1e-1}}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the port's own kernels among a profile's device kernels
-PORT_KERNEL = re.compile(r"attn_fwd_|(packed|flash)_bwd_(dq|dkdv)_")
+PORT_KERNEL = re.compile(r"attn_fwd_|(packed|flash)_bwd_(dq|dkdv)_|nf4_matmul")
 SOURCES = ("short_attention", "short_attention_bwd", "flash_attention",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "nf4_matmul")
 LATENT_BATCH, LATENT_SIDE, LATENT_ITEMS = 16, 128, 64
 # flash launches per latent training step: 24 blocks forward, 24 recomputed
 # under gradient checkpointing, 24 backward
-LATENT_STEP_LAUNCHES = (0, 0, 48, 24)
+LATENT_STEP_LAUNCHES = (0, 0, 48, 24, 0)
 
 
 class SmokeFailure(RuntimeError):
@@ -117,8 +142,13 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+_STARTED = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, stamped with the seconds since the script started."""
+    at = round(time.perf_counter() - _STARTED, 1)
+    print(json.dumps({"phase": phase, "at_seconds": at, **fields}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -290,6 +320,9 @@ FLASH_CASES = [
     ("path_s4170_kv", 4, 4170, 4170, 12, 64, torch.bfloat16, False,
      [4106, 4170, 4107, 0]),
     ("path_s4106", 4, 4106, 4106, 12, 64, torch.bfloat16, False, None),
+    # the SDXL sampler's self-attentions at 1024^2 (B 2 with CFG)
+    ("sdxl_s4096", 2, 4096, 4096, 10, 64, torch.bfloat16, False, None),
+    ("sdxl_s1024", 2, 1024, 1024, 20, 64, torch.bfloat16, False, None),
     ("s1000_kv", 2, 1000, 1000, 12, 64, torch.bfloat16, False, [1000, 0]),
     ("sq1000_sk1500", 2, 1000, 1500, 6, 64, torch.bfloat16, False, [1337, 0]),
     ("causal_s1000", 2, 1000, 1000, 12, 64, torch.bfloat16, True, [1000, 777]),
@@ -344,7 +377,8 @@ def _flash_limits_can_fail(q, k, v, do, out, lse, grads, lens, tol):
 
 def phase_flash_kernel() -> dict:
     """Kernels #7 and #8 against their plain versions; returns the largest
-    error of each at the latent trainer's shape (S 4170 with kv_lens)."""
+    error of each at the latent trainer's shape (S 4170 with kv_lens), and of
+    #7 at each SDXL shape (by case name)."""
     from vision_pt_tpu_torch.ops.flash_attention import (
         NEG_INF,
         flash_attention,
@@ -392,6 +426,8 @@ def phase_flash_kernel() -> dict:
                   f"{kernel} disagrees with its plain version at {name}")
             if name == "path_s4170_kv":
                 errors[kernel] = err
+            elif name.startswith("sdxl") and kernel == "flash_attention":
+                errors[name] = err
         if name == "path_s4170_kv":
             _flash_limits_can_fail(q, k, v, do, out, lse, grads, lens, tol)
         del ref, ref_lse, ref_grads, grads
@@ -416,7 +452,8 @@ def phase_flash_kernel() -> dict:
 
 
 def _time_kernel(name, fn, plain, library, nbytes, flops, dtype, replaces,
-                 source, shape, library_name, plain_chunk=None, iters=50):
+                 source, shape, library_name, plain_chunk=None, iters=50,
+                 phase="timing"):
     """One row of the kernels line. Every time is of the same inputs;
     ``plain_chunk`` notes that the plain version went over the batch in
     chunks of that many rows, one call each."""
@@ -432,7 +469,7 @@ def _time_kernel(name, fn, plain, library, nbytes, flops, dtype, replaces,
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=library_ms,
     )
-    emit("timing", shape=shape, dtype=str(dtype), bytes=nbytes, flops=flops,
+    emit(phase, shape=shape, dtype=str(dtype), bytes=nbytes, flops=flops,
          library=library_name, **row)
     return row
 
@@ -488,11 +525,18 @@ def phase_timing() -> dict:
     return rows
 
 
+# kernel #7's timed forward shapes (D 64, bf16, no kv_lens): the latent
+# trainer's, where kernel #8 is timed too, and the SDXL sampler's two
+# self-attentions at 1024^2 (B 2 with CFG)
+FLASH_TIMING_SHAPES = (("latent", LATENT_BATCH, 4106, 12), ("sdxl_s4096", 2, 4096, 10),
+                       ("sdxl_s1024", 2, 1024, 20))
+
+
 def phase_flash_timing() -> dict:
-    """Kernels #7 and #8 at the latent trainer's shape without kv_lens
-    (B 16, S 4106, H 12, D 64, bf16); their plain versions on the same
-    inputs in 8 calls of batch 2, whose (B, H, S, S) fp32 tensors are 1.6 GB
-    each (12.9 GB at batch 16)."""
+    """Kernel #7 at each of FLASH_TIMING_SHAPES and #8 at the latent one,
+    keyed by label (the backward as ``latent_bwd``); their plain versions on
+    the same inputs in calls of batch 2, whose (B, H, S, S) fp32 tensors are
+    1.6 GB each at the latent shape (12.9 GB at batch 16)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -503,65 +547,69 @@ def phase_flash_timing() -> dict:
         flash_attention_with_lse,
     )
 
-    batch, s, heads, dim, dtype = LATENT_BATCH, 4106, 12, 64, torch.bfloat16
-    chunk = 2
+    dim, dtype, chunk = 64, torch.bfloat16, 2
     gen = torch.Generator(device="cuda").manual_seed(3)
-    q, k, v, do = (_bshd(gen, batch, s, heads, dim, dtype) for _ in range(4))
-    out, lse = flash_attention_with_lse(q, k, v)
-    chunks = [[x[i:i + chunk] for x in (q, k, v, out, lse, do)]
-              for i in range(0, batch, chunk)]
-    size = q.numel() * q.element_size()
-    lse_bytes = lse.numel() * lse.element_size()
-    product = 2 * batch * heads * s * s * dim  # one (S, S, D) product
-    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
-    leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        sdpa_out = F.scaled_dot_product_attention(*leaves)
+    library = "F.scaled_dot_product_attention (FLASH_ATTENTION backend)"
     rows = {}
-    shape = ["latent", batch, s, s, heads, dim]
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        rows["flash_attention"] = _time_kernel(
-            "flash_attention",
-            lambda: flash_attention_with_lse(q, k, v),
-            lambda: [flash_attention_reference(*c[:3]) for c in chunks],
-            lambda: F.scaled_dot_product_attention(qh, kh, vh),
-            4 * size + lse_bytes, 2 * product, dtype,
-            "vision_pt_tpu/ops/flash_attention.py:115",
-            "vision_pt_tpu_torch/csrc/flash_attention.cu", shape,
-            "F.scaled_dot_product_attention (FLASH_ATTENTION backend)",
-            plain_chunk=chunk, iters=20,
-        )
-        rows["flash_attention_bwd"] = _time_kernel(
-            "flash_attention_bwd",
-            lambda: flash_attention_bwd(q, k, v, out, lse, do),
-            lambda: [flash_attention_bwd_reference(*c) for c in chunks],
-            lambda: torch.autograd.grad(sdpa_out, leaves, doh, retain_graph=True),
-            8 * size + lse_bytes, 5 * product, dtype,
-            "vision_pt_tpu/ops/flash_attention.py:325",
-            "vision_pt_tpu_torch/csrc/flash_attention_bwd.cu", shape,
-            "torch.autograd.grad of F.scaled_dot_product_attention "
-            "(FLASH_ATTENTION backend)",
-            plain_chunk=chunk, iters=20,
-        )
-    del q, k, v, do, out, lse, chunks, leaves, sdpa_out
-    torch.cuda.empty_cache()
+    for label, batch, s, heads in FLASH_TIMING_SHAPES:
+        q, k, v, do = (_bshd(gen, batch, s, heads, dim, dtype) for _ in range(4))
+        out, lse = flash_attention_with_lse(q, k, v)
+        chunks = [[x[i:i + chunk] for x in (q, k, v, out, lse, do)]
+                  for i in range(0, batch, chunk)]
+        plain_chunk = chunk if batch > chunk else None
+        size = q.numel() * q.element_size()
+        lse_bytes = lse.numel() * lse.element_size()
+        product = 2 * batch * heads * s * s * dim  # one (S, S, D) product
+        qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+        shape = [label, batch, s, s, heads, dim]
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            rows[label] = _time_kernel(
+                "flash_attention",
+                lambda: flash_attention_with_lse(q, k, v),
+                lambda: [flash_attention_reference(*c[:3]) for c in chunks],
+                lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                4 * size + lse_bytes, 2 * product, dtype,
+                "vision_pt_tpu/ops/flash_attention.py:115",
+                "vision_pt_tpu_torch/csrc/flash_attention.cu", shape, library,
+                plain_chunk=plain_chunk, iters=20,
+            )
+            if label == "latent":
+                leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+                sdpa_out = F.scaled_dot_product_attention(*leaves)
+                rows["latent_bwd"] = _time_kernel(
+                    "flash_attention_bwd",
+                    lambda: flash_attention_bwd(q, k, v, out, lse, do),
+                    lambda: [flash_attention_bwd_reference(*c) for c in chunks],
+                    lambda: torch.autograd.grad(sdpa_out, leaves, doh,
+                                                retain_graph=True),
+                    8 * size + lse_bytes, 5 * product, dtype,
+                    "vision_pt_tpu/ops/flash_attention.py:325",
+                    "vision_pt_tpu_torch/csrc/flash_attention_bwd.cu", shape,
+                    "torch.autograd.grad of " + library, plain_chunk=plain_chunk,
+                    iters=20,
+                )
+                del leaves, sdpa_out
+        del q, k, v, do, out, lse, chunks, qh, kh, vh, doh
+        torch.cuda.empty_cache()
     return rows
 
 
 def _wrappers():
     """The kernel wrappers, in the order of every launch-count tuple:
-    packed forward, packed backward, flash forward, flash backward."""
+    packed forward, packed backward, flash forward, flash backward, NF4
+    dequant-matmul."""
     from vision_pt_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_bwd,
     )
+    from vision_pt_tpu_torch.ops.quant.nf4_matmul import dequant_matmul_4bit
     from vision_pt_tpu_torch.ops.short_attention import (
         short_attention_packed,
         short_attention_packed_bwd,
     )
 
     return (short_attention_packed, short_attention_packed_bwd,
-            flash_attention, flash_attention_bwd)
+            flash_attention, flash_attention_bwd, dequant_matmul_4bit)
 
 
 def _reset_counts():
@@ -569,7 +617,7 @@ def _reset_counts():
         fn.launches = 0
 
 
-def _counts() -> tuple[int, int, int, int]:
+def _counts() -> tuple[int, int, int, int, int]:
     return tuple(fn.launches for fn in _wrappers())
 
 
@@ -612,18 +660,20 @@ def phase_sampler(label2id: str) -> tuple[int, ...]:
         per_request.append(_counts()[0] - before)
         check(tuple(out.shape) == (BATCH, 256, 256, 3), f"shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out).all()), "non-finite image")
-    launches, bwd_launches, *flash = _counts()
+    launches, bwd_launches, *others = _counts()
     emit("sampler", model="JiT-B/16", resolution=256, batch=BATCH, cfg=True,
          steps=STEPS, build_seconds=round(build_s, 3), request_seconds=seconds,
          steps_per_second=[STEPS / s for s in seconds],
          kernel_launches_per_request=per_request, bwd_launches=bwd_launches,
-         flash_launches=flash, peak_memory_bytes=torch.cuda.max_memory_allocated())
+         other_launches=others,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
     check(per_request == [LAUNCHES_PER_REQUEST] * REQUESTS and bwd_launches == 0
-          and flash == [0, 0],
+          and others == [0, 0, 0],
           f"packed kernel launches per request {per_request} (backward "
-          f"{bwd_launches}, flash {flash}), expected {LAUNCHES_PER_REQUEST} (0)")
+          f"{bwd_launches}, flash and nf4 {others}), expected "
+          f"{LAUNCHES_PER_REQUEST} (0)")
     profile("sampler", lambda: request(7))
-    return launches, bwd_launches, *flash
+    return launches, bwd_launches, *others
 
 
 def profile(path: str, run):
@@ -711,7 +761,7 @@ def phase_train_step() -> tuple[int, ...]:
          fwd_launches_per_step=fwd / TIMED_STEPS,
          bwd_launches_per_step=bwd / TIMED_STEPS)
     check(all(np.isfinite(losses)), f"non-finite loss {losses}")
-    check(counts == (12 * TIMED_STEPS, 12 * TIMED_STEPS, 0, 0),
+    check(counts == (12 * TIMED_STEPS, 12 * TIMED_STEPS, 0, 0, 0),
           f"kernel launches {counts} over {TIMED_STEPS} steps, "
           "expected 12 + 12 packed per step and no flash")
     profile("train_step", lambda: step(TIMED_STEPS + 1))
@@ -796,7 +846,7 @@ def phase_trainer(tmp: str) -> tuple[int, ...]:
                          if "train/loss" in r])
     check(trainer.global_step == 4 and len(losses) == 4
           and all(np.isfinite(losses)), f"trainer losses {losses}")
-    check(per_step == [(4, 4, 0, 0)] * 4,
+    check(per_step == [(4, 4, 0, 0, 0)] * 4,
           f"launches per step {per_step}, expected 4 + 4 packed, no flash")
     check(len(saved) == 2 and len(previews) == 1 and reloaded,
           f"saved {saved}, previews {previews}, reloaded {reloaded}")
@@ -868,7 +918,7 @@ def phase_train_parity(label2id: str) -> None:
              launches_cpu=counts_h, seconds_cuda=sec_c, seconds_cpu=sec_h)
         check(all(bool(torch.isfinite(g).all()) for g in grads_c.values()),
               "non-finite grads")
-        check(counts_c == (4, 4, 0, 0) and counts_h == (0, 0, 0, 0),
+        check(counts_c == (4, 4, 0, 0, 0) and counts_h == (0, 0, 0, 0, 0),
               f"the card step must launch 4 + 4 kernels ({counts_c}), the CPU "
               f"step none ({counts_h})")
         check(loss_err <= floor["loss"] and worst[0][1] <= floor["grad"],
@@ -1088,11 +1138,322 @@ def phase_latent_parity(tmp: str) -> None:
              launches_cpu=counts_h, seconds_cuda=sec_c, seconds_cpu=sec_h)
         check(all(bool(torch.isfinite(g).all()) for g in grads_c.values()),
               "non-finite grads")
-        check(counts_c == (0, 0, 6, 6) and counts_h == (0, 0, 0, 0),
+        check(counts_c == (0, 0, 6, 6, 0) and counts_h == (0, 0, 0, 0, 0),
               f"the card step must launch 6 + 6 flash kernels ({counts_c}), "
               f"the CPU step none ({counts_h})")
         check(loss_err <= floor["loss"] and worst[0][1] <= floor["grad"],
               f"{dtype} latent parity: loss {loss_err:.2e}, grad {worst[0]}")
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ SDXL phases
+
+# kernel #9 at the sampler's shapes (the 2 x 77 context rows of every
+# cross-attention to_k / to_v, K 2048, N 640 or 1280) and at edge shapes
+NF4_PATH_SHAPES = ((154, 2048, 640), (154, 2048, 1280))
+NF4_EDGE_SHAPES = tuple((m, k, n) for m in (1, 37, 1024) for k in (128, 5120)
+                        for n in (8, 136, 10240))
+SDXL_SIDE, SDXL_STEPS, SDXL_CFG, SDXL_TOKENS = 1024, 20, 5.0, 75
+# per UNet call at 1024^2 with CFG: 70 self-attentions take flash (10 at
+# S 4096 with 10 heads, 60 at S 1024 with 20), and the to_k / to_v of the 70
+# cross-attentions (154 rows) take kernel #9 once the UNet is NF4
+SDXL_LAUNCHES = {"bf16": (0, 0, 70 * SDXL_STEPS, 0, 0),
+                 "nf4": (0, 0, 70 * SDXL_STEPS, 0, 140 * SDXL_STEPS)}
+SDXL_PROMPT = ("photo of a red fox in the snow, detailed fur",
+               "blurry, ugly, low quality")
+# sdxl_parity at 512^2, full widths, layers_per_block 1, one transformer per
+# stage, one UNet call (batch 2) and a 2-step generate (two calls): flash at
+# stage 2 (32 x 32 = 1024 tokens, 3 self-attentions a call); under NF4 the
+# kernel takes every product of at most 1024 rows: the 6 context products
+# of stage 2 and all 48 quantized products of stage 3 (2 x 256 rows)
+SDXL_PARITY_LAUNCHES = {"bf16": (0, 0, 9, 0, 0), "nf4": (0, 0, 9, 0, 162)}
+# sdxl_parity floors on the relative L2 error, card vs CPU, in bf16: every
+# activation is rounded to 8 mantissa bits through ~40 layers and the card's
+# and the CPU's matmuls and convolutions round at other places (the JiT
+# phases see a few percent in bf16; one UNet call measured 1.5e-2). The
+# latents pass two steps of CFG 5, which scales the difference of the two
+# predictions, and their error, by 5 (measured 3.3e-2 and 4.4e-2, an H100
+# against its host, the same in every run). Each floor lies between those
+# readings and those of a kernel #9 with one scale row 25% off in every
+# launch (measured 8.6e-2 and 1.37e-1), which the phase runs to show it.
+SDXL_PARITY_FLOOR = {"unet": 5e-2, "latents": 7.5e-2}
+
+
+def phase_nf4_kernel() -> float:
+    """Kernel #9 against its plain version, nf4 and fp4, bf16, fp16 and fp32;
+    returns the largest error at the path's shape (154 x 2048 -> 1280, bf16,
+    nf4)."""
+    from vision_pt_tpu_torch.ops.quant.nf4 import quantize_4bit_device_kernel_layout
+    from vision_pt_tpu_torch.ops.quant.nf4_matmul import (
+        dequant_matmul_4bit,
+        dequant_matmul_4bit_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    weights, cases, path = {}, [], None
+    for m, k, n in NF4_PATH_SHAPES + NF4_EDGE_SHAPES:
+        for quant_type in ("nf4", "fp4"):
+            if (k, n, quant_type) not in weights:
+                w = torch.randn(n, k, generator=gen, device="cuda") * 0.05
+                weights[k, n, quant_type] = quantize_4bit_device_kernel_layout(
+                    w, quant_type)
+            packed, absmax = weights[k, n, quant_type]
+            for dtype in (torch.bfloat16, torch.float16, torch.float32):
+                x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+                out = dequant_matmul_4bit(x, packed, absmax, quant_type)
+                torch.cuda.synchronize()
+                ref = dequant_matmul_4bit_reference(x, packed, absmax, quant_type)
+                err, share = _compare(out, ref, TOL[dtype])
+                ok = (bool(torch.isfinite(out).all()) and share <= 1.0
+                      and out.dtype == dtype and out.shape == ref.shape)
+                cases.append([m, k, n, quant_type, str(dtype)[6:], err, share, ok])
+                check(ok, f"dequant_matmul_4bit disagrees at {cases[-1]}")
+                if (m, n, quant_type, dtype) == (154, 1280, "nf4", torch.bfloat16):
+                    path = (x, packed, absmax, out, err)
+    emit("nf4_kernel", kernel="dequant_matmul_4bit",
+         tolerance={str(dtype)[6:]: tol for dtype, tol in TOL.items()},
+         columns=["m", "k", "n", "quant", "dtype", "max_abs_err", "limit_share", "ok"],
+         cases=cases)
+    # the limits must fail a plain version with one absmax row 25% off, or
+    # with one 64-row chunk left out
+    x, packed, absmax, out, err = path
+    perturbed, dropped = absmax.clone(), absmax.clone()
+    perturbed[3] *= 1.25
+    dropped[3] = 0.0
+    shares = {label: _compare(out, dequant_matmul_4bit_reference(x, packed, a),
+                              TOL[torch.bfloat16])[1]
+              for label, a in (("absmax_row_perturbed", perturbed),
+                               ("chunk_dropped", dropped))}
+    emit("nf4_kernel", kernel="dequant_matmul_4bit", case="limits_can_fail",
+         limit_shares=shares)
+    check(min(shares.values()) > 1, f"an NF4 limit passes a wrong kernel: {shares}")
+    return err
+
+
+def phase_nf4_timing() -> dict:
+    """Kernel #9 at the sampler's two shapes and at the JAX package's bench
+    shape (M 64, K = N = 8192), bf16, nf4; the yardstick is F.linear on the
+    weight dequantized to bf16 beforehand."""
+    import torch.nn.functional as F
+
+    from vision_pt_tpu_torch.ops.quant.layers import _dequant_deint
+    from vision_pt_tpu_torch.ops.quant.nf4 import quantize_4bit_device_kernel_layout
+    from vision_pt_tpu_torch.ops.quant.nf4_matmul import (
+        dequant_matmul_4bit,
+        dequant_matmul_4bit_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for label, (m, k, n) in (("path_n640", NF4_PATH_SHAPES[0]),
+                             ("path", NF4_PATH_SHAPES[1]), ("bench", (64, 8192, 8192))):
+        w = torch.randn(n, k, generator=gen, device="cuda") * 0.05
+        packed, absmax = quantize_4bit_device_kernel_layout(w)
+        dense = _dequant_deint(packed, absmax, "nf4", torch.bfloat16)  # (n, k)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        nbytes = 2 * m * k + packed.numel() + 4 * absmax.numel() + 2 * m * n
+        rows[label] = _time_kernel(
+            "dequant_matmul_4bit",
+            lambda: dequant_matmul_4bit(x, packed, absmax),
+            lambda: dequant_matmul_4bit_reference(x, packed, absmax),
+            lambda: F.linear(x, dense),
+            nbytes, 2 * m * k * n, torch.bfloat16,
+            "vision_pt_tpu/ops/quant/pallas_nf4.py:167",
+            "vision_pt_tpu_torch/csrc/nf4_matmul.cu", [label, m, k, n],
+            "F.linear on the weight dequantized to bf16 beforehand",
+            phase="nf4_timing",
+        )
+        del w, packed, absmax, dense
+    return rows
+
+
+def phase_sdxl_sampler() -> dict:
+    """SDXL-base at full width, random weights from a seed, bf16 compute
+    with fp32 parameters, built on the card; through the CLI's ``run`` at
+    1024^2, batch 1, CFG 5, 20 steps: one warm and one timed request in
+    bf16, then again with the UNet NF4 (the CLI's keys), each followed by a
+    profiled 2-step request. Returns the timed requests' kernel launches."""
+    from vision_pt_tpu_torch.models.sdxl import SDXLConfig, SDXLModel, WordHashTokenizer
+    from vision_pt_tpu_torch.ops.quant import quantize_inplace
+    from vision_pt_tpu_torch.tools import inference_cli as cli
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokenizer = WordHashTokenizer()
+    model = SDXLModel.from_config(SDXLConfig(checkpoint_path="", dtype="bfloat16"),
+                                  seed=0, device="cuda", tokenizer_1=tokenizer,
+                                  tokenizer_2=tokenizer)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params = {name: sum(p.numel() for p in module.parameters())
+              for name, module in model._submodules().items()}
+
+    def request(seed, steps=SDXL_STEPS):
+        return cli.run(model, SDXL_PROMPT[0], SDXL_PROMPT[1], width=SDXL_SIDE,
+                       height=SDXL_SIDE, num_inference_steps=steps,
+                       cfg_scale=SDXL_CFG, seed=seed, max_token_length=SDXL_TOKENS)
+
+    launches = {}
+    for label in ("bf16", "nf4"):
+        replaced, quant_s = [], None
+        if label == "nf4":
+            t0 = time.perf_counter()
+            replaced = quantize_inplace(model.denoiser, "bnb_nf4",
+                                        cli.INCLUDE_KEYS, cli.EXCLUDE_KEYS)
+            torch.cuda.synchronize()
+            quant_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        request(100, steps=2)  # warm-up: allocator, cuDNN and cuBLAS plans
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        image = request(1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        stats = image.float()
+        emit("sdxl_sampler", model="SDXL-base (random weights, seed 0)",
+             unet=label, params=params, quantized_linears=len(replaced),
+             quantize_seconds=quant_s, resolution=SDXL_SIDE, batch=1,
+             cfg=SDXL_CFG, steps=SDXL_STEPS, context_tokens=SDXL_TOKENS + 2,
+             build_seconds=build_s, seconds_per_image=seconds,
+             steps_per_second=SDXL_STEPS / seconds,
+             peak_memory_bytes=torch.cuda.max_memory_allocated(),
+             launches=counts, expected=SDXL_LAUNCHES[label],
+             image_mean=float(stats.mean()), image_std=float(stats.std()))
+        check(tuple(image.shape) == (1, SDXL_SIDE, SDXL_SIDE, 3),
+              f"image shape {tuple(image.shape)}")
+        check(bool(torch.isfinite(stats).all()) and float(stats.std()) > 1e-3,
+              "the SDXL image is not finite, or constant")
+        check(counts == SDXL_LAUNCHES[label],
+              f"SDXL {label} launches {counts}, expected {SDXL_LAUNCHES[label]}")
+        if label == "nf4":  # 70 blocks of 10 linears, 11 transformers of 2
+            check(len(replaced) == 70 * 10 + 11 * 2,
+                  f"{len(replaced)} quantized linears")
+        launches[f"sdxl_{label}"] = counts
+        # a 2-step request: the profiler's own processing of a 20-step one
+        # (about 400 k events) takes minutes
+        profile(f"sdxl_{label}_2_steps", lambda: request(2, steps=2))
+    del model, image
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _rel_l2(ours: np.ndarray, theirs: np.ndarray) -> float:
+    return float(np.linalg.norm(ours - theirs) / max(np.linalg.norm(theirs), 1e-30))
+
+
+def phase_sdxl_parity() -> None:
+    """The same weights and draws on the card (kernels) and on the CPU (the
+    plain versions of the same path): full widths, layers_per_block 1, one
+    transformer per stage, 512^2, bf16; one UNet call (batch 2) and a 2-step
+    CFG generate, before and after NF4 quantization."""
+    import copy
+
+    import vision_pt_tpu_torch.ops.attention as attention
+    from vision_pt_tpu_torch.models.sdxl import (
+        DenoiserConfig,
+        SDXLConfig,
+        SDXLModel,
+        WordHashTokenizer,
+    )
+    from vision_pt_tpu_torch.ops.quant import layers as qlayers
+    from vision_pt_tpu_torch.ops.quant import quantize_inplace
+    from vision_pt_tpu_torch.tools import inference_cli as cli
+
+    bf16 = torch.bfloat16
+    torch.set_num_threads(os.cpu_count() or 1)
+    config = SDXLConfig(checkpoint_path="", dtype="bfloat16", denoiser=DenoiserConfig(
+        layers_per_block=1, num_transformers_per_block=[1, 1, 1]))
+    tokenizer = WordHashTokenizer()
+    card = SDXLModel.from_config(config, seed=1, device="cuda",
+                                 tokenizer_1=tokenizer, tokenizer_2=tokenizer)
+    rng = np.random.default_rng(5)
+    unet_args = [
+        rng.normal(size=(2, 64, 64, 4)).astype(np.float32),
+        np.asarray([999.0, 500.0], np.float32),
+        rng.normal(size=(2, 77, 2048)).astype(np.float32),
+        rng.normal(size=(2, 1280)).astype(np.float32),
+        np.full((2, 2), 512.0, np.float32), np.full((2, 2), 512.0, np.float32),
+        np.zeros((2, 2), np.float32),
+    ]
+    low = (0, 2, 3)  # the arguments in the execution dtype
+    sigma = card.scheduler.get_max_noise_sigma(
+        card.scheduler.get_sigmas(card.scheduler.get_timesteps(2)))
+    latents = rng.normal(size=(1, 64, 64, 4)).astype(np.float32) * sigma
+    noise = [rng.normal(size=(1, 64, 64, 4)).astype(np.float32) for _ in range(2)]
+
+    def run(model, device):
+        """(UNet output, latents, launches, seconds) of one UNet call and the
+        2-step generate; the CPU runs the same path, through the plain
+        versions."""
+        args = [torch.from_numpy(a).to(device, bf16 if i in low else torch.float32)
+                for i, a in enumerate(unet_args)]
+        _reset_counts()
+        gates = attention._on_cuda, qlayers._on_cuda
+        attention._on_cuda = qlayers._on_cuda = lambda x: True
+        t0 = time.perf_counter()
+        try:
+            with torch.inference_mode():
+                unet_out = model.denoiser(*args)
+            out = model.generate(SDXL_PROMPT[0], SDXL_PROMPT[1], width=512,
+                                 height=512, num_inference_steps=2,
+                                 cfg_scale=SDXL_CFG, execution_dtype=bf16,
+                                 latents=latents, step_noise=noise,
+                                 return_latents=True)
+        finally:
+            attention._on_cuda, qlayers._on_cuda = gates
+        return (unet_out.float().cpu().numpy(), out.float().cpu().numpy(),
+                _counts(), time.perf_counter() - t0)
+
+    for label in ("bf16", "nf4"):
+        if label == "nf4":
+            quantize_inplace(card.denoiser, "bnb_nf4", cli.INCLUDE_KEYS,
+                             cli.EXCLUDE_KEYS)
+        host = copy.deepcopy(card).to("cpu")
+        unet_c, lat_c, counts_c, sec_c = run(card, "cuda")
+        unet_h, lat_h, counts_h, sec_h = run(host, "cpu")
+        errors = {"unet": _rel_l2(unet_c, unet_h), "latents": _rel_l2(lat_c, lat_h)}
+        emit("sdxl_parity", unet=label, resolution=512, depth="layers_per_block 1, "
+             "one transformer per stage", rel_l2=errors, floor=SDXL_PARITY_FLOOR,
+             psnr_db={"unet": psnr(unet_c, unet_h), "latents": psnr(lat_c, lat_h)},
+             launches_cuda=counts_c, launches_cpu=counts_h,
+             expected_cuda=SDXL_PARITY_LAUNCHES[label], seconds_cuda=sec_c,
+             seconds_cpu=sec_h)
+        check(np.isfinite(unet_c).all() and np.isfinite(lat_c).all(),
+              "non-finite SDXL parity output")
+        check(counts_c == SDXL_PARITY_LAUNCHES[label] and counts_h == (0,) * 5,
+              f"SDXL parity launches: card {counts_c}, expected "
+              f"{SDXL_PARITY_LAUNCHES[label]}; CPU {counts_h}, expected none")
+        check(all(errors[k] <= SDXL_PARITY_FLOOR[k] for k in errors),
+              f"SDXL {label} parity {errors} over {SDXL_PARITY_FLOOR}")
+        del host
+        if label != "nf4":
+            continue
+        # the floors must fail a kernel #9 that is slightly wrong in every
+        # launch: its scale row 3 25% off, or that chunk left out
+        kernel, wrong_errors = qlayers.dequant_matmul_4bit, {}
+        for wrong_label, scale in (("absmax_row_perturbed", 1.25),
+                                   ("chunk_dropped", 0.0)):
+            def wrong(x, packed, absmax, quant_type="nf4", scale=scale):
+                absmax = absmax.clone()
+                absmax[3] *= scale
+                return kernel(x, packed, absmax, quant_type)
+
+            qlayers.dequant_matmul_4bit = wrong
+            try:
+                unet_w, lat_w, _, _ = run(card, "cuda")
+            finally:
+                qlayers.dequant_matmul_4bit = kernel
+            wrong_errors[wrong_label] = {"unet": _rel_l2(unet_w, unet_h),
+                                         "latents": _rel_l2(lat_w, lat_h)}
+        emit("sdxl_parity", unet=label, case="limits_can_fail", rel_l2=wrong_errors,
+             floor=SDXL_PARITY_FLOOR)
+        for wrong_label, e in wrong_errors.items():
+            check(all(e[k] > SDXL_PARITY_FLOOR[k] for k in e),
+                  f"an SDXL parity floor passes kernel #9 with {wrong_label}: {e}")
+    del card
     torch.cuda.empty_cache()
 
 
@@ -1105,9 +1466,11 @@ def main(args: list[str]) -> int:
         return 1
     started = time.perf_counter()
     smi = phase_device()
-    errors = {**phase_kernel(), **phase_flash_kernel()}
+    errors = {**phase_kernel(), **phase_flash_kernel(),
+              "dequant_matmul_4bit": phase_nf4_kernel()}
     rows = phase_timing()
     rows.update(phase_flash_timing())
+    nf4_rows = phase_nf4_timing()
     if args:  # no path was driven: no kernels line and no result line
         emit("done", seconds=time.perf_counter() - started)
         return 0
@@ -1123,18 +1486,25 @@ def main(args: list[str]) -> int:
         phase_parity(label2id)
         launches["latent_trainer"] = phase_latent_trainer(tmp)
         phase_latent_parity(tmp)
+    launches.update(phase_sdxl_sampler())
+    phase_sdxl_parity()
     kernels = []
     # each kernel's launches are those of its main path: the training step
-    # for the packed kernels, the latent trainer for the flash kernels
+    # for the packed kernels, the latent trainer for the flash kernels (the
+    # SDXL requests beside them), the NF4 SDXL request for kernel #9
     for i, (row, kernel, path) in enumerate((
             (rows["train"], "short_attention_packed", "train_step"),
             (rows["train_bwd"], "short_attention_packed_bwd", "train_step"),
-            (rows["flash_attention"], "flash_attention", "latent_trainer"),
-            (rows["flash_attention_bwd"], "flash_attention_bwd", "latent_trainer"))):
+            (rows["latent"], "flash_attention", "latent_trainer"),
+            (rows["latent_bwd"], "flash_attention_bwd", "latent_trainer"),
+            (nf4_rows["path"], "dequant_matmul_4bit", "sdxl_nf4"))):
         kernels.append({**row, "launches": launches[path][i],
                         "launches_by_path": {k: v[i] for k, v in launches.items()},
                         "max_abs_err": errors[kernel]})
         check(launches[path][i] > 0, f"{kernel} never launched on {path}")
+    kernels[2]["sdxl_timing"] = [{**rows[label], "max_abs_err": errors[label]}
+                                 for label in ("sdxl_s4096", "sdxl_s1024")]
+    kernels[4]["other_shapes"] = [nf4_rows["path_n640"], nf4_rows["bench"]]
     emit("done", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": kernels}))
     print(smi)

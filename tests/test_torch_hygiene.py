@@ -37,7 +37,14 @@ def test_importing_the_whole_port_loads_no_jax():
     assert "vision_pt_tpu_torch.training.trainer" in report["imported"]
     assert "vision_pt_tpu_torch.train.jit.class_to_image" in report["imported"]
     for name in ("ops.flash_attention", "data.latent_cache",
-                 "workloads.jit_variants", "train.jit.latent_class_to_image"):
+                 "workloads.jit_variants", "train.jit.latent_class_to_image",
+                 "ops.quant.nf4", "ops.quant.nf4_matmul", "ops.quant.layers",
+                 "ops.quant.functional", "ops.long_prompt", "ops.linear",
+                 "utils.state_dict", "models.sdxl.config",
+                 "models.sdxl.text_encoder", "models.sdxl.denoiser",
+                 "models.sdxl.vae", "models.sdxl.scheduler",
+                 "models.sdxl.convert", "models.sdxl.pipeline",
+                 "tools.inference_cli"):
         assert f"vision_pt_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["modules"] if FORBIDDEN.match(m)]
     assert leaked == []
@@ -69,6 +76,8 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
         JiTModel,
     )
     from vision_pt_tpu_torch.config import TrainConfig
+    from vision_pt_tpu_torch.models.sdxl import SDXLConfig, SDXLModel
+    from vision_pt_tpu_torch.tools.inference_cli import main as inference_main
     from vision_pt_tpu_torch.train.jit.class_to_image import run
     from vision_pt_tpu_torch.train.jit.latent_class_to_image import (
         run as latent_run,
@@ -94,6 +103,10 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
         lambda: Trainer(TrainConfig.model_validate(train_config)),
         lambda: run(str(yml)),
         lambda: latent_run(str(yml)),
+        lambda: SDXLModel(SDXLConfig(checkpoint_path="")),
+        lambda: SDXLModel.from_config(SDXLConfig(checkpoint_path="")),
+        lambda: inference_main(["--checkpoint-path", str(tmp_path / "missing"),
+                                "--tokenizer", "word-hash"]),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()

@@ -9,8 +9,9 @@ Reads the JAX package's cache layout under ``cache_dir``:
 
 Training draws ``mean + std * eps`` with the bucket's per-(seed, epoch, index)
 generator, exactly as the JAX package does, so both packages give the same
-arrays from the same cache. Latents are NHWC. Writing a cache needs the SDXL
-VAE, which is not ported yet: :func:`cache_latents` raises.
+arrays from the same cache. Latents are NHWC. Writing a cache runs the SDXL
+VAE (``models.sdxl.vae``, ported) over the text-to-image bucket dataset,
+which is not ported yet: :func:`cache_latents` raises.
 """
 
 from __future__ import annotations
@@ -29,11 +30,12 @@ MANIFEST_NAME = "manifest.jsonl"
 
 
 def cache_latents(*args, **kwargs) -> str:
-    """The batched VAE encode pass that writes a cache; it needs the SDXL
-    VAE."""
+    """The batched VAE encode pass that writes a cache; it iterates the
+    text-to-image bucket dataset."""
     raise NotImplementedError(
-        "cache_latents needs the SDXL VAE, which is not ported yet: ROADMAP "
-        "Queue 1, slice 5; build the cache with the JAX package's "
+        "cache_latents iterates the text-to-image bucket dataset "
+        "(vision_pt_tpu/data/text_to_image.py), which is not ported yet: "
+        "ROADMAP Queue 1, slice 5; build the cache with the JAX package's "
         "tools/data/cache_latents.py"
     )
 

@@ -21,6 +21,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import dot_product_attention
+from ...ops.linear import Linear
 from ...ops.norm import FP32RMSNorm, get_norm_layer
 from ...ops.patch import patchify, pixel_shuffle_nhwc
 from ...ops.short_attention import MAX_SHORT_SEQ, short_attention_packed
@@ -35,31 +36,6 @@ MIN_PACKED_SEQ = 256
 def _on_cuda(x: torch.Tensor) -> bool:
     """Where the packed kernel can run (the JAX gate's ``_on_tpu()``)."""
     return x.is_cuda
-
-
-class Linear(nn.Module):
-    """``nnx.Linear`` semantics: weight (out, in) in ``param_dtype``; with
-    ``dtype`` set, the input, weight and bias are all cast to it first, else
-    the computation runs in the promoted dtype of input and weight. Init is
-    the reference's normal(0.02) weight and zero bias."""
-
-    def __init__(self, din: int, dout: int, *, use_bias: bool = True,
-                 dtype: torch.dtype | None = None,
-                 param_dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
-        super().__init__()
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(dout, din, dtype=param_dtype))
-        self.bias = (
-            nn.Parameter(torch.zeros(dout, dtype=param_dtype)) if use_bias else None
-        )
-        with torch.no_grad():
-            self.weight.normal_(0.0, 0.02, generator=generator)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        bias = self.bias.to(dt) if self.bias is not None else None
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class BottleneckPatchEmbed(nn.Module):

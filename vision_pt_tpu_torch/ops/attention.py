@@ -1,5 +1,5 @@
 """Attention dispatch (port of the part of ``vision_pt_tpu/ops/attention.py``
-that the JiT sampler and training paths use).
+that the JiT sampler and training paths and the SDXL UNet use).
 
 Layout is (B, S, H, D) throughout, as in the JAX package. fp32 q/k/v are cast
 to the attention dtype (default bf16) first. The ``xla`` backend (and

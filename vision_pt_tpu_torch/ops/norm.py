@@ -105,6 +105,58 @@ class DerfNorm(nn.Module):
         return y.to(x.dtype)
 
 
+def _fast_stats(x32, dims):
+    """fp32 mean and fast variance E[x^2] - E[x]^2, clipped at 0 (the
+    ``nnx`` norms' statistics)."""
+    mean = x32.mean(dim=dims, keepdim=True)
+    var = torch.clamp_min(x32.square().mean(dim=dims, keepdim=True) - mean.square(), 0.0)
+    return mean, var
+
+
+class LayerNorm(nn.Module):
+    """``nnx.LayerNorm`` over the last axis (default epsilon 1e-6):
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in fp32, cast to
+    ``dtype`` (or to the promoted dtype of x and the parameters)."""
+
+    def __init__(self, dim: int, *, eps: float = 1e-6,
+                 dtype: torch.dtype | None = None,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(dim, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=param_dtype))
+
+    def forward(self, x):
+        x32 = x.float()
+        mean, var = _fast_stats(x32, (-1,))
+        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight.float())
+        y = y + self.bias.float()
+        return y.to(self.dtype or torch.promote_types(x.dtype, self.weight.dtype))
+
+
+class GroupNorm(nn.Module):
+    """``nnx.GroupNorm`` over NHWC: statistics per (sample, group) over H, W
+    and the group's channels, then LayerNorm's affine arithmetic."""
+
+    def __init__(self, channels: int, groups: int = 32, *, eps: float = 1e-6,
+                 dtype: torch.dtype | None = None,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.groups, self.eps, self.dtype = groups, eps, dtype
+        self.weight = nn.Parameter(torch.ones(channels, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.zeros(channels, dtype=param_dtype))
+
+    def forward(self, x):
+        b, h, w, c = x.shape
+        x32 = x.float()
+        mean, var = _fast_stats(x32.reshape(b, h, w, self.groups, -1), (1, 2, 4))
+        per_channel = (b, 1, 1, self.groups, c // self.groups)
+        mean = mean.expand(per_channel).reshape(b, 1, 1, c)
+        mul = torch.rsqrt(var + self.eps).expand(per_channel).reshape(b, 1, 1, c)
+        y = (x32 - mean) * (mul * self.weight.float()) + self.bias.float()
+        return y.to(self.dtype or torch.promote_types(x.dtype, self.weight.dtype))
+
+
 def get_norm_layer(norm_type: NormType, dim: int, *,
                    elementwise_affine: bool = True, eps: float = 1e-6,
                    alpha_init_value: float = 0.5, shift_init_value: float = 0.0,

@@ -34,3 +34,10 @@ def tensor_to_images(tensor: torch.Tensor) -> list[Image.Image]:
     arr = tensor.detach().float().cpu().numpy()
     arr = np.clip((arr + 1.0) * 127.5, 0, 255).astype(np.uint8)
     return [Image.fromarray(a) for a in arr]
+
+
+def images_to_tensor(images: list[Image.Image]) -> torch.Tensor:
+    """PIL RGB -> NHWC float32 in [-1, 1] (on the CPU)."""
+    arrs = [np.asarray(img.convert("RGB"), dtype=np.float32) / 127.5 - 1.0
+            for img in images]
+    return torch.from_numpy(np.stack(arrs))
