@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's JiT-B/16 class-to-image sampler and training step,
-its latent JiT 1024^2 trainer and its SDXL 1024^2 text-to-image sampler (bf16
-and NF4), on one CUDA card.
+its latent JiT 1024^2 trainer, its SDXL 1024^2 text-to-image sampler (bf16
+and NF4), its ``short`` attention backend and its two attention probes, on
+one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only   # phases 1-3 (with nf4_kernel and
-                                           # nf4_timing) alone, no result line
+    python3 chip_smoke.py --kernels-only   # phases 1-3 (with nf4_kernel,
+                                           # short_kernel, nf4_timing and
+                                           # short_timing) alone, no result line
 
 Phases, one JSON line each; any failure raises and the script exits non-zero
 without a result line:
@@ -76,9 +78,30 @@ without a result line:
    generate with injected latents and noise, on the card (kernels) and on
    the CPU (plain versions), before and after NF4 quantization; the floors
    must also fail the card's run with kernel #9 given one scale row 25% off,
-   or that chunk left out, in every launch.
+   or that chunk left out, in every launch;
+13. short_path (after train_step): ``dot_product_attention(...,
+   backend="short")`` forward and backward at JiT-B/16 width (B 64, S 298,
+   12 x 64, bf16, kv_lens in [266, 298] with one row at 0), then
+   ``short_attention_bhsd`` on the same tensors transposed; exactly one
+   forward and one backward launch of the matching entry per call (#3/#4,
+   then #5/#6) and none of any other kernel; a mask or ``is_causal`` must be
+   refused;
+14. attention_probes (after short_path): the two probe tools' ``main()``
+   (``tools.bench.attention_pairing_probe``, ``tools.bench.attention_roofline``,
+   the roofline's training step with 5 steps a window), each printing its
+   JSON line; #10 and #11 launch exactly as their timing asks.
 
-After phase 2, nf4_kernel holds kernel #9 (``dequant_matmul_4bit``) against
+After phase 2, short_kernel holds kernels #3-#6 (the short backend's BSHD
+and BHSD entries, forward and backward) against their plain versions at the
+JiT-B/16 train shape and at edge shapes (S 37; Sq 266 with Sk 77; kv_lens
+full, partial and 0; D 128; bf16 and fp32) under phase 2's limits, which must
+fail a plain version one key short; autograd through both entries must give
+exactly their backward; #10 and #11 at the probes' shape (B 64, S 304, 12 x
+64) under the same limits, which must fail a plain version with one head's
+output left out. short_timing times #3-#6 at the train shape (SDPA forward,
+and forward and backward, as the yardsticks), #10 and #11 at theirs (SDPA
+forward and backward with the adds; seven bf16 matmuls) and #2 again.
+nf4_kernel holds kernel #9 (``dequant_matmul_4bit``) against
 its plain version at the sampler's shapes and at edge shapes (M 1, 37, 1024;
 K 128, 5120; N 8, 136, 10240), nf4 and fp4, bf16, fp16 and fp32, under
 phase 2's limits (fp16's tol 2e-3), which must fail a plain version with one absmax row 25% off or one
@@ -105,6 +128,8 @@ import time
 import numpy as np
 import torch
 
+from vision_pt_tpu_torch.tools.bench import cuda_ms
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense
 TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-3, torch.float32: 1e-4}
@@ -113,7 +138,7 @@ LSE_ATOL = 1e-4
 STEPS, BATCH, REQUESTS = 20, 8, 3
 LAUNCHES_PER_REQUEST = 4 * STEPS  # blocks 0-3 (before context_start_block)
 PSNR_FLOOR_DB = {"float32": 50.0, "bfloat16": 30.0}
-TRAIN_BATCH, TRAIN_CONTEXT, TIMED_STEPS = 64, 32, 10
+TRAIN_BATCH, TIMED_STEPS = 64, 10
 # train_parity floors, largest over the parameters of the relative L2 error
 # of the gradient, card vs CPU. fp32: both sides compute in fp32 and differ
 # only in the order of sums (measured errors ~1e-5 on the CPU against JAX).
@@ -124,13 +149,24 @@ TRAIN_PARITY_FLOOR = {"float32": {"loss": 1e-4, "grad": 1e-3},
                       "bfloat16": {"loss": 2e-2, "grad": 1e-1}}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the port's own kernels among a profile's device kernels
-PORT_KERNEL = re.compile(r"attn_fwd_|(packed|flash)_bwd_(dq|dkdv)_|nf4_matmul")
+PORT_KERNEL = re.compile(
+    r"attn_fwd_|(packed|flash)_bwd_(dq|dkdv)_|nf4_matmul|(pairing|dots)_probe_")
 SOURCES = ("short_attention", "short_attention_bwd", "flash_attention",
-           "flash_attention_bwd", "nf4_matmul")
+           "flash_attention_bwd", "nf4_matmul", "attention_probe")
 LATENT_BATCH, LATENT_SIDE, LATENT_ITEMS = 16, 128, 64
+# the kernel launch counters, in the order of every launch-count tuple:
+# kernels #1-#11 (their wrappers in _wrappers())
+N_KERNELS = 11
+
+
+def _expect(launches: dict[int, int]) -> tuple[int, ...]:
+    """A launch-count tuple from {kernel number: launches}, 0 elsewhere."""
+    return tuple(launches.get(i, 0) for i in range(1, N_KERNELS + 1))
+
+
 # flash launches per latent training step: 24 blocks forward, 24 recomputed
 # under gradient checkpointing, 24 backward
-LATENT_STEP_LAUNCHES = (0, 0, 48, 24, 0)
+LATENT_STEP_LAUNCHES = _expect({7: 48, 8: 24})
 
 
 class SmokeFailure(RuntimeError):
@@ -157,20 +193,6 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device ms per call over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def psnr(ours: np.ndarray, theirs: np.ndarray) -> float:
@@ -596,20 +618,29 @@ def phase_flash_timing() -> dict:
 
 def _wrappers():
     """The kernel wrappers, in the order of every launch-count tuple:
-    packed forward, packed backward, flash forward, flash backward, NF4
-    dequant-matmul."""
+    kernels #1-#11 (packed forward and backward, the short backend's BSHD
+    and BHSD forwards and backwards, flash forward and backward, NF4
+    dequant-matmul, the two attention probes)."""
     from vision_pt_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_bwd,
     )
     from vision_pt_tpu_torch.ops.quant.nf4_matmul import dequant_matmul_4bit
     from vision_pt_tpu_torch.ops.short_attention import (
+        short_attention,
+        short_attention_bhsd,
+        short_attention_bhsd_bwd,
+        short_attention_bwd,
         short_attention_packed,
         short_attention_packed_bwd,
     )
+    from vision_pt_tpu_torch.tools.bench.attention_pairing_probe import run_variant
+    from vision_pt_tpu_torch.tools.bench.attention_roofline import dots_variant
 
-    return (short_attention_packed, short_attention_packed_bwd,
-            flash_attention, flash_attention_bwd, dequant_matmul_4bit)
+    return (short_attention_packed, short_attention_packed_bwd, short_attention,
+            short_attention_bwd, short_attention_bhsd, short_attention_bhsd_bwd,
+            flash_attention, flash_attention_bwd, dequant_matmul_4bit,
+            run_variant, dots_variant)
 
 
 def _reset_counts():
@@ -617,7 +648,7 @@ def _reset_counts():
         fn.launches = 0
 
 
-def _counts() -> tuple[int, int, int, int, int]:
+def _counts() -> tuple[int, ...]:
     return tuple(fn.launches for fn in _wrappers())
 
 
@@ -668,9 +699,9 @@ def phase_sampler(label2id: str) -> tuple[int, ...]:
          other_launches=others,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
     check(per_request == [LAUNCHES_PER_REQUEST] * REQUESTS and bwd_launches == 0
-          and others == [0, 0, 0],
+          and others == [0] * len(others),
           f"packed kernel launches per request {per_request} (backward "
-          f"{bwd_launches}, flash and nf4 {others}), expected "
+          f"{bwd_launches}, kernels #3-#11 {others}), expected "
           f"{LAUNCHES_PER_REQUEST} (0)")
     profile("sampler", lambda: request(7))
     return launches, bwd_launches, *others
@@ -710,38 +741,15 @@ def profile(path: str, run):
 
 def phase_train_step() -> tuple[int, ...]:
     """``bench_headline``'s step (vision_pt_tpu/benchmarks.py:83-135) in the
-    port; returns the kernel launches of the timed steps."""
-    from vision_pt_tpu_torch.models.jit import Denoiser, JiT_B_16_Config
-    from vision_pt_tpu_torch.ops.loss.flow_match import prepare_scaled_noised_latents
-    from vision_pt_tpu_torch.ops.timestep.sampling import scale_shift_sigmoid_randn
-    from vision_pt_tpu_torch.training.optimizer import get_optimizer
+    port, as ``vision_pt_tpu_torch.benchmarks._jit_train_setup`` builds it;
+    returns the kernel launches of the timed steps."""
+    from vision_pt_tpu_torch.benchmarks import CONTEXT_LEN, _jit_train_setup
+    from vision_pt_tpu_torch.models.jit import JiT_B_16_Config
 
-    batch, size, bf16 = TRAIN_BATCH, 256, torch.bfloat16
-    config = JiT_B_16_Config()
-    model = Denoiser(config, dtype=bf16, param_dtype=torch.float32,
-                     generator=torch.Generator().manual_seed(0), device="cuda")
-    optimizer = get_optimizer("adamw", list(model.parameters()), lr=1e-4)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    images = torch.randn(batch, size, size, 3, generator=gen, device="cuda")
-    context = torch.randn(batch, TRAIN_CONTEXT, config.context_dim,
-                          generator=gen, device="cuda").to(bf16)
-    sizes = torch.full((batch, 2), float(size), device="cuda")
-    crop = torch.zeros(batch, 2, device="cuda")
-
-    def step(i):
-        g = torch.Generator(device="cuda").manual_seed(1000 + i)
-        t = scale_shift_sigmoid_randn(g, batch, device="cuda")
-        noisy, _ = prepare_scaled_noised_latents(g, images, t)
-        pred = model(noisy.to(bf16), t, context, sizes, sizes, crop)
-        denom = torch.clamp_min(1.0 - t.reshape(-1, 1, 1, 1), 0.05)
-        target_v = (images - noisy) / denom
-        pred_v = (pred.float() - noisy) / denom
-        loss = torch.mean(torch.square(pred_v - target_v))
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
-
+    batch = TRAIN_BATCH
+    model, optimizer, step = _jit_train_setup(
+        JiT_B_16_Config(), batch, 256, dtype=torch.bfloat16,
+        param_dtype=torch.float32)
     step(0)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -754,18 +762,18 @@ def phase_train_step() -> tuple[int, ...]:
     fwd, bwd = counts[:2]
     losses = [float(x) for x in losses]
     emit("train_step", model="JiT-B/16", resolution=256, batch=batch,
-         context_tokens=TRAIN_CONTEXT, compute="bfloat16", params="float32",
+         context_tokens=CONTEXT_LEN, compute="bfloat16", params="float32",
          optimizer="adamw 1e-4", timed_steps=TIMED_STEPS,
          seconds_per_step=seconds, images_per_second=batch / seconds,
          peak_memory_bytes=torch.cuda.max_memory_allocated(), losses=losses,
          fwd_launches_per_step=fwd / TIMED_STEPS,
          bwd_launches_per_step=bwd / TIMED_STEPS)
     check(all(np.isfinite(losses)), f"non-finite loss {losses}")
-    check(counts == (12 * TIMED_STEPS, 12 * TIMED_STEPS, 0, 0, 0),
+    check(counts == _expect({1: 12 * TIMED_STEPS, 2: 12 * TIMED_STEPS}),
           f"kernel launches {counts} over {TIMED_STEPS} steps, "
           "expected 12 + 12 packed per step and no flash")
     profile("train_step", lambda: step(TIMED_STEPS + 1))
-    del model, optimizer
+    del model, optimizer, step
     torch.cuda.empty_cache()
     return counts
 
@@ -846,7 +854,7 @@ def phase_trainer(tmp: str) -> tuple[int, ...]:
                          if "train/loss" in r])
     check(trainer.global_step == 4 and len(losses) == 4
           and all(np.isfinite(losses)), f"trainer losses {losses}")
-    check(per_step == [(4, 4, 0, 0, 0)] * 4,
+    check(per_step == [_expect({1: 4, 2: 4})] * 4,
           f"launches per step {per_step}, expected 4 + 4 packed, no flash")
     check(len(saved) == 2 and len(previews) == 1 and reloaded,
           f"saved {saved}, previews {previews}, reloaded {reloaded}")
@@ -918,7 +926,7 @@ def phase_train_parity(label2id: str) -> None:
              launches_cpu=counts_h, seconds_cuda=sec_c, seconds_cpu=sec_h)
         check(all(bool(torch.isfinite(g).all()) for g in grads_c.values()),
               "non-finite grads")
-        check(counts_c == (4, 4, 0, 0, 0) and counts_h == (0, 0, 0, 0, 0),
+        check(counts_c == _expect({1: 4, 2: 4}) and counts_h == _expect({}),
               f"the card step must launch 4 + 4 kernels ({counts_c}), the CPU "
               f"step none ({counts_h})")
         check(loss_err <= floor["loss"] and worst[0][1] <= floor["grad"],
@@ -1138,7 +1146,7 @@ def phase_latent_parity(tmp: str) -> None:
              launches_cpu=counts_h, seconds_cuda=sec_c, seconds_cpu=sec_h)
         check(all(bool(torch.isfinite(g).all()) for g in grads_c.values()),
               "non-finite grads")
-        check(counts_c == (0, 0, 6, 6, 0) and counts_h == (0, 0, 0, 0, 0),
+        check(counts_c == _expect({7: 6, 8: 6}) and counts_h == _expect({}),
               f"the card step must launch 6 + 6 flash kernels ({counts_c}), "
               f"the CPU step none ({counts_h})")
         check(loss_err <= floor["loss"] and worst[0][1] <= floor["grad"],
@@ -1157,8 +1165,8 @@ SDXL_SIDE, SDXL_STEPS, SDXL_CFG, SDXL_TOKENS = 1024, 20, 5.0, 75
 # per UNet call at 1024^2 with CFG: 70 self-attentions take flash (10 at
 # S 4096 with 10 heads, 60 at S 1024 with 20), and the to_k / to_v of the 70
 # cross-attentions (154 rows) take kernel #9 once the UNet is NF4
-SDXL_LAUNCHES = {"bf16": (0, 0, 70 * SDXL_STEPS, 0, 0),
-                 "nf4": (0, 0, 70 * SDXL_STEPS, 0, 140 * SDXL_STEPS)}
+SDXL_LAUNCHES = {"bf16": _expect({7: 70 * SDXL_STEPS}),
+                 "nf4": _expect({7: 70 * SDXL_STEPS, 9: 140 * SDXL_STEPS})}
 SDXL_PROMPT = ("photo of a red fox in the snow, detailed fur",
                "blurry, ugly, low quality")
 # sdxl_parity at 512^2, full widths, layers_per_block 1, one transformer per
@@ -1166,7 +1174,7 @@ SDXL_PROMPT = ("photo of a red fox in the snow, detailed fur",
 # stage 2 (32 x 32 = 1024 tokens, 3 self-attentions a call); under NF4 the
 # kernel takes every product of at most 1024 rows: the 6 context products
 # of stage 2 and all 48 quantized products of stage 3 (2 x 256 rows)
-SDXL_PARITY_LAUNCHES = {"bf16": (0, 0, 9, 0, 0), "nf4": (0, 0, 9, 0, 162)}
+SDXL_PARITY_LAUNCHES = {"bf16": _expect({7: 9}), "nf4": _expect({7: 9, 9: 162})}
 # sdxl_parity floors on the relative L2 error, card vs CPU, in bf16: every
 # activation is rounded to 8 mantissa bits through ~40 layers and the card's
 # and the CPU's matmuls and convolutions round at other places (the JiT
@@ -1423,7 +1431,7 @@ def phase_sdxl_parity() -> None:
              seconds_cpu=sec_h)
         check(np.isfinite(unet_c).all() and np.isfinite(lat_c).all(),
               "non-finite SDXL parity output")
-        check(counts_c == SDXL_PARITY_LAUNCHES[label] and counts_h == (0,) * 5,
+        check(counts_c == SDXL_PARITY_LAUNCHES[label] and counts_h == _expect({}),
               f"SDXL parity launches: card {counts_c}, expected "
               f"{SDXL_PARITY_LAUNCHES[label]}; CPU {counts_h}, expected none")
         check(all(errors[k] <= SDXL_PARITY_FLOOR[k] for k in errors),
@@ -1457,6 +1465,338 @@ def phase_sdxl_parity() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------- the short backend (#3-#6) and the probes
+
+# (name, batch, sq, sk, heads, dim, dtype, kv_lens): the JiT-B/16 train shape,
+# then edge shapes; "range" draws kv_lens in [266, Sk] with row 1 at 0
+SHORT_CASES = [
+    ("train_s298", 64, 298, 298, 12, 64, torch.bfloat16, None),
+    ("train_s298_kv", 16, 298, 298, 12, 64, torch.bfloat16, "range"),
+    ("s37", 2, 37, 37, 2, 64, torch.bfloat16, [37, 21]),
+    ("sq266_sk77", 4, 266, 77, 6, 64, torch.bfloat16, [77, 40, 0, 1]),
+    ("d128", 4, 266, 266, 6, 128, torch.bfloat16, "range"),
+    ("fp32_s266", 4, 266, 266, 12, 64, torch.float32, [266, 100, 0, 7]),
+    ("fp32_d128_sq266_sk77", 2, 266, 77, 4, 128, torch.float32, [77, 0]),
+]
+SHORT_SHAPE = (64, 298, 12, 64)  # JiT-B/16's training step: B, S, H, D
+PROBE_SHAPE = (64, 304, 12, 64)  # the probes' (S padded to 304 on the TPU)
+ROOFLINE_STEPS = 5  # training steps per timing window of the roofline probe
+
+
+def _short_entries(layout):
+    """(forward, backward, plain forward, plain backward, batch-first view of
+    a BSHD tensor in this layout) of the short backend's BSHD or BHSD entry."""
+    from vision_pt_tpu_torch.ops import short_attention as sa
+
+    if layout == "bshd":
+        return (sa.short_attention, sa.short_attention_bwd,
+                sa.short_attention_reference, sa.short_attention_bwd_reference,
+                lambda x: x)
+    return (sa.short_attention_bhsd, sa.short_attention_bhsd_bwd,
+            sa.short_attention_bhsd_reference, sa.short_attention_bhsd_bwd_reference,
+            lambda x: x.transpose(1, 2).contiguous())
+
+
+def phase_short_kernel() -> dict:
+    """Kernels #3-#6 (the short backend's forward and backward, BSHD and
+    BHSD) and #10, #11 (the probes) against their plain versions; returns
+    the largest error of each at the train shape (#3-#6) and at the probe
+    shape (#10, #11)."""
+    from vision_pt_tpu_torch.tools.bench import attention_pairing_probe as pairing
+    from vision_pt_tpu_torch.tools.bench import attention_roofline as roofline
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    errors = {}
+    for name, batch, sq, sk, heads, dim, dtype, lens in SHORT_CASES:
+        q, do = (_bshd(gen, batch, sq, heads, dim, dtype) for _ in range(2))
+        k, v = (_bshd(gen, batch, sk, heads, dim, dtype) for _ in range(2))
+        kv_lens = _kv_lens(gen, lens, batch, sk)
+        tol = TOL[dtype]
+        row_lens = [sk] * batch if kv_lens is None else kv_lens.clamp(0, sk).tolist()
+        zero_rows = [i for i, n in enumerate(row_lens) if n == 0]
+        partial = [(i, n) for i, n in enumerate(row_lens) if 0 < n < sk]
+        for layout in ("bshd", "bhsd"):
+            fwd, bwd, plain_fwd, plain_bwd, view = _short_entries(layout)
+            args = [view(x) for x in (q, k, v)]
+            dout = view(do)
+            out = fwd(*args, kv_lens)
+            grads = bwd(*args, dout, kv_lens)
+            torch.cuda.synchronize()
+            ref = plain_fwd(*args, kv_lens)
+            ref_grads = plain_bwd(*args, dout, kv_lens)
+            for kernel, outs, refs in ((fwd.__name__, [out], [ref]),
+                                       (bwd.__name__, grads, ref_grads)):
+                err, share, within = _agree(
+                    [_compare(o, r, tol) for o, r in zip(outs, refs)])
+                finite = all(bool(torch.isfinite(o).all()) for o in outs)
+                zero_row = all(bool((o[i] == 0).all()) for o in outs
+                               for i in zero_rows) if zero_rows else None
+                past_kv_zero = None
+                if kernel.endswith("bwd") and partial:
+                    rows = [g[i, n:] if layout == "bshd" else g[i, :, n:]
+                            for g in grads[1:] for i, n in partial]
+                    past_kv_zero = all(bool((r == 0).all()) for r in rows)
+                emit("short_kernel", kernel=kernel, case=name, layout=layout,
+                     shape=[batch, sq, sk, heads, dim], dtype=str(dtype),
+                     kv_lens=row_lens if lens else None, max_abs_err=err,
+                     tolerance=tol, limit_share=share, finite=finite,
+                     zero_row=zero_row, past_kv_zero=past_kv_zero)
+                check(finite and within and zero_row is not False
+                      and past_kv_zero is not False,
+                      f"{kernel} disagrees with its plain version at {name}")
+                if name == "train_s298":
+                    errors[kernel] = err
+            if name == "train_s298_kv":
+                # the limits must fail the kernel's results for row 0 against
+                # the plain version of that row with one key fewer
+                n = row_lens[0]
+                wrong = torch.tensor([n - 1], device="cuda")
+                row = [x[:1] for x in (*args, dout)]
+                kernel_row = [out[:1], *(g[:1] for g in grads)]
+                refs = [plain_fwd(*row[:3], wrong), *plain_bwd(*row, wrong)]
+                shares = [_compare(o, r, tol)[1] for o, r in zip(kernel_row, refs)]
+                emit("short_kernel", kernel=fwd.__name__, layout=layout,
+                     case="limits_can_fail", kv_len=n, one_key_fewer_shares=shares)
+                check(shares[0] > 1 and max(shares[1:]) > 1,
+                      f"the {layout} limits pass a kernel one key short: {shares}")
+        del q, k, v, do, out, grads, ref, ref_grads
+        torch.cuda.empty_cache()
+
+    # autograd through both entries runs exactly their backward kernels
+    q, k, v, do = (_bshd(gen, 4, 266, 12, 64, torch.bfloat16) for _ in range(4))
+    kv_lens = torch.tensor([266, 200, 0, 31], device="cuda")
+    for layout in ("bshd", "bhsd"):
+        fwd, bwd, _, _, view = _short_entries(layout)
+        leaves = [view(x).detach().requires_grad_() for x in (q, k, v)]
+        auto = torch.autograd.grad(fwd(*leaves, kv_lens), leaves, view(do))
+        explicit = bwd(*(x.detach() for x in leaves), view(do), kv_lens)
+        equal = all(torch.equal(a, b) for a, b in zip(auto, explicit))
+        emit("short_kernel", kernel=bwd.__name__, layout=layout, case="autograd",
+             autograd_equals_explicit=equal)
+        check(equal, f"autograd through {fwd.__name__} differs from its backward")
+
+    # the probes at their shape; the limits must fail a plain version that
+    # leaves out one head's output
+    batch, seq, heads, dim = PROBE_SHAPE
+    x = torch.randn(batch, seq, heads * dim, generator=gen, device="cuda").to(torch.bfloat16)
+    for kernel, outs, refs in (
+            ("run_variant", pairing.run_variant(x), pairing.run_variant_reference(x)),
+            ("dots_variant", [roofline.dots_variant(x)],
+             [roofline.dots_variant_reference(x)])):
+        torch.cuda.synchronize()
+        tol = TOL[torch.bfloat16]
+        err, share, within = _agree([_compare(o, r, tol) for o, r in zip(outs, refs)])
+        finite = all(bool(torch.isfinite(o).all()) for o in outs)
+        head = slice(5 * dim, 6 * dim)
+        dropped = [r.clone() for r in refs]
+        for r in dropped:
+            r[..., head] = 0
+        dropped_share = max(_compare(o, r, tol)[1] for o, r in zip(outs, dropped))
+        emit("short_kernel", kernel=kernel, case="probe", shape=list(PROBE_SHAPE),
+             dtype="torch.bfloat16", max_abs_err=err, tolerance=tol,
+             limit_share=share, finite=finite, head_dropped_share=dropped_share)
+        check(finite and within, f"{kernel} disagrees with its plain version")
+        check(dropped_share > 1, f"the {kernel} limits pass a head left out: "
+              f"{dropped_share}")
+        errors[kernel] = err
+    return errors
+
+
+def phase_short_timing() -> dict:
+    """Kernels #3-#6 at the JiT-B/16 train shape, #10 and #11 at the probes'
+    shape, and #2 again at B 64, S 298; keyed by wrapper name (#2 as
+    ``packed_bwd``)."""
+    import torch.nn.functional as F
+
+    from vision_pt_tpu_torch.ops import short_attention as sa
+    from vision_pt_tpu_torch.tools.bench import attention_pairing_probe as pairing
+    from vision_pt_tpu_torch.tools.bench import attention_roofline as roofline
+
+    batch, s, heads, dim = SHORT_SHAPE
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (_bshd(gen, batch, s, heads, dim, bf16) for _ in range(4))
+    size = q.numel() * q.element_size()
+    product = 2 * batch * heads * s * s * dim  # one (S, S, D) product
+    shape = [batch, s, s, heads, dim]
+    rows = {}
+    for layout, number in (("bshd", 3), ("bhsd", 5)):
+        fwd, bwd, plain_fwd, plain_bwd, view = _short_entries(layout)
+        args = [view(x) for x in (q, k, v)]
+        dout = view(do)
+        # SDPA on the same memory, as (B, H, S, D) views
+        bhsd = [x.transpose(1, 2) if layout == "bshd" else x for x in (*args, dout)]
+        leaves = [x.detach().requires_grad_() for x in bhsd[:3]]
+        rows[fwd.__name__] = _time_kernel(
+            fwd.__name__, lambda: fwd(*args), lambda: plain_fwd(*args),
+            lambda: F.scaled_dot_product_attention(*bhsd[:3]),
+            4 * size, 2 * product, bf16,
+            f"vision_pt_tpu/ops/short_attention.py:{543 if number == 3 else 307}",
+            "vision_pt_tpu_torch/csrc/short_attention.cu", [layout, *shape],
+            "F.scaled_dot_product_attention", phase="short_timing")
+        rows[bwd.__name__] = _time_kernel(
+            bwd.__name__, lambda: bwd(*args, dout), lambda: plain_bwd(*args, dout),
+            lambda: torch.autograd.grad(F.scaled_dot_product_attention(*leaves),
+                                        leaves, bhsd[3]),
+            7 * size, 5 * product, bf16,
+            f"vision_pt_tpu/ops/short_attention.py:{561 if number == 3 else 325}",
+            "vision_pt_tpu_torch/csrc/short_attention_bwd.cu", [layout, *shape],
+            "F.scaled_dot_product_attention forward and its torch.autograd.grad "
+            "backward", phase="short_timing")
+        del leaves
+
+    # kernel #2 again, for the comparison with the code before its head stride
+    packed = [x.view(batch, s, heads * dim) for x in (q, k, v, do)]
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves)
+    rows["packed_bwd"] = _time_kernel(
+        "short_attention_packed_bwd",
+        lambda: sa.short_attention_packed_bwd(*packed, heads, bounded=True),
+        lambda: sa.short_attention_packed_bwd_reference(*packed, heads, bounded=True),
+        lambda: torch.autograd.grad(sdpa_out, leaves, do.transpose(1, 2),
+                                    retain_graph=True),
+        7 * size, 5 * product, bf16, "vision_pt_tpu/ops/short_attention.py:493",
+        "vision_pt_tpu_torch/csrc/short_attention_bwd.cu", ["train", *shape],
+        "torch.autograd.grad of F.scaled_dot_product_attention", phase="short_timing")
+    del q, k, v, do, packed, leaves, sdpa_out
+
+    batch, s, heads, dim = PROBE_SHAPE
+    x = torch.randn(batch, s, heads * dim, generator=gen, device="cuda").to(bf16)
+    xh = x.view(batch, s, heads, dim).transpose(1, 2)
+    size = x.numel() * x.element_size()
+    product = 2 * batch * heads * s * s * dim
+    leaves = [xh.detach().requires_grad_() for _ in range(3)]
+
+    def sdpa_pair():  # o + dv and dq + dk of SDPA, k = v = do = q = x
+        o = F.scaled_dot_product_attention(*leaves)
+        dq, dk, dv = torch.autograd.grad(o, leaves, xh)
+        return o + dv, dq + dk
+
+    def seven_matmuls():  # #11's products, each a bf16 torch.matmul
+        t = xh.transpose(-1, -2)
+        s1 = xh @ t
+        s2 = xh @ t
+        dp = xh @ t
+        return s1 @ xh, s2.transpose(-1, -2) @ xh, dp @ xh, dp.transpose(-1, -2) @ xh
+
+    rows["run_variant"] = _time_kernel(
+        "run_variant", lambda: pairing.run_variant(x),
+        lambda: pairing.run_variant_reference(x), sdpa_pair,
+        3 * size, 6 * product, bf16,
+        "tools/bench/attention_pairing_probe.py:143",
+        "vision_pt_tpu_torch/csrc/attention_probe.cu", ["probe", batch, s, s, heads, dim],
+        "F.scaled_dot_product_attention forward and backward, and the two adds",
+        phase="short_timing")
+    rows["dots_variant"] = _time_kernel(
+        "dots_variant", lambda: roofline.dots_variant(x),
+        lambda: roofline.dots_variant_reference(x), seven_matmuls,
+        2 * size, 6 * product, bf16,  # q k^T is one product, computed twice
+        "tools/bench/attention_roofline.py:252",
+        "vision_pt_tpu_torch/csrc/attention_probe.cu", ["probe", batch, s, s, heads, dim],
+        "the seven products as seven bf16 torch.matmul calls (no one call "
+        "computes the function)", phase="short_timing")
+    return rows
+
+
+def phase_short_path() -> tuple[int, ...]:
+    """The short backend as a user calls it, at JiT-B/16 width:
+    ``dot_product_attention(..., backend="short")`` forward and backward,
+    then ``short_attention_bhsd`` on the same tensors transposed; each call
+    must launch exactly its entry's forward and backward once and no other
+    kernel. Returns the launches of both calls."""
+    from vision_pt_tpu_torch.ops.attention import dot_product_attention
+    from vision_pt_tpu_torch.ops.short_attention import (
+        short_attention_bhsd,
+        short_attention_bwd_reference,
+        short_attention_reference,
+    )
+
+    batch, s, heads, dim = SHORT_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v, do = (_bshd(gen, batch, s, heads, dim, torch.bfloat16) for _ in range(4))
+    kv_lens = _kv_lens(gen, "range", batch, s)
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    counts, seconds = [], []
+    for label in ("dot_product_attention", "short_attention_bhsd"):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        if label == "dot_product_attention":
+            out = dot_product_attention(*leaves, kv_lens=kv_lens, backend="short")
+            grads = torch.autograd.grad(out, leaves, do)
+        else:
+            out = short_attention_bhsd(*(x.transpose(1, 2) for x in leaves), kv_lens)
+            grads = torch.autograd.grad(out, leaves, do.transpose(1, 2))
+            out = out.transpose(1, 2)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        counts.append(_counts())
+        if label == "dot_product_attention":
+            first = (out, grads)
+    refused = {}
+    for kwargs in ({"mask": torch.ones(batch, s, dtype=torch.bool, device="cuda")},
+                   {"is_causal": True}):
+        try:
+            dot_product_attention(q, k, v, backend="short", **kwargs)
+        except ValueError as e:
+            refused[next(iter(kwargs))] = str(e)
+    tol = TOL[torch.bfloat16]
+    ref = short_attention_reference(*(x.detach() for x in leaves), kv_lens)
+    ref_grads = short_attention_bwd_reference(*(x.detach() for x in leaves), do, kv_lens)
+    err, share, within = _agree([_compare(o, r, tol) for o, r in
+                                 zip((first[0].detach(), *first[1]), (ref, *ref_grads))])
+    same = torch.equal(out, first[0]) and all(
+        torch.equal(a, b) for a, b in zip(grads, first[1]))
+    expected = [_expect({3: 1, 4: 1}), _expect({5: 1, 6: 1})]
+    emit("short_path", shape=[batch, s, heads, dim], dtype="torch.bfloat16",
+         kv_lens=kv_lens.tolist(), calls=["dot_product_attention(backend='short')",
+                                          "short_attention_bhsd"],
+         launches=counts, expected=expected, seconds=seconds, refused=refused,
+         max_abs_err=err, limit_share=share, bhsd_equals_bshd=same)
+    check(counts == expected, f"short path launches {counts}, expected {expected}")
+    check(set(refused) == {"mask", "is_causal"} and all(
+        "kv_lens only" in m for m in refused.values()),
+        f"the short backend must refuse a mask and is_causal: {refused}")
+    check(within and same and all(bool(torch.isfinite(x).all())
+                                  for x in (out, *grads)),
+          f"short path output: limit share {share}, BHSD equals BSHD {same}")
+    return tuple(a + b for a, b in zip(*counts))
+
+
+def phase_attention_probes() -> tuple[int, ...]:
+    """Both probe tools' ``main()`` on the card; #10 and #11 must launch as
+    often as their timing and comparison call for, and the roofline's
+    sections 1-2 run kernels #1 and #2 (12 blocks per real training step,
+    none with attention as identity; one each per timed layer). Returns the
+    launches of both."""
+    from vision_pt_tpu_torch.tools.bench import attention_pairing_probe as pairing
+    from vision_pt_tpu_torch.tools.bench import attention_roofline as roofline
+    from vision_pt_tpu_torch.tools.bench import launches_of_timing
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    pair = pairing.main()
+    pair_s = time.perf_counter() - t0
+    pair_counts = _counts()
+    _reset_counts()
+    t0 = time.perf_counter()
+    roof = roofline.main(steps=ROOFLINE_STEPS)
+    roof_s = time.perf_counter() - t0
+    roof_counts = _counts()
+    packed = 12 * (1 + 3 * ROOFLINE_STEPS) + launches_of_timing(roofline.N_LAYERS)
+    expected = [_expect({10: pairing.MAIN_LAUNCHES}),
+                _expect({1: packed, 2: packed, 11: roofline.MAIN_LAUNCHES})]
+    emit("attention_probes", seconds=[pair_s, roof_s],
+         launches=[pair_counts, roof_counts], expected=expected)
+    check([pair_counts, roof_counts] == expected,
+          f"probe launches {[pair_counts, roof_counts]}, expected {expected}")
+    numbers = [pair["per_head_ms_per_layer"], pair["max_abs_diff"],
+               *(val for val in roof.values() if isinstance(val, float))]
+    check(all(np.isfinite(numbers)) and roof["step_ms"] > roof["step_noattn_ms"] > 0,
+          f"probe results {pair} {roof}")
+    return tuple(a + b for a, b in zip(pair_counts, roof_counts))
+
+
 def main(args: list[str]) -> int:
     if args not in ([], ["--kernels-only"]):
         print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
@@ -1467,10 +1807,11 @@ def main(args: list[str]) -> int:
     started = time.perf_counter()
     smi = phase_device()
     errors = {**phase_kernel(), **phase_flash_kernel(),
-              "dequant_matmul_4bit": phase_nf4_kernel()}
+              "dequant_matmul_4bit": phase_nf4_kernel(), **phase_short_kernel()}
     rows = phase_timing()
     rows.update(phase_flash_timing())
     nf4_rows = phase_nf4_timing()
+    short_rows = phase_short_timing()
     if args:  # no path was driven: no kernels line and no result line
         emit("done", seconds=time.perf_counter() - started)
         return 0
@@ -1481,6 +1822,8 @@ def main(args: list[str]) -> int:
             json.dump({f"c{i}": i for i in range(4)}, f)
         launches["sampler"] = phase_sampler(label2id)
         launches["train_step"] = phase_train_step()
+        launches["short_path"] = phase_short_path()
+        launches["attention_probes"] = phase_attention_probes()
         launches["trainer"] = phase_trainer(tmp)
         phase_train_parity(label2id)
         phase_parity(label2id)
@@ -1490,21 +1833,32 @@ def main(args: list[str]) -> int:
     phase_sdxl_parity()
     kernels = []
     # each kernel's launches are those of its main path: the training step
-    # for the packed kernels, the latent trainer for the flash kernels (the
-    # SDXL requests beside them), the NF4 SDXL request for kernel #9
-    for i, (row, kernel, path) in enumerate((
+    # for the packed kernels, the short backend's path for #3-#6, the latent
+    # trainer for the flash kernels (the SDXL requests beside them), the NF4
+    # SDXL request for kernel #9, the probe tools for #10 and #11
+    for number, (row, kernel, path) in enumerate((
             (rows["train"], "short_attention_packed", "train_step"),
             (rows["train_bwd"], "short_attention_packed_bwd", "train_step"),
+            (short_rows["short_attention"], "short_attention", "short_path"),
+            (short_rows["short_attention_bwd"], "short_attention_bwd", "short_path"),
+            (short_rows["short_attention_bhsd"], "short_attention_bhsd", "short_path"),
+            (short_rows["short_attention_bhsd_bwd"], "short_attention_bhsd_bwd",
+             "short_path"),
             (rows["latent"], "flash_attention", "latent_trainer"),
             (rows["latent_bwd"], "flash_attention_bwd", "latent_trainer"),
-            (nf4_rows["path"], "dequant_matmul_4bit", "sdxl_nf4"))):
-        kernels.append({**row, "launches": launches[path][i],
-                        "launches_by_path": {k: v[i] for k, v in launches.items()},
+            (nf4_rows["path"], "dequant_matmul_4bit", "sdxl_nf4"),
+            (short_rows["run_variant"], "run_variant", "attention_probes"),
+            (short_rows["dots_variant"], "dots_variant", "attention_probes")),
+            start=1):
+        kernels.append({"number": number, **row,
+                        "launches": launches[path][number - 1],
+                        "launches_by_path": {k: v[number - 1] for k, v in launches.items()},
                         "max_abs_err": errors[kernel]})
-        check(launches[path][i] > 0, f"{kernel} never launched on {path}")
-    kernels[2]["sdxl_timing"] = [{**rows[label], "max_abs_err": errors[label]}
+        check(launches[path][number - 1] > 0, f"{kernel} never launched on {path}")
+    kernels[1]["retimed_ms"] = short_rows["packed_bwd"]["ms"]  # short_timing
+    kernels[6]["sdxl_timing"] = [{**rows[label], "max_abs_err": errors[label]}
                                  for label in ("sdxl_s4096", "sdxl_s1024")]
-    kernels[4]["other_shapes"] = [nf4_rows["path_n640"], nf4_rows["bench"]]
+    kernels[8]["other_shapes"] = [nf4_rows["path_n640"], nf4_rows["bench"]]
     emit("done", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": kernels}))
     print(smi)

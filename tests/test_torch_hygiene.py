@@ -44,7 +44,9 @@ def test_importing_the_whole_port_loads_no_jax():
                  "models.sdxl.text_encoder", "models.sdxl.denoiser",
                  "models.sdxl.vae", "models.sdxl.scheduler",
                  "models.sdxl.convert", "models.sdxl.pipeline",
-                 "tools.inference_cli"):
+                 "tools.inference_cli", "tools.bench",
+                 "tools.bench.attention_pairing_probe",
+                 "tools.bench.attention_roofline", "benchmarks"):
         assert f"vision_pt_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["modules"] if FORBIDDEN.match(m)]
     assert leaked == []

@@ -1,9 +1,17 @@
-// Packed short-sequence attention, backward, for Hopper (sm_90a).
+// Short-sequence attention, backward, for Hopper (sm_90a).
 //
-// Replaces vision_pt_tpu/ops/short_attention.py::_bwd_kernel_packed (via
-// _head_bwd), the Pallas TPU kernel behind the custom VJP of
-// short_attention_packed. Per (batch, head), with heads as D-wide column
-// slices of (B, S, H*D) tensors read in place through strides:
+// vpt_short_attention_bwd is one C entry for three Pallas TPU kernels of
+// vision_pt_tpu/ops/short_attention.py:
+//   #2  _bwd_kernel_packed (via _head_bwd), the custom VJP of
+//       short_attention_packed: heads are D-wide column slices of (B, S, H*D)
+//       tensors, bounded or not;
+//   #4  _run_bwd (_bwd_kernel, one (b, h) program) and
+//   #6  _run_bwd_ah (_bwd_kernel_ah, all heads of a batch element per
+//       program), the custom VJPs of short_attention and short_attention_bhsd:
+//       the unbounded function below. Which of the two TPU schedules runs is
+//       a VMEM rule of the TPU (_use_all_heads); one entry serves both here.
+// Each tensor is read in place through its batch, row and head strides
+// (packed and BSHD: head stride D; BHSD: S*D). Per (batch, head):
 //
 //   s      = q k^T                        (fp32 accumulate)
 //   e      = exp2(clip(s * scale * log2e, +-60 * log2e))   bounded=1
@@ -23,7 +31,9 @@
 //   bytes  q, k, v, do read and dq, dk, dv written: 7 * 64*298*768*2 B
 //          = 205 MB -> 205 MB / 3.35 TB/s = 61 us
 //   FLOPs  5 products of 2*B*H*S^2*D = 4.37e10 -> / 989 TFLOP/s = 44 us
-// so the kernel is bound by memory, at about 0.061 ms per call.
+// so the kernel is bound by memory, at about 0.061 ms per call. Kernels #4 and
+// #6 at the same shape move the same bytes and do the same products: the
+// same bound, 0.0612 ms.
 //
 // Design (simple first). The TPU kernel holds the whole (S, S) fp32 tile of
 // one batch element in VMEM and runs the grid in order; here one (S, S) tile
@@ -42,7 +52,10 @@
 //      transposed, s^T = k q^T, so the key rows are the fragment rows and the
 //      p^T / ds^T fragments feed the dv / dk products directly).
 // Rows past S are loaded as zeros (0 * garbage could be NaN); key rows >=
-// kv_len get exactly zero dk, dv; a kv_len == 0 batch row gets zero grads.
+// kv_len get exactly zero dk, dv; a kv_len == 0 batch row gets zero grads
+// (the TPU kernels of #4 and #6 differentiate their uniform weights over the
+// padded block there, unbounded; a kept divergence). The head stride is a
+// runtime value, one multiply per pointer at a block's start.
 // bf16 inputs use mma.sync m16n8k16; fp32 inputs take scalar FMA kernels.
 // The TPU kernel's head pairing is not ported: it only fills the TPU's
 // 128-deep matrix unit. wgmma, TMA and pipelining are left for later work.
@@ -68,8 +81,10 @@ struct BwdParams {
   float* stats;        // (3, B, H, Sq): row max (log2 domain), denom, delta
   const int* kv_lens;  // (B,) or null for "all Sk keys"
   int heads, sq, sk;
-  long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss;  // elements
-  long long dq_sb, dq_ss, dk_sb, dk_ss, dv_sb, dv_ss;
+  // batch, row and head strides, in elements
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  long long do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh;
+  long long dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
   long long plane;   // B * H * Sq, the stride between the three statistics
   float scale;       // softmax scale
   float scale_log2;  // scale * log2(e)
@@ -131,13 +146,13 @@ __global__ void __launch_bounds__(128) packed_bwd_dq_bf16(BwdParams p) {
   const int kv = clamped_len(p.kv_lens, b, p.sk);
 
   const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * D;
+      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * D;
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * D;
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
   const __nv_bfloat16* dog =
-      static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * D;
+      static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
 
   load_rows2_bf16<D>(qs, dos, qg, dog, p.q_ss, p.do_ss, q0, kRows, p.sq);
 
@@ -240,7 +255,7 @@ __global__ void __launch_bounds__(128) packed_bwd_dq_bf16(BwdParams p) {
       }
     warp_fx_u16<D, NT>(acc, s, ks, g, t);
   }
-  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * D;
+  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
   store_rows_bf16<D>(dqg, p.dq_ss, acc, q0 + r0, p.sq, p.scale, t);
 }
 
@@ -266,8 +281,8 @@ __global__ void __launch_bounds__(128) packed_bwd_dkdv_bf16(BwdParams p) {
   const int r0 = warp * 16 + g;
   const int kv = clamped_len(p.kv_lens, b, p.sk);
 
-  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + h * D;
-  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + h * D;
+  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
   if (k0 >= kv) {  // every key of the tile is masked: zero grads
     const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
     for (int i = threadIdx.x; i < kRows * CH; i += blockDim.x) {
@@ -280,13 +295,13 @@ __global__ void __launch_bounds__(128) packed_bwd_dkdv_bf16(BwdParams p) {
   }
 
   const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * D;
+      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * D;
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * D;
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
   const __nv_bfloat16* dog =
-      static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * D;
+      static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const float* st = p.stats + ((long long)b * p.heads + h) * p.sq;
 
   load_rows2_bf16<D>(ks, vs, kg, vg, p.k_ss, p.v_ss, k0, kRows, kv);
@@ -351,10 +366,10 @@ __global__ void __launch_bounds__(kRows * (D / kColsF32)) packed_bwd_dq_f32(BwdP
   const int c0 = (tid % P) * kColsF32;
   const int kv = clamped_len(p.kv_lens, b, p.sk);
 
-  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * D;
-  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * D;
-  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * D;
-  const float* dog = static_cast<const float*>(p.dout) + b * p.do_sb + h * D;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dog = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
 
   for (int i = tid; i < kRows * D; i += blockDim.x) {
     const int r = i / D, c = i % D;
@@ -452,7 +467,7 @@ __global__ void __launch_bounds__(kRows * (D / kColsF32)) packed_bwd_dq_f32(BwdP
     }
   }
   if (row < p.sq) {
-    float* out = static_cast<float*>(p.dq) + b * p.dq_sb + h * D + row * p.dq_ss + c0;
+    float* out = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh + row * p.dq_ss + c0;
 #pragma unroll
     for (int d = 0; d < kColsF32; ++d) out[d] = acc[d] * p.scale;
   }
@@ -479,8 +494,8 @@ __global__ void __launch_bounds__(kRows * (D / kColsF32)) packed_bwd_dkdv_f32(Bw
   const int kv = clamped_len(p.kv_lens, b, p.sk);
   const int key = k0 + rl;
 
-  float* dkg = static_cast<float*>(p.dk) + b * p.dk_sb + h * D;
-  float* dvg = static_cast<float*>(p.dv) + b * p.dv_sb + h * D;
+  float* dkg = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  float* dvg = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
   if (k0 >= kv) {  // every key of the tile is masked: zero grads
     if (key < p.sk) {
 #pragma unroll
@@ -492,10 +507,10 @@ __global__ void __launch_bounds__(kRows * (D / kColsF32)) packed_bwd_dkdv_f32(Bw
     return;
   }
 
-  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * D;
-  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * D;
-  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * D;
-  const float* dog = static_cast<const float*>(p.dout) + b * p.do_sb + h * D;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dog = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const float* st = p.stats + ((long long)b * p.heads + h) * p.sq;
 
   for (int i = tid; i < kRows * D; i += blockDim.x) {
@@ -568,53 +583,16 @@ constexpr size_t bf16_smem(int d, int inner) {
   return (2 * kRows + 2 * inner) * (d + 8) * sizeof(__nv_bfloat16);
 }
 
-}  // namespace
-
-// dtype: 0 = bf16, 1 = fp32. Strides are in elements; the last dimension of
-// every tensor is contiguous. `stats` is fp32 scratch of 3 * B * H * Sq.
-// Launches the dq kernel, then the dk/dv kernel, on `stream`. Returns 0, a
-// cudaError_t code, or -1 for a head_dim/dtype pair this file has no kernel
-// for.
-extern "C" int vpt_short_attention_packed_bwd(
-    const void* q, const void* k, const void* v, const void* dout, void* dq,
-    void* dk, void* dv, float* stats, const int* kv_lens, int batch, int sq,
-    int sk, int heads, int head_dim, long long q_sb, long long q_ss,
-    long long k_sb, long long k_ss, long long v_sb, long long v_ss,
-    long long do_sb, long long do_ss, long long dq_sb, long long dq_ss,
-    long long dk_sb, long long dk_ss, long long dv_sb, long long dv_ss,
-    float scale, int bounded, int dtype, void* stream) {
-  BwdParams p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.dout = dout;
-  p.dq = dq;
-  p.dk = dk;
-  p.dv = dv;
+// Launches the dq kernel, then the dk/dv kernel, for p's dtype (0 = bf16,
+// 1 = fp32) and head_dim. Returns 0, a cudaError_t code, or -1 for a
+// head_dim/dtype pair this file has no kernel for.
+int run_bwd(BwdParams& p, int batch, int head_dim, int dtype, float scale,
+            int bounded, float* stats, cudaStream_t s) {
   p.stats = stats;
-  p.kv_lens = kv_lens;
-  p.heads = heads;
-  p.sq = sq;
-  p.sk = sk;
-  p.q_sb = q_sb;
-  p.q_ss = q_ss;
-  p.k_sb = k_sb;
-  p.k_ss = k_ss;
-  p.v_sb = v_sb;
-  p.v_ss = v_ss;
-  p.do_sb = do_sb;
-  p.do_ss = do_ss;
-  p.dq_sb = dq_sb;
-  p.dq_ss = dq_ss;
-  p.dk_sb = dk_sb;
-  p.dk_ss = dk_ss;
-  p.dv_sb = dv_sb;
-  p.dv_ss = dv_ss;
-  p.plane = (long long)batch * heads * sq;
+  p.plane = (long long)batch * p.heads * p.sq;
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   p.bounded = bounded;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr size_t stats_smem = 3 * 64 * sizeof(float);
   if (dtype == 0) {
     if (head_dim == 64)
@@ -640,4 +618,40 @@ extern "C" int vpt_short_attention_packed_bwd(
                          s);
   }
   return -1;
+}
+
+}  // namespace
+
+// dtype: 0 = bf16, 1 = fp32. `strides` holds (batch, row, head) strides in
+// elements for q, k, v, dout, dq, dk, dv in that order (21 values); the last
+// dimension of every tensor is contiguous. `stats` is fp32 scratch of
+// 3 * B * H * Sq. Launches the dq kernel, then the dk/dv kernel, on `stream`.
+// Returns 0, a cudaError_t code, or -1 for a head_dim/dtype pair this file
+// has no kernel for.
+extern "C" int vpt_short_attention_bwd(
+    const void* q, const void* k, const void* v, const void* dout, void* dq,
+    void* dk, void* dv, float* stats, const int* kv_lens, int batch, int sq,
+    int sk, int heads, int head_dim, const long long* strides, float scale,
+    int bounded, int dtype, void* stream) {
+  BwdParams p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.kv_lens = kv_lens;
+  p.heads = heads;
+  p.sq = sq;
+  p.sk = sk;
+  long long* fields[7][3] = {
+      {&p.q_sb, &p.q_ss, &p.q_sh},    {&p.k_sb, &p.k_ss, &p.k_sh},
+      {&p.v_sb, &p.v_ss, &p.v_sh},    {&p.do_sb, &p.do_ss, &p.do_sh},
+      {&p.dq_sb, &p.dq_ss, &p.dq_sh}, {&p.dk_sb, &p.dk_ss, &p.dk_sh},
+      {&p.dv_sb, &p.dv_ss, &p.dv_sh}};
+  for (int i = 0; i < 7; ++i)
+    for (int j = 0; j < 3; ++j) *fields[i][j] = strides[3 * i + j];
+  return run_bwd(p, batch, head_dim, dtype, scale, bounded, stats,
+                 static_cast<cudaStream_t>(stream));
 }

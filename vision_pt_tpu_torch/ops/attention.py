@@ -11,8 +11,10 @@ probabilities, as the JAX package's custom VJP does, so no (B, H, S, S)
 tensor lives from the forward to the backward. The ``flash`` backend is
 ``ops.flash_attention`` (CUDA kernels on the card, plain versions on the
 CPU); ``auto`` picks it on the card for long unmasked sequences, as the JAX
-package does on the TPU. The ``short`` and ``ring`` backends are not ported
-yet and raise.
+package does on the TPU. The ``short`` backend is
+``ops.short_attention.short_attention`` (kernels #3/#4 on the card, plain
+versions on the CPU; suffix ``kv_lens`` only); ``auto`` never picks it, as in
+the JAX package. The ``ring`` backend is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Literal
 import torch
 
 from .flash_attention import flash_attention
+from .short_attention import short_attention
 
 AttentionImplementation = Literal[
     "auto", "flash", "short", "xla", "eager", "sdpa", "ring"
@@ -31,7 +34,6 @@ AttentionImplementation = Literal[
 _DEFAULT_ATTENTION_DTYPE: torch.dtype | None = torch.bfloat16
 _SENTINEL = object()
 _NOT_PORTED = {
-    "short": "ROADMAP Queue 2, kernels 3-6 (ops/short_attention.py)",
     "ring": "ROADMAP Queue 1, slice 4 (ops/ring_attention.py)",
 }
 
@@ -216,6 +218,10 @@ def dot_product_attention(
                 "flash backend takes kv_lens (suffix padding), not a full mask"
             )
         out = flash_attention(q, k, v, kv_lens, scale=scale, causal=is_causal)
+    elif backend == "short":
+        if mask is not None or is_causal:
+            raise ValueError("short backend takes kv_lens only (no mask/causal)")
+        out = short_attention(q, k, v, kv_lens, scale)
     elif backend == "xla":
         out = plain_attention(q, k, v, mask, kv_lens, scale, is_causal)
     else:

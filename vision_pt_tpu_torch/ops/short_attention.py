@@ -1,18 +1,30 @@
-"""One-pass attention for short sequences on the packed (B, S, H*D) layout.
+"""One-pass attention for short sequences (port of
+``vision_pt_tpu/ops/short_attention.py``).
 
-Port of ``vision_pt_tpu/ops/short_attention.py::short_attention_packed`` and
-its custom VJP. :func:`short_attention_packed` is a ``torch.autograd.Function``
-that saves ``(q, k, v, kv_lens)`` and recomputes the probabilities in the
-backward, as the JAX package does. On a CUDA tensor the forward launches the
-CUDA kernel in ``csrc/short_attention.cu`` and the backward the one in
-``csrc/short_attention_bwd.cu``; on a CPU tensor both run their plain PyTorch
-versions (:func:`short_attention_packed_reference`,
-:func:`short_attention_packed_bwd_reference`), which the tests hold against
+Three entry points, each a ``torch.autograd.Function`` that saves ``(q, k,
+v, kv_lens)`` and recomputes the probabilities in the backward, as the JAX
+package's custom VJPs do:
+
+- :func:`short_attention_packed` on the packed (B, S, H*D) layout, bounded or
+  not (kernels #1 and #2);
+- :func:`short_attention` on (B, S, H, D) and :func:`short_attention_bhsd` on
+  (B, H, S, D), the ``short`` backend (kernels #3-#6: unbounded softmax,
+  suffix ``kv_lens``). The JAX package pads S to a multiple of 8 and
+  transposes to BHSD for the TPU, and picks between two TPU schedules of one
+  function by a VMEM rule (``_use_all_heads``); here one strided kernel reads
+  either layout in place, so neither exists.
+
+On a CUDA tensor the forwards launch the CUDA kernels in
+``csrc/short_attention.cu`` and the backwards those in
+``csrc/short_attention_bwd.cu``; on a CPU tensor every entry runs its plain
+PyTorch version (the ``*_reference`` functions), which the tests hold against
 the JAX kernels and which ``chip_smoke.py`` holds against the CUDA kernels.
+A row with kv_len 0 gives exactly 0 and zero gradients in every entry.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
 
 import torch
@@ -33,19 +45,18 @@ _fns: dict[str, ctypes._CFuncPtr] = {}
 
 
 def _kernel_fn(name: str):
-    """The C entry point ``name`` of ``csrc/<source>.cu``, built and bound
-    at first use: the forward lives in ``short_attention``, the backward in
-    ``short_attention_bwd``."""
+    """The C entry point of ``csrc/<source>.cu`` for ``name`` ("fwd" or
+    "bwd"), built and bound at first use: the forward lives in
+    ``short_attention``, the backward in ``short_attention_bwd``."""
     if name not in _fns:
-        ptr, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ptr, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         if name == "fwd":
-            fn = _build.load("short_attention").vpt_short_attention_packed_fwd
+            fn = _build.load("short_attention").vpt_short_attention_fwd
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i, i, i, i, i,
-                           *[ll] * 8, ctypes.c_float, i, i, ptr]
+                           *[ll] * 12, f, i, i, ptr]
         else:
-            fn = _build.load("short_attention_bwd").vpt_short_attention_packed_bwd
-            fn.argtypes = [*[ptr] * 9, i, i, i, i, i,
-                           *[ll] * 14, ctypes.c_float, i, i, ptr]
+            fn = _build.load("short_attention_bwd").vpt_short_attention_bwd
+            fn.argtypes = [*[ptr] * 9, i, i, i, i, i, ptr, f, i, i, ptr]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -138,36 +149,16 @@ def short_attention_packed_bwd_reference(q, k, v, do, num_heads, kv_lens=None,
     return tuple(_merge_heads(x).to(dt) for x in (dq, dk, dv))
 
 
-def _check(num_heads, q, *others):
-    """Raise on what the kernels do not take: q is (B, Sq, H*D), the others
-    (B, S, H*D) of one dtype and device, each with a contiguous last
-    dimension and 16-byte (bf16) or 4-byte (fp32) aligned rows."""
-    tensors = (q, *others)
+def _head_views(num_heads, *tensors):
+    """(B, S, H, D) views of packed (B, S, H*D) tensors; raises on tensors
+    that are not 3-D or whose width does not split into ``num_heads``."""
     if any(x.dim() != 3 for x in tensors):
         raise ValueError("q, k, v must be (B, S, H*D)")
-    if any(x.shape[0] != q.shape[0] or x.shape[2] != q.shape[2] for x in others):
-        raise ValueError(
-            "shape mismatch: " + " ".join(str(tuple(x.shape)) for x in tensors)
-        )
-    if q.dtype not in _DTYPE_CODES or any(x.dtype != q.dtype for x in others):
-        raise ValueError(
-            f"dtypes {[x.dtype for x in tensors]}: the kernel takes one of "
-            "bfloat16, float32 for all"
-        )
-    if q.shape[2] % num_heads or q.shape[2] // num_heads not in (64, 128):
-        raise ValueError(
-            f"head dim {q.shape[2] / num_heads}: the kernel takes 64 or 128"
-        )
-    if any(x.device != q.device for x in others):
-        raise ValueError("q, k, v must be on one device")
-    align = 16 if q.dtype == torch.bfloat16 else 4  # vector loads
-    for x in tensors:
-        if x.stride(2) != 1:
-            raise ValueError("the last dimension must be contiguous")
-        size = x.element_size()
-        if (x.data_ptr() % align or (x.stride(0) * size) % align
-                or (x.stride(1) * size) % align):
-            raise ValueError(f"pointer and strides must be {align}-byte aligned")
+    if any(x.shape[2] % num_heads for x in tensors):
+        raise ValueError(f"widths {[x.shape[2] for x in tensors]} do not split "
+                         f"into {num_heads} heads")
+    return [x.view(x.shape[0], x.shape[1], num_heads, x.shape[2] // num_heads)
+            for x in tensors]
 
 
 def _device_lens(kv_lens, device):
@@ -180,37 +171,24 @@ def _ptr(x):
     return x.data_ptr() if x is not None else None
 
 
-def _forward(q, k, v, num_heads, kv_lens, scale, bounded):
+def _wants_kernel(q):
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (the plain version); raise for any other device."""
     if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    return True
+
+
+def _forward(q, k, v, num_heads, kv_lens, scale, bounded):
+    if not _wants_kernel(q):
         return short_attention_packed_reference(
             q, k, v, num_heads, kv_lens, scale, bounded
         )
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-    if k.shape != v.shape:
-        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
-    _check(num_heads, q, k, v)
-    batch, sq, width = q.shape
-    sk = k.shape[1]
-    dim = width // num_heads
-    if scale is None:
-        scale = dim**-0.5
-    out = torch.empty((batch, sq, width), dtype=q.dtype, device=q.device)
-    if batch == 0 or sq == 0:
-        return out
-    lens = _device_lens(kv_lens, q.device)
-    rc = _kernel_fn("fwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lens),
-        batch, sq, sk, num_heads, dim,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        float(scale), int(bool(bounded)), _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"short_attention_packed kernel launch failed: {rc}")
-    short_attention_packed.launches += 1
-    return out
+    out = _strided_forward(*_head_views(num_heads, q, k, v), kv_lens, scale,
+                           bounded, short_attention_packed)
+    return out.view(q.shape)
 
 
 def short_attention_packed_bwd(q, k, v, do, num_heads, kv_lens=None,
@@ -219,46 +197,13 @@ def short_attention_packed_bwd(q, k, v, do, num_heads, kv_lens=None,
     cotangent ``do``. Launches the CUDA backward (its dq and dk/dv kernels)
     for a CUDA tensor and raises if it cannot; a CPU tensor gets the plain
     version."""
-    if q.device.type == "cpu":
+    if not _wants_kernel(q):
         return short_attention_packed_bwd_reference(
             q, k, v, do, num_heads, kv_lens, scale, bounded
         )
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-    do = do.to(q.dtype).contiguous()
-    if k.shape != v.shape or do.shape != q.shape:
-        raise ValueError(
-            f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
-            f"v {tuple(v.shape)} do {tuple(do.shape)}"
-        )
-    _check(num_heads, q, k, v, do)
-    batch, sq, width = q.shape
-    sk = k.shape[1]
-    dim = width // num_heads
-    if scale is None:
-        scale = dim**-0.5
-    dq, dk, dv = (torch.empty(x.shape, dtype=q.dtype, device=q.device)
-                  for x in (q, k, v))
-    if batch == 0 or sq == 0 or sk == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    stats = torch.empty((3, batch, num_heads, sq), dtype=torch.float32,
-                        device=q.device)
-    lens = _device_lens(kv_lens, q.device)
-    rc = _kernel_fn("bwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-        _ptr(lens), batch, sq, sk, num_heads, dim,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), do.stride(0), do.stride(1),
-        dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
-        dv.stride(0), dv.stride(1),
-        float(scale), int(bool(bounded)), _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"short_attention_packed_bwd kernel launch failed: {rc}")
-    short_attention_packed_bwd.launches += 1
-    return dq, dk, dv
+    grads = _strided_backward(*_head_views(num_heads, q, k, v, do), kv_lens,
+                              scale, bounded, short_attention_packed_bwd)
+    return tuple(g.view(x.shape) for g, x in zip(grads, (q, k, v)))
 
 
 class _PackedAttention(torch.autograd.Function):
@@ -294,3 +239,231 @@ def short_attention_packed(q, k, v, num_heads, kv_lens=None, scale=None,
 # launches of the CUDA kernels (not of the plain versions) since the last reset
 short_attention_packed.launches = 0
 short_attention_packed_bwd.launches = 0
+
+
+# --------------------------------------------- the ``short`` backend (#3-#6)
+#
+# (B, S, H, D) and (B, H, S, D) are one function over two layouts. Inside,
+# every tensor is a BSHD view (the BHSD entry transposes its arguments, a
+# view), and the kernels read it through its (batch, row, head) strides.
+
+
+def short_attention_reference(q, k, v, kv_lens=None, scale=None):
+    """Plain PyTorch version of the ``short`` forward on (B, S, H, D): the
+    unbounded case of :func:`short_attention_packed_reference` (max-subtracted
+    exp2 softmax, weights rounded to v's dtype before the PV product, fp32
+    accumulation)."""
+    batch, sq, heads, dim = q.shape
+    out = short_attention_packed_reference(
+        *(x.reshape(x.shape[0], x.shape[1], heads * dim) for x in (q, k, v)),
+        heads, kv_lens, scale, bounded=False,
+    )
+    return out.reshape(batch, sq, heads, dim)
+
+
+def short_attention_bwd_reference(q, k, v, do, kv_lens=None, scale=None):
+    """Plain PyTorch version of the ``short`` backward on (B, S, H, D):
+    (dq, dk, dv) in q's dtype, ``do`` cast to q's dtype first."""
+    heads, dim = q.shape[2], q.shape[3]
+    grads = short_attention_packed_bwd_reference(
+        *(x.reshape(x.shape[0], x.shape[1], heads * dim) for x in (q, k, v, do)),
+        heads, kv_lens, scale, bounded=False,
+    )
+    return tuple(g.reshape(x.shape) for g, x in zip(grads, (q, k, v)))
+
+
+def short_attention_bhsd_reference(q, k, v, kv_lens=None, scale=None):
+    """:func:`short_attention_reference` on (B, H, S, D)."""
+    out = short_attention_reference(*(x.transpose(1, 2) for x in (q, k, v)),
+                                    kv_lens, scale)
+    return out.transpose(1, 2)
+
+
+def short_attention_bhsd_bwd_reference(q, k, v, do, kv_lens=None, scale=None):
+    """:func:`short_attention_bwd_reference` on (B, H, S, D)."""
+    grads = short_attention_bwd_reference(
+        *(x.transpose(1, 2) for x in (q, k, v, do)), kv_lens, scale)
+    return tuple(g.transpose(1, 2) for g in grads)
+
+
+def _check_strided(q, *others):
+    """Raise on what the strided kernels do not take: (B, S, H, D) views of
+    one dtype (bfloat16 or float32) and device, D 64 or 128, the others with
+    q's batch, heads and D, each with a contiguous last dimension and 16-byte
+    (bf16) or 4-byte (fp32) aligned pointer and strides."""
+    tensors = (q, *others)
+    if any(x.dim() != 4 for x in tensors):
+        raise ValueError("q, k, v must be 4-D")
+    if any(x.shape[0] != q.shape[0] or x.shape[2:] != q.shape[2:] for x in others):
+        raise ValueError(
+            "shape mismatch: " + " ".join(str(tuple(x.shape)) for x in tensors)
+        )
+    if q.dtype not in _DTYPE_CODES or any(x.dtype != q.dtype for x in others):
+        raise ValueError(
+            f"dtypes {[x.dtype for x in tensors]}: the kernel takes one of "
+            "bfloat16, float32 for all"
+        )
+    if q.shape[3] not in (64, 128):
+        raise ValueError(f"head dim {q.shape[3]}: the kernel takes 64 or 128")
+    if any(x.device != q.device for x in others):
+        raise ValueError("q, k, v must be on one device")
+    if not all(_aligned(x) for x in tensors):
+        raise ValueError(
+            "the last dimension must be contiguous, and pointer and strides "
+            "16-byte (bf16) or 4-byte (fp32) aligned"
+        )
+
+
+def _aligned(x):
+    """A contiguous last dimension, and the pointer and the other strides
+    aligned for the kernels' vector loads: 16 bytes for bf16, 4 for fp32."""
+    align = 16 if x.dtype == torch.bfloat16 else 4
+    size = x.element_size()
+    return (x.stride(3) == 1 and x.data_ptr() % align == 0
+            and all((x.stride(i) * size) % align == 0 for i in range(3)))
+
+
+def _strides(*tensors):
+    """(batch, row, head) strides of (B, S, H, D) views, flattened."""
+    return [n for x in tensors for n in x.stride()[:3]]
+
+
+def _strided_forward(q, k, v, kv_lens, scale, bounded, counter):
+    """Launch the forward kernel (#1, #3 or #5) on BSHD views; ``counter``
+    is the entry whose launches it counts."""
+    if k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    _check_strided(q, k, v)
+    batch, sq, heads, dim = q.shape
+    sk = k.shape[1]
+    if scale is None:
+        scale = dim**-0.5
+    # an output with q's layout: BSHD, or the BSHD view of BHSD memory
+    out = torch.empty_like(q)
+    if batch == 0 or sq == 0:
+        return out
+    lens = _device_lens(kv_lens, q.device)
+    rc = _kernel_fn("fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lens),
+        batch, sq, sk, heads, dim, *_strides(q, k, v, out), float(scale),
+        int(bool(bounded)), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{counter.__name__} kernel launch failed: {rc}")
+    counter.launches += 1
+    return out
+
+
+def _strided_backward(q, k, v, do, kv_lens, scale, bounded, counter):
+    """Launch the backward kernels (#2, #4 or #6) on BSHD views; returns
+    (dq, dk, dv) with the layouts of q, k, v."""
+    if do.dtype != q.dtype:
+        do = do.to(q.dtype)
+    if k.shape != v.shape or do.shape != q.shape:
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"v {tuple(v.shape)} do {tuple(do.shape)}"
+        )
+    if not _aligned(do):  # e.g. the expanded cotangent of a sum
+        do = do.contiguous()
+    _check_strided(q, k, v, do)
+    batch, sq, heads, dim = q.shape
+    sk = k.shape[1]
+    if scale is None:
+        scale = dim**-0.5
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if batch == 0 or sq == 0 or sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    stats = torch.empty((3, batch, heads, sq), dtype=torch.float32, device=q.device)
+    lens = _device_lens(kv_lens, q.device)
+    strides = array.array("q", _strides(q, k, v, do, dq, dk, dv))  # int64
+    rc = _kernel_fn("bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        _ptr(lens), batch, sq, sk, heads, dim, strides.buffer_info()[0],
+        float(scale), int(bool(bounded)), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{counter.__name__} kernel launch failed: {rc}")
+    counter.launches += 1
+    return dq, dk, dv
+
+
+def short_attention_bwd(q, k, v, do, kv_lens=None, scale=None):
+    """(dq, dk, dv) of :func:`short_attention` on (B, S, H, D) for the output
+    cotangent ``do``. Launches the CUDA backward (kernel #4) for a CUDA tensor
+    and raises if it cannot; a CPU tensor gets the plain version."""
+    if not _wants_kernel(q):
+        return short_attention_bwd_reference(q, k, v, do, kv_lens, scale)
+    return _strided_backward(q, k, v, do, kv_lens, scale, False,
+                             short_attention_bwd)
+
+
+def short_attention_bhsd_bwd(q, k, v, do, kv_lens=None, scale=None):
+    """(dq, dk, dv) of :func:`short_attention_bhsd` on (B, H, S, D): kernel
+    #6 for a CUDA tensor (raises if it cannot), the plain version for a CPU
+    tensor."""
+    if not _wants_kernel(q):
+        return short_attention_bhsd_bwd_reference(q, k, v, do, kv_lens, scale)
+    grads = _strided_backward(*(x.transpose(1, 2) for x in (q, k, v, do)),
+                              kv_lens, scale, False, short_attention_bhsd_bwd)
+    return tuple(g.transpose(1, 2) for g in grads)
+
+
+def _short_forward(q, k, v, kv_lens, scale):
+    if not _wants_kernel(q):
+        return short_attention_reference(q, k, v, kv_lens, scale)
+    return _strided_forward(q, k, v, kv_lens, scale, False, short_attention)
+
+
+def _short_bhsd_forward(q, k, v, kv_lens, scale):
+    if not _wants_kernel(q):
+        return short_attention_bhsd_reference(q, k, v, kv_lens, scale)
+    out = _strided_forward(*(x.transpose(1, 2) for x in (q, k, v)), kv_lens,
+                           scale, False, short_attention_bhsd)
+    return out.transpose(1, 2)
+
+
+class _ShortAttention(torch.autograd.Function):
+    """The JAX package's ``custom_vjp`` of ``short_attention`` /
+    ``short_attention_bhsd``: the forward saves (q, k, v, kv_lens); the
+    backward recomputes the probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, scale, bhsd):
+        ctx.save_for_backward(q, k, v, kv_lens)
+        ctx.args = (scale, bhsd)
+        forward = _short_bhsd_forward if bhsd else _short_forward
+        return forward(q, k, v, kv_lens, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_lens = ctx.saved_tensors
+        scale, bhsd = ctx.args
+        backward = short_attention_bhsd_bwd if bhsd else short_attention_bwd
+        dq, dk, dv = backward(q, k, v, dout, kv_lens, scale)
+        return dq, dk, dv, None, None, None
+
+
+def short_attention(q, k, v, kv_lens=None, scale=None):
+    """(B, Sq, H, D) x (B, Sk, H, D) attention with suffix key padding
+    ``kv_lens`` (B,); ``scale`` defaults to D^-0.5. Differentiable: the
+    backward is :func:`short_attention_bwd`. Launches the CUDA kernels
+    (#3, #4) for CUDA tensors and raises if it cannot; CPU tensors get the
+    plain versions."""
+    return _ShortAttention.apply(q, k, v, kv_lens, scale, False)
+
+
+def short_attention_bhsd(q, k, v, kv_lens=None, scale=None):
+    """:func:`short_attention` on (B, H, S, D) tensors, read in place (no
+    transposes in memory): kernels #5 and #6 on the card."""
+    return _ShortAttention.apply(q, k, v, kv_lens, scale, True)
+
+
+# launches of the CUDA kernels (not of the plain versions) since the last reset
+short_attention.launches = 0
+short_attention_bwd.launches = 0
+short_attention_bhsd.launches = 0
+short_attention_bhsd_bwd.launches = 0
