@@ -16,15 +16,20 @@ without a result line:
    the paths from the sources in ``vision_pt_tpu_torch/csrc`` (one ``nvcc``
    per source, started together), with the ptxas register and spill report;
 2. kernel: each kernel against its plain PyTorch version, on the card, at the
-   paths' shapes and at edge shapes. Every element must lie within
-   tol * (RMS(ref) + |ref|), tol 2e-2 for bf16 and 1e-4 for fp32, and the
-   flash LSE within 1e-4 absolute; a kv_len 0 row must be exactly 0, and so
-   must the key-gradient rows past kv_len. At the latent shape the same
-   limits must fail the kernel's results against a plain version whose
-   kv_len is 64 keys short, at its tile edge, or one key short. Autograd
-   through ``short_attention_packed`` and ``flash_attention`` must give
-   exactly the explicit backward;
-3. timing: each kernel's ms per launch (CUDA events), its bound on an H100
+   paths' shapes and at edge shapes, in bf16, fp16 and fp32. Every element
+   must lie within tol * (RMS(ref) + |ref|), tol 2e-2 for bf16, 5e-3 for
+   fp16 (attention) and 1e-4 for fp32, and the forwards' LSE within 1e-4
+   absolute; a kv_len 0 row must be exactly 0, and so must the key-gradient
+   rows past kv_len. At the latent shape the same limits must fail the
+   kernel's results against a plain version whose kv_len is 64 keys short,
+   at its tile edge, or one key short, and in fp16 (and for the packed
+   kernels in bf16) one key short. Autograd through
+   ``short_attention_packed`` (bf16 and fp16) and ``flash_attention`` must
+   give exactly the explicit backward, and two calls of the packed backward
+   must give the same bits;
+3. timing: each kernel's device ms per launch (``device_timing``: the
+   median of 5 windows under torch.profiler, with the fastest and slowest
+   window; the plain versions by CUDA events, host time included), its bound on an H100
    SXM from the bytes and operations of these inputs, the plain version's ms,
    and one PyTorch library call that computes the same function, at the
    sampler shape (forward) and the training-step shape (forward, backward)
@@ -47,7 +52,9 @@ without a result line:
    the last step runs under the profiler;
 7. train_parity: one training step's loss and gradients, same weights, batch
    and injected draws, on the card (kernels) and on the CPU (plain versions
-   of the same path), batch 2, in fp32 and in bf16;
+   of the same path), batch 2, in fp32, bf16 and fp16 (the fp16 loss scaled
+   by 2^12 before the backward: see LOSS_SCALE), through
+   ``tools.bench.step_parity``;
 8. parity: the same weights and injected noise through the sampler on the
    card (kernel) and on the CPU (plain versions), batch 1, CFG, 2 steps;
    PSNR at least 50 dB in fp32 (under ``attention_dtype(None)``) and 30 dB
@@ -63,8 +70,8 @@ without a result line:
    the profiler;
 10. latent_parity: one training step of the latent workload at full width,
    depth cut to 6, a 64 x 64 latent (S = 1098, still the flash path), batch
-   2, on the card (kernels) and on the CPU (plain versions), fp32 and bf16,
-   against the train_parity floors;
+   2, on the card (kernels) and on the CPU (plain versions), fp32, bf16 and
+   fp16, against the train_parity floors;
 11. sdxl_sampler: SDXL-base at full width (UNet 320/640/1280, context 2048,
    CLIP-L + bigG, the VAE), random weights from a seed, built on the card,
    bf16 compute with fp32 parameters, through the CLI's ``run``
@@ -98,14 +105,16 @@ full, partial and 0; D 128; bf16 and fp32) under phase 2's limits, which must
 fail a plain version one key short; autograd through both entries must give
 exactly their backward; #10 and #11 at the probes' shape (B 64, S 304, 12 x
 64) under the same limits, which must fail a plain version with one head's
-output left out. short_timing times #3-#6 at the train shape (SDPA forward,
+output left out; fp16 cases of #3-#6 likewise. short_timing times #3-#6 at the train shape (SDPA forward,
 and forward and backward, as the yardsticks), #10 and #11 at theirs (SDPA
 forward and backward with the adds; seven bf16 matmuls) and #2 again.
 nf4_kernel holds kernel #9 (``dequant_matmul_4bit``) against
 its plain version at the sampler's shapes and at edge shapes (M 1, 37, 1024;
 K 128, 5120; N 8, 136, 10240), nf4 and fp4, bf16, fp16 and fp32, under
 phase 2's limits (fp16's tol 2e-3), which must fail a plain version with one absmax row 25% off or one
-64-row chunk left out. Phase 3 also times kernel #7 at SDXL's two
+64-row chunk left out, and on both sides of each block-shape boundary (M 1,
+64, 65, 128, 129, 154, 256, 257, 1024 at K 2048, N 1280, which K splits);
+two calls at M 64 and 154 must give the same bits. Phase 3 also times kernel #7 at SDXL's two
 self-attention shapes, and nf4_timing times kernel #9 at the sampler's
 shapes and at the JAX package's bench shape (M 64, K = N = 8192), beside
 F.linear on the weight dequantized beforehand.
@@ -128,11 +137,17 @@ import time
 import numpy as np
 import torch
 
-from vision_pt_tpu_torch.tools.bench import cuda_ms
+from vision_pt_tpu_torch.tools.bench import device_timing, event_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}  # dense
 TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-3, torch.float32: 1e-4}
+# attention in fp16: its weights and ds are rounded to 11 significant bits
+# (bf16: 8), so a sum in another order flips a rounding 8 times smaller than
+# in bf16; 5e-3 keeps the bf16 limit's headroom (largest bf16 share ~0.5)
+# and still fails a plain version one key short
+ATTN_TOL = {**TOL, torch.float16: 5e-3}
 # the flash forward's LSE (fp32 on both sides, about 8.3 at S 4106): absolute
 LSE_ATOL = 1e-4
 STEPS, BATCH, REQUESTS = 20, 8, 3
@@ -145,8 +160,23 @@ TRAIN_BATCH, TIMED_STEPS = 64, 10
 # bf16: every activation is rounded to 8 mantissa bits and the card's and
 # the CPU's matmuls round at other places, so a few percent is expected; a
 # wrong kernel gives errors of order 1.
+# fp16 backwards scale the loss by 2^12 first, as fp16 training under
+# torch.amp's GradScaler does; the port's trainer, like the JAX package's,
+# does not scale, so this step is not the trainer's path. Unscaled, the
+# attention backward's ds = p (dp - delta) rounds to 0 in fp16 for 39-87%
+# (JiT) and 91-100% (latent) of its nonzero values, on either side: the
+# CPU's own fp16 gradients miss the fp32 step's by 150% and 108%, and card
+# and CPU differ by 0.83 and 0.26 whether the card runs the kernels or their
+# plain versions. Scaled, each side is within 0.0066 of the fp32 step
+# (tools/bench/step_parity.py on an H100).
+LOSS_SCALE = {"float16": 4096.0}
 TRAIN_PARITY_FLOOR = {"float32": {"loss": 1e-4, "grad": 1e-3},
-                      "bfloat16": {"loss": 2e-2, "grad": 1e-1}}
+                      "bfloat16": {"loss": 2e-2, "grad": 1e-1},
+                      # above the scaled fp16 readings, card vs CPU (grad
+                      # <= 0.0070, loss <= 2.4e-6), below the bf16 steps'
+                      # grad (0.041-0.050), so a step at bf16 precision
+                      # fails; the loss alone does not separate the two
+                      "float16": {"loss": 1e-5, "grad": 2e-2}}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the port's own kernels among a profile's device kernels
 PORT_KERNEL = re.compile(
@@ -268,10 +298,11 @@ def phase_kernel() -> dict:
         short_attention_packed_bwd,
         short_attention_packed_bwd_reference,
         short_attention_packed_reference,
+        short_attention_packed_with_lse,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     cases = [
         # (name, batch, sq, sk, heads, dim, dtype, bounded, kv_lens)
         ("train_s298", 64, 298, 298, 12, 64, bf16, True, None),
@@ -285,25 +316,33 @@ def phase_kernel() -> dict:
         ("d128", 4, 266, 266, 6, 128, bf16, False, "range"),
         ("s266_fp32", 16, 266, 266, 12, 64, f32, True, None),
         ("d128_fp32", 4, 266, 330, 6, 128, f32, False, "range"),
+        ("train_s298_fp16", 64, 298, 298, 12, 64, f16, True, None),
+        ("s330_kv_fp16", 16, 330, 330, 12, 64, f16, True, "range"),
+        ("s330_kv_unbounded_fp16", 16, 330, 330, 12, 64, f16, False, "range"),
+        ("d128_fp16", 4, 266, 330, 6, 128, f16, False, "range"),
     ]
     errors = {}
     for name, batch, sq, sk, heads, dim, dtype, bounded, lens in cases:
         q, k, v = _attention_inputs(gen, batch, sq, sk, heads, dim, dtype)
         do = torch.randn(batch, sq, heads * dim, generator=gen, device="cuda").to(dtype)
         kv_lens = _kv_lens(gen, lens, batch, sk)
-        tol = TOL[dtype]
-        out = short_attention_packed(q, k, v, heads, kv_lens, bounded=bounded)
-        grads = short_attention_packed_bwd(q, k, v, do, heads, kv_lens,
+        tol = ATTN_TOL[dtype]
+        out, lse = short_attention_packed_with_lse(q, k, v, heads, kv_lens,
+                                                   bounded=bounded)
+        grads = short_attention_packed_bwd(q, k, v, lse, do, heads, kv_lens,
                                            bounded=bounded)
         torch.cuda.synchronize()
-        ref = short_attention_packed_reference(q, k, v, heads, kv_lens,
-                                               bounded=bounded)
-        ref_grads = short_attention_packed_bwd_reference(q, k, v, do, heads,
-                                                         kv_lens, bounded=bounded)
-        for kernel, outs, refs in (("short_attention_packed", [out], [ref]),
-                                   ("short_attention_packed_bwd", grads, ref_grads)):
-            err, share, within = _agree(
-                [_compare(o, r, tol) for o, r in zip(outs, refs)])
+        ref, ref_lse = short_attention_packed_reference(
+            q, k, v, heads, kv_lens, bounded=bounded, return_lse=True)
+        # the backward's plain version takes the kernel's lse, as #8's
+        ref_grads = short_attention_packed_bwd_reference(
+            q, k, v, lse, do, heads, kv_lens, bounded=bounded)
+        for kernel, outs, compared in (
+                ("short_attention_packed", [out],
+                 [_compare(out, ref, tol), _compare(lse, ref_lse, 0.0, LSE_ATOL)]),
+                ("short_attention_packed_bwd", grads,
+                 [_compare(g, r, tol) for g, r in zip(grads, ref_grads)])):
+            err, share, within = _agree(compared)
             finite = all(bool(torch.isfinite(o).all()) for o in outs)
             zero_row = past_kv_zero = None
             if kv_lens is not None and int(kv_lens[1]) == 0:
@@ -314,6 +353,7 @@ def phase_kernel() -> dict:
             emit("kernel", kernel=kernel, case=name,
                  shape=[batch, sq, sk, heads, dim], dtype=str(dtype),
                  bounded=bounded, max_abs_err=err, tolerance=tol,
+                 lse_atol=LSE_ATOL if kernel == "short_attention_packed" else None,
                  limit_share=share, finite=finite, zero_row=zero_row,
                  past_kv_zero=past_kv_zero)
             check(finite and within and zero_row is not False
@@ -321,19 +361,51 @@ def phase_kernel() -> dict:
                   f"{kernel} disagrees with its plain version at {name}")
             if name == "train_s298":
                 errors[kernel] = err
+        if name == "train_s298":
+            # repeated calls give the same bits: no atomics, fixed order
+            again = short_attention_packed_bwd(q, k, v, lse, do, heads,
+                                               bounded=bounded)
+            same = all(torch.equal(a, b) for a, b in zip(again, grads))
+            emit("kernel", kernel="short_attention_packed_bwd", case="repeat",
+                 bitwise_equal=same)
+            check(same, "two calls of the packed backward differ")
+        if name.startswith("s330_kv"):
+            # the limits must fail the kernel's row 0 against the plain
+            # version of that row with one key fewer
+            n = int(kv_lens[0])
+            wrong = torch.tensor([n - 1], device="cuda")
+            row = [x[:1] for x in (q, k, v, lse, do)]
+            refs = [short_attention_packed_reference(*row[:3], heads, wrong,
+                                                     bounded=bounded),
+                    *short_attention_packed_bwd_reference(*row, heads, wrong,
+                                                          bounded=bounded)]
+            shares = [_compare(o, r, tol)[1] for o, r in
+                      zip([out[:1], *(g[:1] for g in grads)], refs)]
+            emit("kernel", kernel="short_attention_packed", case="limits_can_fail",
+                 dtype=str(dtype), bounded=bounded, kv_len=n,
+                 one_key_fewer_shares=shares)
+            check(shares[0] > 1 and max(shares[1:]) > 1,
+                  f"the packed limits pass a kernel one key short at {name}: {shares}")
+        del q, k, v, do, out, lse, grads, ref, ref_lse, ref_grads
+        torch.cuda.empty_cache()
 
     # autograd through the Function runs exactly the backward kernel
-    q, k, v = (x.requires_grad_() for x in
-               _attention_inputs(gen, 4, 266, 266, 12, 64, bf16))
-    do = torch.randn(4, 266, 768, generator=gen, device="cuda").to(bf16)
-    out = short_attention_packed(q, k, v, 12, bounded=True)
-    auto = torch.autograd.grad(out, (q, k, v), do)
-    explicit = short_attention_packed_bwd(q.detach(), k.detach(), v.detach(),
-                                          do, 12, bounded=True)
-    equal = all(torch.equal(a, b) for a, b in zip(auto, explicit))
-    emit("kernel", kernel="short_attention_packed_bwd", case="autograd",
-         autograd_equals_explicit=equal)
-    check(equal, "autograd through short_attention_packed differs from its backward")
+    for dtype in (bf16, f16):
+        q, k, v = (x.requires_grad_() for x in
+                   _attention_inputs(gen, 4, 266, 266, 12, 64, dtype))
+        do = torch.randn(4, 266, 768, generator=gen, device="cuda").to(dtype)
+        out = short_attention_packed(q, k, v, 12, bounded=True)
+        auto = torch.autograd.grad(out, (q, k, v), do)
+        leaves = [x.detach() for x in (q, k, v)]
+        again, lse = short_attention_packed_with_lse(*leaves, 12, bounded=True)
+        explicit = short_attention_packed_bwd(*leaves, lse, do, 12,
+                                              bounded=True)
+        equal = torch.equal(out, again) and all(
+            torch.equal(a, b) for a, b in zip(auto, explicit))
+        emit("kernel", kernel="short_attention_packed_bwd", case="autograd",
+             dtype=str(dtype), autograd_equals_explicit=equal)
+        check(equal, "autograd through short_attention_packed differs from its "
+              f"backward ({dtype})")
     return errors
 
 
@@ -351,6 +423,8 @@ FLASH_CASES = [
     ("d128", 2, 1000, 1100, 6, 128, torch.bfloat16, False, [1100, 0]),
     ("fp32_s1000", 2, 1000, 1000, 4, 64, torch.float32, False, [1000, 0]),
     ("fp32_d128_causal", 2, 700, 700, 2, 128, torch.float32, True, [700, 333]),
+    ("fp16_s1000_kv", 2, 1000, 1000, 12, 64, torch.float16, False, [777, 0]),
+    ("fp16_d128_causal", 2, 700, 700, 2, 128, torch.float16, True, [700, 333]),
 ]
 
 
@@ -416,7 +490,7 @@ def phase_flash_kernel() -> dict:
         q, do = (_bshd(gen, batch, sq, heads, dim, dtype) for _ in range(2))
         k, v = (_bshd(gen, batch, sk, heads, dim, dtype) for _ in range(2))
         kv_lens = None if lens is None else torch.tensor(lens, device="cuda")
-        tol = TOL[dtype]
+        tol = ATTN_TOL[dtype]
         out, lse = flash_attention_with_lse(q, k, v, kv_lens, causal=causal)
         # the backward's plain version takes the kernel's (out, lse) too
         grads = flash_attention_bwd(q, k, v, out, lse, do, kv_lens, causal=causal)
@@ -452,6 +526,20 @@ def phase_flash_kernel() -> dict:
                 errors[name] = err
         if name == "path_s4170_kv":
             _flash_limits_can_fail(q, k, v, do, out, lse, grads, lens, tol)
+        if dtype == torch.float16:
+            # the fp16 limits must fail the kernel's partial row against the
+            # plain version of that row with one key fewer
+            i, n = partial[0]
+            wrong = torch.tensor([n - 1], device="cuda")
+            row = [x[i:i + 1] for x in (q, k, v, out, lse, do)]
+            refs = [flash_attention_reference(*row[:3], wrong, causal=causal)[0],
+                    *flash_attention_bwd_reference(*row, wrong, causal=causal)]
+            shares = [_compare(o, r, tol)[1] for o, r in
+                      zip([out[i:i + 1], *(g[i:i + 1] for g in grads)], refs)]
+            emit("kernel", kernel="flash_attention", case="limits_can_fail",
+                 dtype=str(dtype), kv_len=n, one_key_fewer_shares=shares)
+            check(shares[0] > 1 and max(shares[1:]) > 1,
+                  f"the fp16 flash limits pass a kernel one key short: {shares}")
         del ref, ref_lse, ref_grads, grads
         torch.cuda.empty_cache()
 
@@ -476,23 +564,28 @@ def phase_flash_kernel() -> dict:
 def _time_kernel(name, fn, plain, library, nbytes, flops, dtype, replaces,
                  source, shape, library_name, plain_chunk=None, iters=50,
                  phase="timing"):
-    """One row of the kernels line. Every time is of the same inputs;
-    ``plain_chunk`` notes that the plain version went over the batch in
-    chunks of that many rows, one call each."""
-    ms = cuda_ms(fn, iters)
-    plain_ms = cuda_ms(plain, 3 if plain_chunk else 5, warmup=1 if plain_chunk else 3)
-    library_ms = cuda_ms(library, iters)
+    """One row of the kernels line. Every time is of the same inputs: the
+    kernel's and the library call's are device time (the median of 5
+    windows of ``iters`` calls, with the fastest and slowest window,
+    ``device_timing``), the plain version's one event window, host time
+    included; ``plain_chunk`` notes that the plain version went over the
+    batch in chunks of that many rows, one call each."""
+    kernel = device_timing(fn, iters)
+    plain_ms = event_ms(plain, 3 if plain_chunk else 5, warmup=1 if plain_chunk else 3)
+    library = device_timing(library, iters)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     row = dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        ms=ms, plain_ms=plain_ms, plain_chunk=plain_chunk,
+        ms=kernel.median, ms_range=[kernel.low, kernel.high],
+        plain_ms=plain_ms, plain_chunk=plain_chunk,
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=library_ms,
+        library_ms=library.median, library_ms_range=[library.low, library.high],
     )
     emit(phase, shape=shape, dtype=str(dtype), bytes=nbytes, flops=flops,
-         library=library_name, **row)
+         library=library_name, **row,
+         ms_by_kernel={k[:80]: v for k, v in kernel.by_kernel.items()})
     return row
 
 
@@ -506,6 +599,7 @@ def phase_timing() -> dict:
         short_attention_packed_bwd,
         short_attention_packed_bwd_reference,
         short_attention_packed_reference,
+        short_attention_packed_with_lse,
     )
 
     heads, dim, dtype = 12, 64, torch.bfloat16
@@ -528,15 +622,29 @@ def phase_timing() -> dict:
         )
         if label != "train":
             continue
+        # the forward as a training step runs it: with its row log-sum-exp
+        rows["train_lse"] = _time_kernel(
+            "short_attention_packed_with_lse",
+            lambda: short_attention_packed_with_lse(q, k, v, heads, bounded=True),
+            lambda: short_attention_packed_reference(q, k, v, heads, bounded=True,
+                                                     return_lse=True),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh),
+            4 * size + 4 * batch * heads * s, 2 * attn_flops, dtype,
+            "vision_pt_tpu/ops/short_attention.py:462",
+            "vision_pt_tpu_torch/csrc/short_attention.cu",
+            [label, batch, s, s, heads, dim], "F.scaled_dot_product_attention",
+        )
         do = torch.randn(batch, s, heads * dim, generator=gen, device="cuda").to(dtype)
+        out, lse = short_attention_packed_with_lse(q, k, v, heads, bounded=True)
         leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
         sdpa_out = F.scaled_dot_product_attention(*leaves)
         doh = do.view(batch, s, heads, dim).transpose(1, 2)
         rows["train_bwd"] = _time_kernel(
             "short_attention_packed_bwd",
-            lambda: short_attention_packed_bwd(q, k, v, do, heads, bounded=True),
-            lambda: short_attention_packed_bwd_reference(q, k, v, do, heads,
-                                                         bounded=True),
+            lambda: short_attention_packed_bwd(q, k, v, lse, do, heads,
+                                               bounded=True),
+            lambda: short_attention_packed_bwd_reference(q, k, v, lse, do,
+                                                         heads, bounded=True),
             lambda: torch.autograd.grad(sdpa_out, leaves, doh, retain_graph=True),
             7 * size, 5 * attn_flops, dtype,
             "vision_pt_tpu/ops/short_attention.py:493",
@@ -863,75 +971,60 @@ def phase_trainer(tmp: str) -> tuple[int, ...]:
     return counts
 
 
-def phase_train_parity(label2id: str) -> None:
-    """One training step's loss and gradients on the card and on the CPU."""
-    import vision_pt_tpu_torch.models.jit.denoiser as denoiser
-    from vision_pt_tpu_torch.config import TrainConfig
-    from vision_pt_tpu_torch.models.jit import JiT_B_16_Config
-    from vision_pt_tpu_torch.ops.attention import attention_dtype
-    from vision_pt_tpu_torch.workloads.jit_class_to_image import (
-        JiTForClassToImageTraining,
+def _step_parity(phase: str, model: str, label2id: str, cases, **fields) -> None:
+    """One training step of ``model`` (``tools.bench.step_parity``) on the
+    card (kernels) and on the CPU (plain versions) for each (dtype, depth or
+    None for the model's, launches) of ``cases``, held to
+    TRAIN_PARITY_FLOOR; the card step must launch ``launches``."""
+    from vision_pt_tpu_torch.tools.bench.step_parity import (
+        grad_errors,
+        step,
+        summary,
     )
 
-    rng = np.random.default_rng(0)
-    images = rng.uniform(-1, 1, size=(2, 256, 256, 3)).astype(np.float32)
-    t_draw = rng.normal(size=(2,)).astype(np.float32)
-    noise = rng.normal(size=images.shape).astype(np.float32)
-    for dtype in ("float32", "bfloat16"):
-        config = TrainConfig.model_validate({
-            "model": {"context_encoder": {"type": "class",
-                                          "label2id_map_path": label2id},
-                      "denoiser": JiT_B_16_Config().model_dump(), "dtype": dtype,
-                      "drop_context_rate": 0.0},
-            "dataset": {}, "seed": 0,
-        })
+    for dtype, depth, launches in cases:
         results = {}
         for device in ("cuda", "cpu"):
-            workload = JiTForClassToImageTraining(config, torch.device(device))
-            workload.setup_model()
-            trainable = workload.trainable()
-            batch = workload.prepare_batch({"image": images, "caption": ["c1", "c2 c3"]})
-            draws = {"timesteps": torch.sigmoid(torch.from_numpy(t_draw) * 0.8 - 0.8),
-                     "noise": torch.from_numpy(noise)}
-            draws = {k: v.to(device) for k, v in draws.items()}
             _reset_counts()
-            gate = denoiser._on_cuda
-            # the CPU runs the same path, through the plain versions
-            denoiser._on_cuda = lambda x: True
-            t0 = time.perf_counter()
-            try:
-                with attention_dtype(None if dtype == "float32" else torch.bfloat16):
-                    loss, _ = workload.compute_loss(trainable, batch, draws)
-                    loss.backward()
-            finally:
-                denoiser._on_cuda = gate
-            results[device] = (
-                float(loss.detach()),
-                {n: p.grad.detach().float().cpu() for n, p in trainable.named_parameters()},
-                _counts(), time.perf_counter() - t0,
-            )
-            del workload, trainable
-        (loss_c, grads_c, counts_c, sec_c), (loss_h, grads_h, counts_h, sec_h) = (
-            results["cuda"], results["cpu"])
-        loss_err = abs(loss_c - loss_h) / abs(loss_h)
-        grad_err = {n: float(torch.linalg.vector_norm(grads_c[n] - g)
-                             / torch.linalg.vector_norm(g).clamp_min(1e-30))
-                    for n, g in grads_h.items()}
-        worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:5]
+            results[device] = (step(model, dtype, device, label2id,
+                                    loss_scale=LOSS_SCALE.get(dtype, 1.0),
+                                    depth=depth),
+                               _counts())
+        (card, counts_c), (host, counts_h) = results["cuda"], results["cpu"]
+        loss_err = abs(card.loss - host.loss) / abs(host.loss)
+        errors = summary(grad_errors(card.grads, host.grads))
         floor = TRAIN_PARITY_FLOOR[dtype]
-        emit("train_parity", dtype=dtype, batch=2, loss_cuda=loss_c, loss_cpu=loss_h,
-             loss_rel_err=loss_err, grad_rel_l2_max=worst[0][1],
-             grad_rel_l2_median=float(np.median(list(grad_err.values()))),
-             worst_params=worst, floor=floor, launches_cuda=counts_c,
-             launches_cpu=counts_h, seconds_cuda=sec_c, seconds_cpu=sec_h)
-        check(all(bool(torch.isfinite(g).all()) for g in grads_c.values()),
+        emit(phase, dtype=dtype, batch=2, depth=depth, **fields,
+             loss_scale=LOSS_SCALE.get(dtype, 1.0), loss_cuda=card.loss,
+             loss_cpu=host.loss, loss_rel_err=loss_err,
+             grad_rel_l2_max=errors["max"], grad_rel_l2_median=errors["median"],
+             worst_params=errors["worst"], floor=floor, launches_cuda=counts_c,
+             launches_cpu=counts_h, seconds_cuda=card.seconds,
+             seconds_cpu=host.seconds)
+        check(all(bool(torch.isfinite(g).all()) for g in card.grads.values()),
               "non-finite grads")
-        check(counts_c == _expect({1: 4, 2: 4}) and counts_h == _expect({}),
-              f"the card step must launch 4 + 4 kernels ({counts_c}), the CPU "
+        check(counts_c == launches and counts_h == _expect({}),
+              f"the card step must launch {launches} ({counts_c}), the CPU "
               f"step none ({counts_h})")
-        check(loss_err <= floor["loss"] and worst[0][1] <= floor["grad"],
-              f"{dtype} train parity: loss {loss_err:.2e}, grad {worst[0]}")
-    torch.cuda.empty_cache()
+        check(loss_err <= floor["loss"] and errors["max"] <= floor["grad"],
+              f"{dtype} {phase}: loss {loss_err:.2e}, grad {errors['worst'][0]}")
+        del results, card, host
+        torch.cuda.empty_cache()
+
+
+# fp16 parity steps at reduced depth: the CPU side of an fp16 step takes
+# 150 s (JiT-B/16) and 300 s (latent, depth 6) on the card's host, whose CPU
+# has no fast fp16 matrix path (``tools.bench.step_parity`` runs them whole)
+FP16_PARITY_DEPTH = {"jit": 6, "latent": 2}
+
+
+def phase_train_parity(label2id: str) -> None:
+    """One JiT-B/16 training step's loss and gradients on the card and on
+    the CPU (#1/#2 at S 298, blocks 0-3; fp16 at depth 6)."""
+    launches = _expect({1: 4, 2: 4})
+    _step_parity("train_parity", "jit", label2id,
+                 [("float32", None, launches), ("bfloat16", None, launches),
+                  ("float16", FP16_PARITY_DEPTH["jit"], launches)])
 
 
 def phase_parity(label2id: str) -> None:
@@ -1077,81 +1170,14 @@ def phase_latent_trainer(tmp: str) -> tuple[int, ...]:
 
 def phase_latent_parity(tmp: str) -> None:
     """One latent training step's loss and gradients on the card and on the
-    CPU: full width, depth 6, a 64 x 64 latent (S = 1098), batch 2."""
-    import yaml
-
-    import vision_pt_tpu_torch.ops.attention as attention
-    from vision_pt_tpu_torch.config import TrainConfig
-    from vision_pt_tpu_torch.workloads.jit_variants import (
-        JiTForArbClassToImageTraining,
-    )
-
-    with open(os.path.join(ROOT, "configs/jit/latent_arb_1024.yml")) as f:
-        model = yaml.safe_load(f)["model"]
-    model["context_encoder"]["label2id_map_path"] = os.path.join(
-        tmp, "latent_label2id.json")
-    model["denoiser"]["depth"] = 6
-    model["drop_context_rate"] = 0.0
-    rng = np.random.default_rng(1)
-    batch = {"latents": rng.normal(size=(2, 64, 64, 4)).astype(np.float32),
-             "caption": ["c1", "c0 c2 c3"],
-             **{k: np.full((2, 2), v, np.int32) for k, v in
-                (("original_size", 512), ("target_size", 512),
-                 ("crop_coords_top_left", 0))}}
-    t_draw = rng.normal(size=(2,)).astype(np.float32)
-    noise = rng.normal(size=(2, 64, 64, 4)).astype(np.float32)
-    for dtype in ("float32", "bfloat16"):
-        config = TrainConfig.model_validate({"model": {**model, "dtype": dtype},
-                                             "dataset": {}, "seed": 0})
-        results = {}
-        for device in ("cuda", "cpu"):
-            workload = JiTForArbClassToImageTraining(config, torch.device(device))
-            workload.setup_model()
-            trainable = workload.trainable()
-            arrays = workload.prepare_batch(batch)
-            draws = {"timesteps": torch.sigmoid(torch.from_numpy(t_draw) * 0.8 - 0.8),
-                     "noise": torch.from_numpy(noise)}
-            draws = {k: v.to(device) for k, v in draws.items()}
-            _reset_counts()
-            gate = attention._on_cuda
-            # the CPU runs the same path, through the plain versions
-            attention._on_cuda = lambda x: True
-            t0 = time.perf_counter()
-            try:
-                with attention.attention_dtype(None if dtype == "float32"
-                                               else torch.bfloat16):
-                    loss, _ = workload.compute_loss(trainable, arrays, draws)
-                    loss.backward()
-            finally:
-                attention._on_cuda = gate
-            results[device] = (
-                float(loss.detach()),
-                {n: p.grad.detach().float().cpu() for n, p in trainable.named_parameters()},
-                _counts(), time.perf_counter() - t0,
-            )
-            del workload, trainable
-        (loss_c, grads_c, counts_c, sec_c), (loss_h, grads_h, counts_h, sec_h) = (
-            results["cuda"], results["cpu"])
-        loss_err = abs(loss_c - loss_h) / abs(loss_h)
-        grad_err = {n: float(torch.linalg.vector_norm(grads_c[n] - g)
-                             / torch.linalg.vector_norm(g).clamp_min(1e-30))
-                    for n, g in grads_h.items()}
-        worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:5]
-        floor = TRAIN_PARITY_FLOOR[dtype]
-        emit("latent_parity", dtype=dtype, batch=2, depth=6, latent=[64, 64, 4],
-             loss_cuda=loss_c, loss_cpu=loss_h, loss_rel_err=loss_err,
-             grad_rel_l2_max=worst[0][1],
-             grad_rel_l2_median=float(np.median(list(grad_err.values()))),
-             worst_params=worst, floor=floor, launches_cuda=counts_c,
-             launches_cpu=counts_h, seconds_cuda=sec_c, seconds_cpu=sec_h)
-        check(all(bool(torch.isfinite(g).all()) for g in grads_c.values()),
-              "non-finite grads")
-        check(counts_c == _expect({7: 6, 8: 6}) and counts_h == _expect({}),
-              f"the card step must launch 6 + 6 flash kernels ({counts_c}), "
-              f"the CPU step none ({counts_h})")
-        check(loss_err <= floor["loss"] and worst[0][1] <= floor["grad"],
-              f"{dtype} latent parity: loss {loss_err:.2e}, grad {worst[0]}")
-    torch.cuda.empty_cache()
+    CPU: full width, depth 6 (fp16: 2), a 64 x 64 latent (S = 1098), batch 2
+    (#7/#8, one launch each a block)."""
+    fp16 = FP16_PARITY_DEPTH["latent"]
+    _step_parity("latent_parity", "latent", os.path.join(tmp, "latent_label2id.json"),
+                 [("float32", 6, _expect({7: 6, 8: 6})),
+                  ("bfloat16", 6, _expect({7: 6, 8: 6})),
+                  ("float16", fp16, _expect({7: fp16, 8: fp16}))],
+                 latent=[64, 64, 4])
 
 
 # ------------------------------------------------------------ SDXL phases
@@ -1161,6 +1187,10 @@ def phase_latent_parity(tmp: str) -> None:
 NF4_PATH_SHAPES = ((154, 2048, 640), (154, 2048, 1280))
 NF4_EDGE_SHAPES = tuple((m, k, n) for m in (1, 37, 1024) for k in (128, 5120)
                         for n in (8, 136, 10240))
+# kernel #9's block shapes change at M 64, 128 and 256, and its K splits
+# with M and N (ops/quant/nf4_matmul.py:plan): both sides of each boundary
+NF4_SPLIT_SHAPES = tuple((m, 2048, 1280) for m in (1, 64, 65, 128, 129, 256, 257,
+                                                   1024))  # and M 154: the path
 SDXL_SIDE, SDXL_STEPS, SDXL_CFG, SDXL_TOKENS = 1024, 20, 5.0, 75
 # per UNet call at 1024^2 with CFG: 70 self-attentions take flash (10 at
 # S 4096 with 10 heads, 60 at S 1024 with 20), and the to_k / to_v of the 70
@@ -1199,7 +1229,7 @@ def phase_nf4_kernel() -> float:
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     weights, cases, path = {}, [], None
-    for m, k, n in NF4_PATH_SHAPES + NF4_EDGE_SHAPES:
+    for m, k, n in NF4_PATH_SHAPES + NF4_EDGE_SHAPES + NF4_SPLIT_SHAPES:
         for quant_type in ("nf4", "fp4"):
             if (k, n, quant_type) not in weights:
                 w = torch.randn(n, k, generator=gen, device="cuda") * 0.05
@@ -1218,6 +1248,13 @@ def phase_nf4_kernel() -> float:
                 check(ok, f"dequant_matmul_4bit disagrees at {cases[-1]}")
                 if (m, n, quant_type, dtype) == (154, 1280, "nf4", torch.bfloat16):
                     path = (x, packed, absmax, out, err)
+                if (k, n, quant_type) == (2048, 1280, "nf4") and m in (64, 154):
+                    # repeated calls give the same bits: the splits are added
+                    # in a fixed order, no atomics
+                    same = torch.equal(out, dequant_matmul_4bit(x, packed, absmax))
+                    emit("nf4_kernel", kernel="dequant_matmul_4bit", case="repeat",
+                         shape=[m, k, n], dtype=str(dtype), bitwise_equal=same)
+                    check(same, f"two calls of dequant_matmul_4bit differ at {m}")
     emit("nf4_kernel", kernel="dequant_matmul_4bit",
          tolerance={str(dtype)[6:]: tol for dtype, tol in TOL.items()},
          columns=["m", "k", "n", "quant", "dtype", "max_abs_err", "limit_share", "ok"],
@@ -1471,6 +1508,8 @@ def phase_sdxl_parity() -> None:
 # then edge shapes; "range" draws kv_lens in [266, Sk] with row 1 at 0
 SHORT_CASES = [
     ("train_s298", 64, 298, 298, 12, 64, torch.bfloat16, None),
+    ("train_s298_kv_fp16", 16, 298, 298, 12, 64, torch.float16, "range"),
+    ("d128_fp16", 4, 266, 266, 6, 128, torch.float16, "range"),
     ("train_s298_kv", 16, 298, 298, 12, 64, torch.bfloat16, "range"),
     ("s37", 2, 37, 37, 2, 64, torch.bfloat16, [37, 21]),
     ("sq266_sk77", 4, 266, 77, 6, 64, torch.bfloat16, [77, 40, 0, 1]),
@@ -1484,16 +1523,18 @@ ROOFLINE_STEPS = 5  # training steps per timing window of the roofline probe
 
 
 def _short_entries(layout):
-    """(forward, backward, plain forward, plain backward, batch-first view of
-    a BSHD tensor in this layout) of the short backend's BSHD or BHSD entry."""
+    """(forward, forward with lse, backward, plain forward, plain backward,
+    batch-first view of a BSHD tensor in this layout) of the short backend's
+    BSHD or BHSD entry."""
     from vision_pt_tpu_torch.ops import short_attention as sa
 
     if layout == "bshd":
-        return (sa.short_attention, sa.short_attention_bwd,
-                sa.short_attention_reference, sa.short_attention_bwd_reference,
-                lambda x: x)
-    return (sa.short_attention_bhsd, sa.short_attention_bhsd_bwd,
-            sa.short_attention_bhsd_reference, sa.short_attention_bhsd_bwd_reference,
+        return (sa.short_attention, sa.short_attention_with_lse,
+                sa.short_attention_bwd, sa.short_attention_reference,
+                sa.short_attention_bwd_reference, lambda x: x)
+    return (sa.short_attention_bhsd, sa.short_attention_bhsd_with_lse,
+            sa.short_attention_bhsd_bwd, sa.short_attention_bhsd_reference,
+            sa.short_attention_bhsd_bwd_reference,
             lambda x: x.transpose(1, 2).contiguous())
 
 
@@ -1511,23 +1552,25 @@ def phase_short_kernel() -> dict:
         q, do = (_bshd(gen, batch, sq, heads, dim, dtype) for _ in range(2))
         k, v = (_bshd(gen, batch, sk, heads, dim, dtype) for _ in range(2))
         kv_lens = _kv_lens(gen, lens, batch, sk)
-        tol = TOL[dtype]
+        tol = ATTN_TOL[dtype]
         row_lens = [sk] * batch if kv_lens is None else kv_lens.clamp(0, sk).tolist()
         zero_rows = [i for i, n in enumerate(row_lens) if n == 0]
         partial = [(i, n) for i, n in enumerate(row_lens) if 0 < n < sk]
         for layout in ("bshd", "bhsd"):
-            fwd, bwd, plain_fwd, plain_bwd, view = _short_entries(layout)
+            fwd, fwd_lse, bwd, plain_fwd, plain_bwd, view = _short_entries(layout)
             args = [view(x) for x in (q, k, v)]
             dout = view(do)
-            out = fwd(*args, kv_lens)
-            grads = bwd(*args, dout, kv_lens)
+            out, lse = fwd_lse(*args, kv_lens)
+            grads = bwd(*args, lse, dout, kv_lens)
             torch.cuda.synchronize()
-            ref = plain_fwd(*args, kv_lens)
-            ref_grads = plain_bwd(*args, dout, kv_lens)
-            for kernel, outs, refs in ((fwd.__name__, [out], [ref]),
-                                       (bwd.__name__, grads, ref_grads)):
-                err, share, within = _agree(
-                    [_compare(o, r, tol) for o, r in zip(outs, refs)])
+            ref, ref_lse = plain_fwd(*args, kv_lens, return_lse=True)
+            ref_grads = plain_bwd(*args, lse, dout, kv_lens)
+            for kernel, outs, compared in (
+                    (fwd.__name__, [out], [_compare(out, ref, tol),
+                                           _compare(lse, ref_lse, 0.0, LSE_ATOL)]),
+                    (bwd.__name__, grads,
+                     [_compare(o, r, tol) for o, r in zip(grads, ref_grads)])):
+                err, share, within = _agree(compared)
                 finite = all(bool(torch.isfinite(o).all()) for o in outs)
                 zero_row = all(bool((o[i] == 0).all()) for o in outs
                                for i in zero_rows) if zero_rows else None
@@ -1546,30 +1589,33 @@ def phase_short_kernel() -> dict:
                       f"{kernel} disagrees with its plain version at {name}")
                 if name == "train_s298":
                     errors[kernel] = err
-            if name == "train_s298_kv":
+            if name.startswith("train_s298_kv"):
                 # the limits must fail the kernel's results for row 0 against
                 # the plain version of that row with one key fewer
                 n = row_lens[0]
                 wrong = torch.tensor([n - 1], device="cuda")
-                row = [x[:1] for x in (*args, dout)]
+                row = [x[:1] for x in (*args, lse, dout)]
                 kernel_row = [out[:1], *(g[:1] for g in grads)]
                 refs = [plain_fwd(*row[:3], wrong), *plain_bwd(*row, wrong)]
                 shares = [_compare(o, r, tol)[1] for o, r in zip(kernel_row, refs)]
                 emit("short_kernel", kernel=fwd.__name__, layout=layout,
-                     case="limits_can_fail", kv_len=n, one_key_fewer_shares=shares)
+                     case="limits_can_fail", dtype=str(dtype), kv_len=n,
+                     one_key_fewer_shares=shares)
                 check(shares[0] > 1 and max(shares[1:]) > 1,
                       f"the {layout} limits pass a kernel one key short: {shares}")
-        del q, k, v, do, out, grads, ref, ref_grads
+        del q, k, v, do, out, lse, grads, ref, ref_lse, ref_grads
         torch.cuda.empty_cache()
 
     # autograd through both entries runs exactly their backward kernels
     q, k, v, do = (_bshd(gen, 4, 266, 12, 64, torch.bfloat16) for _ in range(4))
     kv_lens = torch.tensor([266, 200, 0, 31], device="cuda")
     for layout in ("bshd", "bhsd"):
-        fwd, bwd, _, _, view = _short_entries(layout)
+        fwd, fwd_lse, bwd, _, _, view = _short_entries(layout)
         leaves = [view(x).detach().requires_grad_() for x in (q, k, v)]
         auto = torch.autograd.grad(fwd(*leaves, kv_lens), leaves, view(do))
-        explicit = bwd(*(x.detach() for x in leaves), view(do), kv_lens)
+        detached = [x.detach() for x in leaves]
+        _, lse = fwd_lse(*detached, kv_lens)
+        explicit = bwd(*detached, lse, view(do), kv_lens)
         equal = all(torch.equal(a, b) for a, b in zip(auto, explicit))
         emit("short_kernel", kernel=bwd.__name__, layout=layout, case="autograd",
              autograd_equals_explicit=equal)
@@ -1621,9 +1667,10 @@ def phase_short_timing() -> dict:
     shape = [batch, s, s, heads, dim]
     rows = {}
     for layout, number in (("bshd", 3), ("bhsd", 5)):
-        fwd, bwd, plain_fwd, plain_bwd, view = _short_entries(layout)
+        fwd, fwd_lse, bwd, plain_fwd, plain_bwd, view = _short_entries(layout)
         args = [view(x) for x in (q, k, v)]
         dout = view(do)
+        _, lse = fwd_lse(*args)
         # SDPA on the same memory, as (B, H, S, D) views
         bhsd = [x.transpose(1, 2) if layout == "bshd" else x for x in (*args, dout)]
         leaves = [x.detach().requires_grad_() for x in bhsd[:3]]
@@ -1635,7 +1682,8 @@ def phase_short_timing() -> dict:
             "vision_pt_tpu_torch/csrc/short_attention.cu", [layout, *shape],
             "F.scaled_dot_product_attention", phase="short_timing")
         rows[bwd.__name__] = _time_kernel(
-            bwd.__name__, lambda: bwd(*args, dout), lambda: plain_bwd(*args, dout),
+            bwd.__name__, lambda: bwd(*args, lse, dout),
+            lambda: plain_bwd(*args, lse, dout),
             lambda: torch.autograd.grad(F.scaled_dot_product_attention(*leaves),
                                         leaves, bhsd[3]),
             7 * size, 5 * product, bf16,
@@ -1646,7 +1694,9 @@ def phase_short_timing() -> dict:
         del leaves
 
     # kernel #2 again, for the comparison with the code before its head stride
-    packed = [x.view(batch, s, heads * dim) for x in (q, k, v, do)]
+    packed = [x.view(batch, s, heads * dim) for x in (q, k, v)]
+    _, lse = sa.short_attention_packed_with_lse(*packed, heads, bounded=True)
+    packed += [lse, do.view(batch, s, heads * dim)]
     leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*leaves)
     rows["packed_bwd"] = _time_kernel(
@@ -1658,7 +1708,7 @@ def phase_short_timing() -> dict:
         7 * size, 5 * product, bf16, "vision_pt_tpu/ops/short_attention.py:493",
         "vision_pt_tpu_torch/csrc/short_attention_bwd.cu", ["train", *shape],
         "torch.autograd.grad of F.scaled_dot_product_attention", phase="short_timing")
-    del q, k, v, do, packed, leaves, sdpa_out
+    del q, k, v, do, packed, leaves, sdpa_out, lse
 
     batch, s, heads, dim = PROBE_SHAPE
     x = torch.randn(batch, s, heads * dim, generator=gen, device="cuda").to(bf16)
@@ -1741,8 +1791,10 @@ def phase_short_path() -> tuple[int, ...]:
         except ValueError as e:
             refused[next(iter(kwargs))] = str(e)
     tol = TOL[torch.bfloat16]
-    ref = short_attention_reference(*(x.detach() for x in leaves), kv_lens)
-    ref_grads = short_attention_bwd_reference(*(x.detach() for x in leaves), do, kv_lens)
+    ref, ref_lse = short_attention_reference(*(x.detach() for x in leaves), kv_lens,
+                                             return_lse=True)
+    ref_grads = short_attention_bwd_reference(*(x.detach() for x in leaves), ref_lse,
+                                              do, kv_lens)
     err, share, within = _agree([_compare(o, r, tol) for o, r in
                                  zip((first[0].detach(), *first[1]), (ref, *ref_grads))])
     same = torch.equal(out, first[0]) and all(
@@ -1855,6 +1907,7 @@ def main(args: list[str]) -> int:
                         "launches_by_path": {k: v[number - 1] for k, v in launches.items()},
                         "max_abs_err": errors[kernel]})
         check(launches[path][number - 1] > 0, f"{kernel} never launched on {path}")
+    kernels[0]["with_lse"] = rows["train_lse"]  # as the training step runs it
     kernels[1]["retimed_ms"] = short_rows["packed_bwd"]["ms"]  # short_timing
     kernels[6]["sdxl_timing"] = [{**rows[label], "max_abs_err": errors[label]}
                                  for label in ("sdxl_s4096", "sdxl_s1024")]

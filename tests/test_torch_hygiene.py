@@ -65,6 +65,37 @@ def test_port_sources_import_no_jax():
     assert offenders == []
 
 
+def test_chip_smoke_imports_no_jax():
+    pattern = re.compile(
+        r"^\s*(?:from|import)\s+(jax|jaxlib|flax|optax|vision_pt_tpu)\b(?!_torch)",
+        re.M,
+    )
+    assert not pattern.search((ROOT / "chip_smoke.py").read_text())
+
+
+def test_kernel_sources_build_from_the_package_alone():
+    """Every CUDA source and header of ``csrc`` (``hopper.cuh`` among them)
+    includes only headers of ``csrc`` or of the toolkit, and each library's
+    name hashes its source and every header, so an edit of a shared header
+    rebuilds every kernel."""
+    import hashlib
+
+    from vision_pt_tpu_torch.ops import _build
+
+    csrc = PORT / "csrc"
+    headers = sorted(csrc.glob("*.cuh"))
+    assert "hopper.cuh" in {h.name for h in headers}
+    for path in sorted(csrc.glob("*.cu")) + headers:
+        for name in re.findall(r'^#include "([^"]+)"', path.read_text(), re.M):
+            assert (csrc / name).exists(), (path.name, name)
+    for src in sorted(csrc.glob("*.cu")):
+        digest = hashlib.sha256(src.read_bytes())
+        for header in headers:
+            digest.update(header.read_bytes())
+        assert _build._target(src.stem)[1].name == (
+            f"lib{src.stem}-{digest.hexdigest()[:16]}.so")
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -22,6 +22,7 @@ from vision_pt_tpu_torch.ops.short_attention import (
     short_attention_packed,
     short_attention_packed_bwd,
     short_attention_packed_bwd_reference,
+    short_attention_packed_with_lse,
 )
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -62,9 +63,11 @@ def test_plain_backward_matches_jax_kernel(case, bounded, dtype):
     tq, tk, tv = (torch.from_numpy(x).to(tdt).requires_grad_() for x in (q, k, v))
     out = short_attention_packed(tq, tk, tv, heads, tlens, bounded=bounded)
     out.backward(torch.from_numpy(do).to(tdt))
+    _, lse = short_attention_packed_with_lse(
+        tq.detach(), tk.detach(), tv.detach(), heads, tlens, bounded=bounded)
     explicit = short_attention_packed_bwd_reference(
-        tq.detach(), tk.detach(), tv.detach(), torch.from_numpy(do).to(tdt),
-        heads, tlens, bounded=bounded,
+        tq.detach(), tk.detach(), tv.detach(), lse,
+        torch.from_numpy(do).to(tdt), heads, tlens, bounded=bounded,
     )
     rows = np.ones(batch, bool) if kv_lens is None else np.asarray(kv_lens) > 0
     for name, ours, ref, again in zip("qkv", (tq.grad, tk.grad, tv.grad),
@@ -88,8 +91,10 @@ def test_key_rows_past_kv_len_get_exactly_zero_grads():
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(2, 20, 20, 2, 64))
     lens = torch.tensor([13, 20])
     for bounded in (True, False):
-        _, dk, dv = short_attention_packed_bwd_reference(q, k, v, do, 2, lens,
-                                                         bounded=bounded)
+        _, lse = short_attention_packed_with_lse(q, k, v, 2, lens,
+                                                 bounded=bounded)
+        _, dk, dv = short_attention_packed_bwd_reference(q, k, v, lse, do, 2,
+                                                         lens, bounded=bounded)
         assert (dk[0, 13:] == 0).all() and (dv[0, 13:] == 0).all()
         assert (dk[0, :13] != 0).any() and (dk[1] != 0).any()
 
@@ -112,4 +117,4 @@ def test_plain_backward_is_the_gradient_of_the_plain_forward(bounded):
 def test_backward_wrapper_raises_on_device_it_has_no_kernel_for():
     q = torch.zeros(1, 8, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        short_attention_packed_bwd(q, q, q, q, 1)
+        short_attention_packed_bwd(q, q, q, q[:, :, 0], q, 1)

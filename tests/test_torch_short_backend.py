@@ -179,7 +179,8 @@ def test_plain_backward_is_the_autograd_backward():
     lens = torch.tensor([24, 11])
     leaves = [x.clone().requires_grad_() for x in qkv]
     auto = torch.autograd.grad(short.short_attention(*leaves, lens), leaves, do)
-    explicit = short.short_attention_bwd(*qkv, do, lens)
+    _, lse = short.short_attention_with_lse(*qkv, lens)
+    explicit = short.short_attention_bwd(*qkv, lse, do, lens)
     for a, b in zip(auto, explicit):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert short.short_attention.launches == 0  # the CPU launches no kernel
@@ -191,17 +192,23 @@ def test_wrappers_raise_on_device_they_have_no_kernel_for():
         with pytest.raises(ValueError, match="no kernel"):
             fn(q, q, q)
     with pytest.raises(ValueError, match="no kernel"):
-        short.short_attention_bwd(q, q, q, q)
+        short.short_attention_bwd(q, q, q, q[:, :, :, 0], q)
 
 
 @pytest.mark.parametrize("make, match", [
-    (lambda: torch.zeros(1, 8, 2, 64, dtype=torch.float16), "bfloat16, float32"),
+    # fp16 is taken, but not beside bf16 (and float64 not at all)
+    (lambda: (torch.zeros(1, 8, 2, 64, dtype=torch.float16),
+              torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)),
+     "bfloat16, float16, float32"),
     (lambda: torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16), "64 or 128"),
     (lambda: torch.zeros(1, 8, 2, 68, dtype=torch.bfloat16)[..., :64], "aligned"),
 ], ids=["fp16", "d32", "misaligned"])
 def test_kernel_check_names_what_it_takes(make, match):
     """What the CUDA wrappers refuse before a launch (the check runs on any
     device; on the card it raises before the kernel)."""
-    q = make()
+    made = make()
+    q, k = made if isinstance(made, tuple) else (made, made)
     with pytest.raises(ValueError, match=match):
+        short._check_strided(q, k, k)
+    if q.dtype == torch.float16:  # fp16 alone is taken
         short._check_strided(q, q, q)

@@ -1,10 +1,12 @@
 // Helpers shared by the attention kernels (the forward of both, in
 // attention_fwd.cuh; the backwards short_attention_bwd.cu and
-// flash_attention_bwd.cu): constants of the softmax, the mma.sync bf16
-// product and its fragment packing, tile loads of one head (or of the same
-// rows of two) into padded shared memory, the two warp-level products of a
-// 16-row slice, and a launch that raises the dynamic shared-memory limit
-// first.
+// flash_attention_bwd.cu) and the NF4 kernel: constants of the softmax, the
+// mma.sync product of 16-bit operands (bf16 or fp16, T below) and its
+// fragment packing, tile loads of one head (or of the same rows of two) into
+// padded shared memory, the two warp-level products of a 16-row slice, and a
+// launch that raises the dynamic shared-memory limit first. Loads and stores
+// move 16-bit patterns; only the mma instruction and the rounding of fp32
+// values tell bf16 and fp16 apart.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
@@ -22,8 +24,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace vpt {
 
@@ -48,25 +53,58 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ void mma_f16_16816(float c[4], const uint32_t a[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b with fp32 accumulation, for operands of type T (bf16 or fp16)
+template <typename T>
+__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
+                                          uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    mma_f16_16816(c, a, b0, b1);
+  else
+    mma_bf16_16816(c, a, b0, b1);
+}
+
 // Two floats -> one register of two bf16, the first in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(const __nv_bfloat16& lo,
-                                             const __nv_bfloat16& hi) {
-  uint32_t l = *reinterpret_cast<const uint16_t*>(&lo);
-  uint32_t h = *reinterpret_cast<const uint16_t*>(&hi);
-  return l | (h << 16);
+// Two floats -> one register of two T (bf16 or fp16, rounded to nearest
+// even), the first in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    return pack_bf16(lo, hi);
+  }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+// one 16-bit value of type T -> float
+template <typename T>
+__device__ __forceinline__ float to_float(T x) {
+  if constexpr (std::is_same<T, __half>::value)
+    return __half2float(x);
+  else
+    return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4],
-                                              const __nv_bfloat16* p) {
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -76,11 +114,10 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4],
 
 // rows [r0, r0 + rows) of a (S, D) head slice with row stride `stride` ->
 // shared memory with row stride D + 8; rows at or past `limit` are zeros
-template <int D>
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long stride, int r0,
-                                               int rows, int limit) {
+template <int D, typename T>
+__device__ __forceinline__ void load_rows16(T* dst, const T* src,
+                                            long long stride, int r0,
+                                            int rows, int limit) {
   constexpr int LD = D + 8, CH = D / 8;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
@@ -92,13 +129,12 @@ __device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst,
   }
 }
 
-// load_rows_bf16 for the same rows of two head slices, a and b: a load of
+// load_rows16 for the same rows of two head slices, a and b: a load of
 // each in flight per thread, where two calls would wait on one at a time
-template <int D>
-__device__ __forceinline__ void load_rows2_bf16(
-    __nv_bfloat16* dst_a, __nv_bfloat16* dst_b, const __nv_bfloat16* src_a,
-    const __nv_bfloat16* src_b, long long stride_a, long long stride_b, int r0,
-    int rows, int limit) {
+template <int D, typename T>
+__device__ __forceinline__ void load_rows2_16(
+    T* dst_a, T* dst_b, const T* src_a, const T* src_b, long long stride_a,
+    long long stride_b, int r0, int rows, int limit) {
   constexpr int LD = D + 8, CH = D / 8;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
@@ -128,11 +164,9 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
 // acc (16 x 8NT) = rows [r0, r0 + 16) of `as` times the first 8NT rows of
 // `bs`, transposed (a q k^T-shaped product); both (rows, D) in shared memory
 // with row stride D + 8. r0 = warp * 16 + g.
-template <int D, int NT>
-__device__ __forceinline__ void warp_abt(float acc[NT][4],
-                                         const __nv_bfloat16* as,
-                                         const __nv_bfloat16* bs, int r0,
-                                         int g, int t) {
+template <int D, int NT, typename T>
+__device__ __forceinline__ void warp_abt(float acc[NT][4], const T* as,
+                                         const T* bs, int r0, int g, int t) {
   constexpr int LD = D + 8;
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -140,64 +174,62 @@ __device__ __forceinline__ void warp_abt(float acc[NT][4],
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* ab = as + r0 * LD + kk * 16 + 2 * t;
+    const T* ab = as + r0 * LD + kk * 16 + 2 * t;
     const uint32_t a[4] = {ld32(ab), ld32(ab + 8 * LD), ld32(ab + 8),
                            ld32(ab + 8 * LD + 8)};
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const __nv_bfloat16* bb = bs + (j * 8 + g) * LD + kk * 16 + 2 * t;
-      mma_bf16_16816(acc[j], a, ld32(bb), ld32(bb + 8));
+      const T* bb = bs + (j * 8 + g) * LD + kk * 16 + 2 * t;
+      mma_16816<T>(acc[j], a, ld32(bb), ld32(bb + 8));
     }
   }
 }
 
-// out (16 x D) += bf16(f) (16 x 8NT, C fragments) times the first 8NT rows
+// out (16 x D) += T(f) (16 x 8NT, C fragments) times the first 8NT rows
 // of `xs` ((rows, D) in shared memory with row stride D + 8): a p v-shaped
 // product, B read with ldmatrix.trans.
-template <int D, int NT>
+template <int D, int NT, typename T>
 __device__ __forceinline__ void warp_fx(float out[D / 8][4],
-                                        const float f[NT][4],
-                                        const __nv_bfloat16* xs, int lane) {
+                                        const float f[NT][4], const T* xs,
+                                        int lane) {
   constexpr int LD = D + 8;
   const int mi = lane >> 3, mr = lane & 7;
 #pragma unroll
   for (int kc = 0; kc < NT / 2; ++kc) {
     const uint32_t fa[4] = {
-        pack_bf16(f[2 * kc][0], f[2 * kc][1]),
-        pack_bf16(f[2 * kc][2], f[2 * kc][3]),
-        pack_bf16(f[2 * kc + 1][0], f[2 * kc + 1][1]),
-        pack_bf16(f[2 * kc + 1][2], f[2 * kc + 1][3]),
+        pack2<T>(f[2 * kc][0], f[2 * kc][1]),
+        pack2<T>(f[2 * kc][2], f[2 * kc][3]),
+        pack2<T>(f[2 * kc + 1][0], f[2 * kc + 1][1]),
+        pack2<T>(f[2 * kc + 1][2], f[2 * kc + 1][3]),
     };
     // matrices: (k 0-7, n dn), (k 8-15, n dn), (k 0-7, n dn+1), (k 8-15, n dn+1)
-    const __nv_bfloat16* base =
-        xs + (kc * 16 + (mi & 1) * 8 + mr) * LD + (mi >> 1) * 8;
+    const T* base = xs + (kc * 16 + (mi & 1) * 8 + mr) * LD + (mi >> 1) * 8;
 #pragma unroll
     for (int dn = 0; dn < D / 8; dn += 2) {
       uint32_t b[4];
       ldsm_x4_trans(b, base + dn * 8);
-      mma_bf16_16816(out[dn], fa, b[0], b[1]);
-      mma_bf16_16816(out[dn + 1], fa, b[2], b[3]);
+      mma_16816<T>(out[dn], fa, b[0], b[1]);
+      mma_16816<T>(out[dn + 1], fa, b[2], b[3]);
     }
   }
 }
 
 // writes rows row0 and row0 + 8 of a (16 x D) fragment accumulator, times
 // `mul`, to a (S, D) head slice, below `limit`
-template <int D>
-__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* dst,
-                                                long long stride,
-                                                const float acc[D / 8][4],
-                                                int row0, int limit, float mul,
-                                                int t) {
+template <int D, typename T>
+__device__ __forceinline__ void store_rows16(T* dst, long long stride,
+                                             const float acc[D / 8][4],
+                                             int row0, int limit, float mul,
+                                             int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= limit) continue;
-    __nv_bfloat16* out = dst + row * stride + 2 * t;
+    T* out = dst + row * stride + 2 * t;
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn)
       *reinterpret_cast<uint32_t*>(out + dn * 8) =
-          pack_bf16(acc[dn][2 * r] * mul, acc[dn][2 * r + 1] * mul);
+          pack2<T>(acc[dn][2 * r] * mul, acc[dn][2 * r + 1] * mul);
   }
 }
 

@@ -7,8 +7,10 @@
 //              = exp(clip(s, +-60))           bounded = 1: no running max
 //                (0 off the valid set in both modes)
 //   o[b, i, h] = sum_j e[i, j] v[b, j, h] / max(sum_j e[i, j], 2^-100)
-//   lse[b, h, i] = log(sum_j exp(s[i, j]))    if an LSE buffer is given,
-//                  -1e30 on a row with no valid key
+//   lse[b, h, i] = log(sum_j exp(s[i, j]))    if an LSE buffer is given:
+//                  unbounded, -1e30 on a row with no valid key; bounded,
+//                  log(max(sum_j e[i, j], 2^-100)), so that the backward's
+//                  exp(clip(s) - lse) is e / max(sum e, 2^-100)
 //
 // over (B, S, H, D)-strided heads read in place (no transposes), with
 // kv_lens clamped to Sk. Logits are scaled into the exp2 domain; the weights
@@ -17,9 +19,10 @@
 // One thread block owns (64 query rows, head, batch) and carries the whole
 // key loop: K and V stream through shared memory in 64-key tiles up to
 // kv_len (tiles wholly past kv_len, or wholly above the diagonal when causal,
-// are never loaded; K and V are loaded together). bf16 inputs: 4 warps of 16
-// rows each keep their (16, D) output accumulator in registers, run q k^T and
-// p v in mma.sync m16n8k16 bf16 fragments with fp32 accumulation, and feed
+// are never loaded; K and V are loaded together). bf16 and fp16 inputs (one
+// template, T): 4 warps of 16 rows each keep their (16, D) output
+// accumulator in registers, run q k^T and p v in mma.sync m16n8k16
+// fragments of T with fp32 accumulation (the weights rounded to T), and feed
 // the score fragments to the PV product without a trip through shared
 // memory; V reaches the tensor cores through ldmatrix.trans. The Q fragments
 // are read from shared memory for every key tile, not held in registers:
@@ -36,7 +39,7 @@
 namespace vpt {
 
 constexpr int kFwdRows = 64;     // query rows per block
-constexpr int kFwdKeys = 64;     // keys per shared-memory tile, bf16 kernel
+constexpr int kFwdKeys = 64;     // keys per shared-memory tile, 16-bit kernel
 constexpr int kFwdKeysF32 = 16;  // keys per shared-memory tile, fp32 kernel
 
 struct FwdParams {
@@ -64,19 +67,21 @@ __device__ __forceinline__ bool fwd_valid(int kv, int row, int col) {
 }
 
 // m_log2: the running max (0 when bounded), l: the row sum of exp2(s - m)
+template <bool Bounded>
 __device__ __forceinline__ float fwd_lse(float m_log2, float l) {
+  if constexpr (Bounded) return logf(fmaxf(l, kDenomFloor));
   return l > 0.f ? m_log2 * kLn2 + logf(l) : kNegInf;
 }
 
-// ---------------------------------------------------------------- bf16 / mma
+// ------------------------------------------------------- bf16, fp16 / mma
 
-template <int D, bool Bounded, bool Causal>
-__global__ void __launch_bounds__(128) attn_fwd_bf16(FwdParams p) {
+template <typename T, int D, bool Bounded, bool Causal>
+__global__ void __launch_bounds__(128) attn_fwd_mma(FwdParams p) {
   constexpr int LD = D + 8, NT = kFwdKeys / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kFwdRows * LD;
-  __nv_bfloat16* vs = ks + kFwdKeys * LD;
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* ks = qs + kFwdRows * LD;
+  T* vs = ks + kFwdKeys * LD;
 
   const int q0 = blockIdx.x * kFwdRows;
   const int h = blockIdx.y;
@@ -89,14 +94,11 @@ __global__ void __launch_bounds__(128) attn_fwd_bf16(FwdParams p) {
   const int kend = fwd_key_end<Causal>(kv, q0);
   const float lim = kClip * kLog2e;
 
-  const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
 
-  load_rows_bf16<D>(qs, qg, p.q_ss, q0, kFwdRows, p.sq);
+  load_rows16<D>(qs, qg, p.q_ss, q0, kFwdRows, p.sq);
 
   float acc[D / 8][4];
 #pragma unroll
@@ -110,7 +112,7 @@ __global__ void __launch_bounds__(128) attn_fwd_bf16(FwdParams p) {
 
   for (int k0 = 0; k0 < kend; k0 += kFwdKeys) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows2_bf16<D>(ks, vs, kg, vg, p.k_ss, p.v_ss, k0, kFwdKeys, kv);
+    load_rows2_16<D>(ks, vs, kg, vg, p.k_ss, p.v_ss, k0, kFwdKeys, kv);
     __syncthreads();
 
     float s[NT][4];
@@ -170,21 +172,21 @@ __global__ void __launch_bounds__(128) attn_fwd_bf16(FwdParams p) {
     warp_fx<D, NT>(acc, s, vs, lane);
   }
 
-  __nv_bfloat16* og =
-      static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float l = row_sum<4>(l_run[r]);
     const int row = q0 + r0 + 8 * r;
     if (row >= p.sq) continue;
     const float denom = fmaxf(l, kDenomFloor);
-    __nv_bfloat16* orow = og + row * p.o_ss + 2 * t;
+    T* orow = og + row * p.o_ss + 2 * t;
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn)
       *reinterpret_cast<uint32_t*>(orow + dn * 8) =
-          pack_bf16(acc[dn][2 * r] / denom, acc[dn][2 * r + 1] / denom);
+          pack2<T>(acc[dn][2 * r] / denom, acc[dn][2 * r + 1] / denom);
     if (p.lse != nullptr && t == 0)
-      p.lse[((long long)b * p.heads + h) * p.sq + row] = fwd_lse(m_run[r], l);
+      p.lse[((long long)b * p.heads + h) * p.sq + row] =
+          fwd_lse<Bounded>(m_run[r], l);
   }
 }
 
@@ -269,11 +271,12 @@ __global__ void __launch_bounds__(kFwdRows) attn_fwd_f32(FwdParams p) {
 #pragma unroll
     for (int d = 0; d < D; ++d) orow[d] = acc[d] / denom;
     if (p.lse != nullptr)
-      p.lse[((long long)b * p.heads + h) * p.sq + row] = fwd_lse(m_run, l_run);
+      p.lse[((long long)b * p.heads + h) * p.sq + row] =
+          fwd_lse<Bounded>(m_run, l_run);
   }
 }
 
-// dtype: 0 = bf16, 1 = fp32. Returns 0, a cudaError_t code, or -1 for a
+// dtype: 0 = bf16, 1 = fp32, 2 = fp16. Returns 0, a cudaError_t code, or -1 for a
 // head_dim/dtype pair there is no kernel for. Each caller instantiates only
 // the modes it runs.
 template <bool Bounded, bool Causal>
@@ -284,10 +287,17 @@ int launch_fwd(const FwdParams& p, int batch, int head_dim, int dtype,
   const size_t f32_rows = sizeof(float) * 2 * kFwdKeysF32;
   if (dtype == 0) {
     if (head_dim == 64)
-      return launch(attn_fwd_bf16<64, Bounded, Causal>, p, grid, 128,
+      return launch(attn_fwd_mma<__nv_bfloat16, 64, Bounded, Causal>, p, grid,
+                    128, bf16_row * (64 + 8), stream);
+    if (head_dim == 128)
+      return launch(attn_fwd_mma<__nv_bfloat16, 128, Bounded, Causal>, p, grid,
+                    128, bf16_row * (128 + 8), stream);
+  } else if (dtype == 2) {
+    if (head_dim == 64)
+      return launch(attn_fwd_mma<__half, 64, Bounded, Causal>, p, grid, 128,
                     bf16_row * (64 + 8), stream);
     if (head_dim == 128)
-      return launch(attn_fwd_bf16<128, Bounded, Causal>, p, grid, 128,
+      return launch(attn_fwd_mma<__half, 128, Bounded, Causal>, p, grid, 128,
                     bf16_row * (128 + 8), stream);
   } else if (dtype == 1) {
     if (head_dim == 64)

@@ -146,13 +146,13 @@ __global__ void __launch_bounds__(128) pairing_probe_rows(ProbeParams p) {
   const long long ss = (long long)p.heads * kD;
   const long long off = b * p.seq * ss + h * kD;
 
-  load_rows2_bf16<kD>(qs, dos, p.q + off, p.dout + off, ss, ss, q0, kRows, p.seq);
+  load_rows2_16<kD>(qs, dos, p.q + off, p.dout + off, ss, ss, q0, kRows, p.seq);
 
   // pass 1: the row sums of e and of e * dp (this thread's partial sums)
   float l_run[2] = {0.f, 0.f}, d_run[2] = {0.f, 0.f};
   for (int k0 = 0; k0 < p.seq; k0 += kRows) {
     __syncthreads();
-    load_rows2_bf16<kD>(ks, vs, p.k + off, p.v + off, ss, ss, k0, kRows, p.seq);
+    load_rows2_16<kD>(ks, vs, p.k + off, p.v + off, ss, ss, k0, kRows, p.seq);
     __syncthreads();
     float s[NT][4], dp[NT][4];
     warp_abt<kD, NT>(s, qs, ks, r0, g, t);
@@ -186,7 +186,7 @@ __global__ void __launch_bounds__(128) pairing_probe_rows(ProbeParams p) {
   zero(dq);
   for (int k0 = 0; k0 < p.seq; k0 += kRows) {
     __syncthreads();
-    load_rows2_bf16<kD>(ks, vs, p.k + off, p.v + off, ss, ss, k0, kRows, p.seq);
+    load_rows2_16<kD>(ks, vs, p.k + off, p.v + off, ss, ss, k0, kRows, p.seq);
     __syncthreads();
     float s[NT][4], dp[NT][4];
     warp_abt<kD, NT>(s, qs, ks, r0, g, t);
@@ -238,13 +238,13 @@ __global__ void __launch_bounds__(128) pairing_probe_cols(ProbeParams p) {
   const long long plane = (long long)gridDim.z * p.heads * p.seq;
   const float* st = p.stats + ((long long)b * p.heads + h) * p.seq;
 
-  load_rows2_bf16<kD>(ks, vs, p.k + off, p.v + off, ss, ss, k0, kRows, p.seq);
+  load_rows2_16<kD>(ks, vs, p.k + off, p.v + off, ss, ss, k0, kRows, p.seq);
   float dk[kD / 8][4], dv[kD / 8][4];
   zero(dk);
   zero(dv);
   for (int q0 = 0; q0 < p.seq; q0 += kRows) {
     __syncthreads();
-    load_rows2_bf16<kD>(qs, dos, p.q + off, p.dout + off, ss, ss, q0, kRows, p.seq);
+    load_rows2_16<kD>(qs, dos, p.q + off, p.dout + off, ss, ss, q0, kRows, p.seq);
     for (int i = threadIdx.x; i < kRows; i += blockDim.x) {
       const bool in = q0 + i < p.seq;
       st_d[i] = in ? st[q0 + i] : 1.f;
@@ -288,12 +288,12 @@ __global__ void __launch_bounds__(128) dots_probe_rows(ProbeParams p) {
   const long long ss = (long long)p.heads * kD;
   const long long off = b * p.seq * ss + h * kD;
 
-  load_rows2_bf16<kD>(qs, dos, p.q + off, p.dout + off, ss, ss, q0, kRows, p.seq);
+  load_rows2_16<kD>(qs, dos, p.q + off, p.dout + off, ss, ss, q0, kRows, p.seq);
   float acc[kD / 8][4];  // o + dq
   zero(acc);
   for (int k0 = 0; k0 < p.seq; k0 += kRows) {
     __syncthreads();
-    load_rows2_bf16<kD>(ks, vs, p.k + off, p.v + off, ss, ss, k0, kRows, p.seq);
+    load_rows2_16<kD>(ks, vs, p.k + off, p.v + off, ss, ss, k0, kRows, p.seq);
     __syncthreads();
     float s[NT][4], dp[NT][4];
     warp_abt<kD, NT>(s, qs, ks, r0, g, t);    // q k^T
@@ -318,12 +318,12 @@ __global__ void __launch_bounds__(128) dots_probe_cols(ProbeParams p) {
   const long long ss = (long long)p.heads * kD;
   const long long off = b * p.seq * ss + h * kD;
 
-  load_rows2_bf16<kD>(ks, vs, p.k + off, p.v + off, ss, ss, k0, kRows, p.seq);
+  load_rows2_16<kD>(ks, vs, p.k + off, p.v + off, ss, ss, k0, kRows, p.seq);
   float acc[kD / 8][4];  // dv + dk
   zero(acc);
   for (int q0 = 0; q0 < p.seq; q0 += kRows) {
     __syncthreads();
-    load_rows2_bf16<kD>(qs, dos, p.q + off, p.dout + off, ss, ss, q0, kRows, p.seq);
+    load_rows2_16<kD>(qs, dos, p.q + off, p.dout + off, ss, ss, q0, kRows, p.seq);
     __syncthreads();
     float s[NQ][4], dp[NQ][4];
     warp_abt<kD, NQ>(s, ks, qs, r0, g, t);    // s^T = k q^T

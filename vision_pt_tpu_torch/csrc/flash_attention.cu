@@ -31,7 +31,8 @@
 // shared memory in 64-key tiles up to kv_len (tiles wholly past kv_len, or
 // wholly above the diagonal when causal, are never loaded), QK^T and PV run
 // in mma.sync bf16 fragments with the online max and sum in registers, and
-// the LSE is written beside o. 12,672 blocks at the training shape keep every
+// the LSE is written beside o. fp16 inputs take the bf16 kernel's template
+// with fp16 fragments (mma.sync ...f32.f16.f16.f32). 12,672 blocks at the training shape keep every
 // SM busy. fp32 inputs take a scalar FMA kernel (one thread per query row).
 // wgmma, TMA and pipelining of the tile loads are left for later work.
 
@@ -39,7 +40,7 @@
 
 using namespace vpt;
 
-// dtype: 0 = bf16, 1 = fp32. Strides are in elements, (batch, row, head) for
+// dtype: 0 = bf16, 1 = fp32, 2 = fp16. Strides are in elements, (batch, row, head) for
 // each of q, k, v, o; the last dimension of every tensor is contiguous.
 // Returns 0, a cudaError_t code, or -1 for a head_dim/dtype pair this file has
 // no kernel for.

@@ -8,12 +8,13 @@
 //   delta = sum_d do * o                       (fp32, from the stored o)
 //   p     = exp(q k^T * scale - lse)           on the valid set, else 0
 //           (valid: key < kv_len, and key <= row when causal)
-//   dv    = bf16(p)^T do
+//   dv    = T(p)^T do
 //   dp    = do v^T                             (fp32)
-//   ds    = bf16(p * (dp - delta) * scale)
+//   ds    = T(p * (dp - delta) * scale)
 //   dq    = ds k,   dk = ds^T q
 //
-// outputs in the inputs' type. fp32 inputs keep fp32 throughout. Key rows at
+// with T the inputs' type, bf16 or fp16 (one template, mma.sync fragments of
+// T with fp32 accumulation); outputs in T. fp32 inputs keep fp32 throughout. Key rows at
 // or past kv_len get exactly zero dk, dv; a kv_len 0 batch row gets zero
 // gradients everywhere.
 //
@@ -85,16 +86,16 @@ __device__ __forceinline__ long long stat_offset(const BwdParams& p, int b,
   return ((long long)b * p.heads + h) * p.sq;
 }
 
-// ---------------------------------------------------------------- bf16 / mma
+// ------------------------------------------------------- bf16, fp16 / mma
 
-template <int D, int KT>
-__global__ void __launch_bounds__(128) flash_bwd_dq_bf16(BwdParams p) {
+template <typename T, int D, int KT>
+__global__ void __launch_bounds__(128) flash_bwd_dq_mma(BwdParams p) {
   constexpr int LD = D + 8, NT = KT / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + kRows * LD;
-  __nv_bfloat16* ks = dos + kRows * LD;
-  __nv_bfloat16* vs = ks + KT * LD;
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* dos = qs + kRows * LD;
+  T* ks = dos + kRows * LD;
+  T* vs = ks + KT * LD;
   float* st_lse2 = reinterpret_cast<float*>(vs + KT * LD);
   float* st_delta = st_lse2 + kRows;
 
@@ -108,19 +109,14 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16(BwdParams p) {
   const int kv = clamped_len(p.kv_lens, b, p.sk);
   const int kend = p.causal ? min(kv, q0 + kRows) : kv;
 
-  const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* og =
-      static_cast<const __nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const __nv_bfloat16* dog =
-      static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* og = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const long long st = stat_offset(p, b, h);
 
-  load_rows2_bf16<D>(qs, dos, qg, dog, p.q_ss, p.do_ss, q0, kRows, p.sq);
+  load_rows2_16<D>(qs, dos, qg, dog, p.q_ss, p.do_ss, q0, kRows, p.sq);
   __syncthreads();
 
   // prologue: delta = sum_d do * o, two threads per row
@@ -129,11 +125,11 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16(BwdParams p) {
     const int row = q0 + r;
     float d = 0.f;
     if (row < p.sq) {
-      const __nv_bfloat16* orow = og + row * p.o_ss + half * (D / 2);
-      const __nv_bfloat16* drow = dos + r * LD + half * (D / 2);
+      const T* orow = og + row * p.o_ss + half * (D / 2);
+      const T* drow = dos + r * LD + half * (D / 2);
 #pragma unroll
       for (int c = 0; c < D / 2; ++c)
-        d = fmaf(__bfloat162float(drow[c]), __bfloat162float(orow[c]), d);
+        d = fmaf(to_float(drow[c]), to_float(orow[c]), d);
     }
     d += __shfl_xor_sync(0xffffffffu, d, 1);
     if (half == 0) {
@@ -153,7 +149,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16(BwdParams p) {
     for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
   for (int k0 = 0; k0 < kend; k0 += KT) {
     __syncthreads();
-    load_rows2_bf16<D>(ks, vs, kg, vg, p.k_ss, p.v_ss, k0, KT, kv);
+    load_rows2_16<D>(ks, vs, kg, vg, p.k_ss, p.v_ss, k0, KT, kv);
     __syncthreads();
     float s[NT][4], dp[NT][4];
     warp_abt<D, NT>(s, qs, ks, r0, g, t);
@@ -171,19 +167,18 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16(BwdParams p) {
       }
     warp_fx<D, NT>(acc, s, ks, lane);
   }
-  __nv_bfloat16* dqg =
-      static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-  store_rows_bf16<D>(dqg, p.dq_ss, acc, q0 + r0, p.sq, 1.f, t);
+  T* dqg = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  store_rows16<D>(dqg, p.dq_ss, acc, q0 + r0, p.sq, 1.f, t);
 }
 
-template <int D, int QT>
-__global__ void __launch_bounds__(128) flash_bwd_dkdv_bf16(BwdParams p) {
+template <typename T, int D, int QT>
+__global__ void __launch_bounds__(128) flash_bwd_dkdv_mma(BwdParams p) {
   constexpr int LD = D + 8, NQ = QT / 8, CH = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kRows * LD;
-  __nv_bfloat16* qs = vs + kRows * LD;
-  __nv_bfloat16* dos = qs + QT * LD;
+  T* ks = reinterpret_cast<T*>(smem_raw);
+  T* vs = ks + kRows * LD;
+  T* qs = vs + kRows * LD;
+  T* dos = qs + QT * LD;
   float* st_lse2 = reinterpret_cast<float*>(dos + QT * LD);
   float* st_delta = st_lse2 + QT;
 
@@ -196,10 +191,8 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv_bf16(BwdParams p) {
   const int r0 = (threadIdx.x >> 5) * 16 + g;
   const int kv = clamped_len(p.kv_lens, b, p.sk);
 
-  __nv_bfloat16* dkg =
-      static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  __nv_bfloat16* dvg =
-      static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  T* dkg = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  T* dvg = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
   if (k0 >= kv) {  // every key of the tile is masked: zero grads
     const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
     for (int i = threadIdx.x; i < kRows * CH; i += blockDim.x) {
@@ -211,17 +204,13 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv_bf16(BwdParams p) {
     return;
   }
 
-  const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* dog =
-      static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const long long st = stat_offset(p, b, h);
 
-  load_rows2_bf16<D>(ks, vs, kg, vg, p.k_ss, p.v_ss, k0, kRows, kv);
+  load_rows2_16<D>(ks, vs, kg, vg, p.k_ss, p.v_ss, k0, kRows, kv);
 
   float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
@@ -232,7 +221,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv_bf16(BwdParams p) {
   // causal: rows below k0 attend no key of this tile (k0 is a multiple of QT)
   for (int q0 = p.causal ? k0 : 0; q0 < p.sq; q0 += QT) {
     __syncthreads();
-    load_rows2_bf16<D>(qs, dos, qg, dog, p.q_ss, p.do_ss, q0, QT, p.sq);
+    load_rows2_16<D>(qs, dos, qg, dog, p.q_ss, p.do_ss, q0, QT, p.sq);
     for (int i = threadIdx.x; i < QT; i += blockDim.x) {
       const bool in = q0 + i < p.sq;
       st_lse2[i] = in ? p.lse[st + q0 + i] * kLog2e : 0.f;
@@ -257,8 +246,8 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv_bf16(BwdParams p) {
     warp_fx<D, NQ>(dv, s, dos, lane);
     warp_fx<D, NQ>(dk, dp, qs, lane);
   }
-  store_rows_bf16<D>(dkg, p.dk_ss, dk, k0 + r0, p.sk, 1.f, t);
-  store_rows_bf16<D>(dvg, p.dv_ss, dv, k0 + r0, p.sk, 1.f, t);
+  store_rows16<D>(dkg, p.dk_ss, dk, k0 + r0, p.sk, 1.f, t);
+  store_rows16<D>(dvg, p.dv_ss, dv, k0 + r0, p.sk, 1.f, t);
 }
 
 // ------------------------------------------------------------ fp32 / scalar
@@ -442,7 +431,7 @@ constexpr size_t bf16_smem(int d, int inner) {
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = fp32. Strides are in elements, (batch, row, head) for
+// dtype: 0 = bf16, 1 = fp32, 2 = fp16. Strides are in elements, (batch, row, head) for
 // each of q, k, v, o, do, dq, dk, dv; the last dimension of every tensor is
 // contiguous. `lse` is the forward's fp32 (B, H, Sq); `delta` fp32 scratch of
 // B * H * Sq. Launches the dq kernel, then the dk/dv kernel, on `stream`.
@@ -503,16 +492,27 @@ extern "C" int vpt_flash_attention_bwd(
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr size_t rows_smem = 2 * kRows * sizeof(float);
-  if (dtype == 0) {
+  if (dtype == 0 || dtype == 2) {
     if (head_dim == 64)
-      return launch_pair(flash_bwd_dq_bf16<64, 64>, flash_bwd_dkdv_bf16<64, 64>,
-                         p, batch, 128, bf16_smem(64, 64) + rows_smem,
-                         bf16_smem(64, 64) + rows_smem, s);
+      return dtype == 0
+          ? launch_pair(flash_bwd_dq_mma<__nv_bfloat16, 64, 64>,
+                        flash_bwd_dkdv_mma<__nv_bfloat16, 64, 64>, p, batch, 128,
+                        bf16_smem(64, 64) + rows_smem,
+                        bf16_smem(64, 64) + rows_smem, s)
+          : launch_pair(flash_bwd_dq_mma<__half, 64, 64>,
+                        flash_bwd_dkdv_mma<__half, 64, 64>, p, batch, 128,
+                        bf16_smem(64, 64) + rows_smem,
+                        bf16_smem(64, 64) + rows_smem, s);
     if (head_dim == 128)
-      return launch_pair(flash_bwd_dq_bf16<128, 32>,
-                         flash_bwd_dkdv_bf16<128, 32>, p, batch, 128,
-                         bf16_smem(128, 32) + rows_smem,
-                         bf16_smem(128, 32) + rows_smem, s);
+      return dtype == 0
+          ? launch_pair(flash_bwd_dq_mma<__nv_bfloat16, 128, 32>,
+                        flash_bwd_dkdv_mma<__nv_bfloat16, 128, 32>, p, batch,
+                        128, bf16_smem(128, 32) + rows_smem,
+                        bf16_smem(128, 32) + rows_smem, s)
+          : launch_pair(flash_bwd_dq_mma<__half, 128, 32>,
+                        flash_bwd_dkdv_mma<__half, 128, 32>, p, batch, 128,
+                        bf16_smem(128, 32) + rows_smem,
+                        bf16_smem(128, 32) + rows_smem, s);
   } else if (dtype == 1) {
     const size_t rows = 2 * kRows, tile = 2 * kTileF32;
     if (head_dim == 64)

@@ -15,6 +15,11 @@
 // row max (online softmax across key tiles). The unnormalised weights are
 // cast to v's type before the PV product, accumulation is fp32, and the
 // (Sq, D) output is divided by the row sums at the end. Sq and Sk may differ.
+// Given an `lse` buffer, it also writes each row's log-sum-exp, fp32 (B, H,
+// Sq): log(max(sum_j e, 2^-100)) when bounded, max + log(sum_j e) when not
+// (-1e30 on a row with no valid key); the backward (short_attention_bwd.cu)
+// takes its probabilities from it. The wrapper passes it only when autograd
+// will run the backward, so the sampler writes none.
 //
 //   #1  _fwd_kernel_packed, behind short_attention_packed: heads are D-wide
 //       column slices of (B, S, H*D) tensors, bounded or not.
@@ -52,12 +57,13 @@
 
 using namespace vpt;
 
-// dtype: 0 = bf16, 1 = fp32. Strides are in elements, (batch, row, head) for
-// each tensor; the last dimension of every tensor is contiguous. Returns 0, a
-// cudaError_t code, or -1 for a head_dim/dtype pair this file has no kernel
-// for.
+// dtype: 0 = bf16, 1 = fp32, 2 = fp16. Strides are in elements, (batch, row,
+// head) for each tensor; the last dimension of every tensor is contiguous.
+// `lse` is null or fp32 (B, H, Sq). Returns 0, a cudaError_t code, or -1 for
+// a head_dim/dtype pair this file has no kernel for.
 extern "C" int vpt_short_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, const int* kv_lens,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    const int* kv_lens,
     int batch, int sq, int sk, int heads, int head_dim, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
@@ -68,7 +74,7 @@ extern "C" int vpt_short_attention_fwd(
   p.k = k;
   p.v = v;
   p.o = o;
-  p.lse = nullptr;
+  p.lse = lse;
   p.kv_lens = kv_lens;
   p.heads = heads;
   p.sq = sq;

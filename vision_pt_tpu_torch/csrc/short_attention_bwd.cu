@@ -13,60 +13,78 @@
 // Each tensor is read in place through its batch, row and head strides
 // (packed and BSHD: head stride D; BHSD: S*D). Per (batch, head):
 //
-//   s      = q k^T                        (fp32 accumulate)
-//   e      = exp2(clip(s * scale * log2e, +-60 * log2e))   bounded=1
-//          = exp(s * scale - rowmax)                        bounded=0
-//            (0 at key columns >= kv_len in both modes)
-//   p      = e / max(sum_j e, 2^-100)     (fp32)
-//   dv     = bf16(p)^T do
-//   dp     = do v^T                       (fp32)
-//   delta  = sum_j p * dp                 (fp32 p and dp, as the TPU kernel)
+//   x      = q k^T * scale * log2e           (fp32 accumulate)
+//            clipped to +-60 * log2e when bounded
+//   p      = exp2(x - lse * log2e)           0 at key columns >= kv_len,
+//            with lse the forward's row log-sum-exp (short_attention.cu),
+//            so p = e / max(sum_j e, 2^-100), the forward's weights
+//   dv     = T(p)^T do
+//   dp     = do v^T                          (fp32)
+//   delta  = sum_j p * dp                    (fp32, the TPU kernel's)
 //   ds     = p * (dp - delta)
-//   dq     = bf16(ds) k * scale,  dk = bf16(ds)^T q * scale
+//   dq     = T(ds) k * scale,  dk = T(ds)^T q * scale
 //
-// outputs in the inputs' type. fp32 inputs keep fp32 throughout.
+// with T the inputs' type (bf16 or fp16); outputs in T. fp32 inputs keep
+// fp32 throughout and recompute the row max and sum themselves (scalar
+// kernels, a statistics sweep in the dq kernel): p from an fp32 lse carries
+// the lse's rounding (half an ulp of |lse|, about 5e-7 at S 298), 2-3 times
+// the TPU kernel's own error, which the fp32 tolerance (1e-5) of the tests
+// does not leave room for.
 //
 // Bound at the JiT-B/16 256^2 train-step shape (B=64, S=298, H=12, D=64,
 // bf16, bounded), on an H100 SXM:
 //   bytes  q, k, v, do read and dq, dk, dv written: 7 * 64*298*768*2 B
 //          = 205 MB -> 205 MB / 3.35 TB/s = 61 us
 //   FLOPs  5 products of 2*B*H*S^2*D = 4.37e10 -> / 989 TFLOP/s = 44 us
-// so the kernel is bound by memory, at about 0.061 ms per call. Kernels #4 and
-// #6 at the same shape move the same bytes and do the same products: the
-// same bound, 0.0612 ms.
+// so the backward is bound by memory, at about 0.061 ms per call. Kernels
+// #4 and #6 at the same shape move the same bytes: the same bound.
 //
-// Design (simple first). The TPU kernel holds the whole (S, S) fp32 tile of
-// one batch element in VMEM and runs the grid in order; here one (S, S) tile
-// (355 KB at S=298) does not fit a block's 227 KB of shared memory, and dk/dv
-// contract over QUERY rows, which blocks running in no order cannot carry
-// between them. So the work splits into two launches, both deterministic (no
-// atomics):
-//   1. dq kernel, one block per (64 query rows, head, batch): pass 1 streams
-//      K/V tiles and gathers the row statistics (running max when unbounded,
-//      the row sum and sum_j e*dp), writes (max, denominator, delta) to an
-//      fp32 (3, B, H, Sq) scratch; pass 2 streams K/V again and accumulates
-//      dq = ds k in mma.sync fragments.
-//   2. dk/dv kernel, one block per (64 key rows, head, batch): K/V tile in
-//      shared memory, dk and dv in mma.sync fragments; loops over query tiles,
-//      recomputing p^T from the saved statistics (scores are computed
-//      transposed, s^T = k q^T, so the key rows are the fragment rows and the
-//      p^T / ds^T fragments feed the dv / dk products directly).
-// Rows past S are loaded as zeros (0 * garbage could be NaN); key rows >=
-// kv_len get exactly zero dk, dv; a kv_len == 0 batch row gets zero grads
-// (the TPU kernels of #4 and #6 differentiate their uniform weights over the
-// padded block there, unbounded; a kept divergence). The head stride is a
-// runtime value, one multiply per pointer at a block's start.
-// bf16 inputs use mma.sync m16n8k16; fp32 inputs take scalar FMA kernels.
-// The TPU kernel's head pairing is not ported: it only fills the TPU's
-// 128-deep matrix unit. wgmma, TMA and pipelining are left for later work.
+// Design. Dk/dv contract over QUERY rows and dq over KEY rows;
+// blocks run in no order and may not add into one sum (no fp32 atomics:
+// repeated calls give the same bits), so two launches, one warpgroup (128
+// threads) a block:
+//   1. dq kernel, one block per (64 query rows, head, batch): Q and dO
+//      tiles stay in shared memory while K/V tiles of NT keys, up to kv_len,
+//      stream twice through a double-buffered cp.async ring (49 KB, four
+//      blocks an SM: more blocks beat keeping every K/V tile for both
+//      sweeps, which fits two an SM). The first sweep takes
+//      s = Q K^T and dp = dO V^T (wgmma from shared
+//      memory) and sums delta = sum p * dp in registers, with p from the
+//      lse (no running max, no rescaling); delta goes to an fp32 (B, H, Sq)
+//      scratch for launch 2; the second sweep takes s and dp again, forms
+//      ds in the accumulator registers and runs dq += T(ds) K as wgmma with
+//      ds in registers.
+//   2. dk/dv kernel, one block per (64 key rows, head, batch): K and V
+//      stay, Q/dO tiles with their lse and delta stream through the ring;
+//      s^T = K Q^T and dp^T = V dO^T (the key rows are the wgmma rows), then
+//      dv += T(p^T) dO and dk += T(ds^T) Q with p^T and ds^T in registers.
+// 9 (S, S, D) products in all, where the function needs 5: delta needs every
+// key of a row before the first ds of that row exists. Taking delta as the
+// row sum of do * o instead (o rounded to T) would save the first sweep (7
+// products) but moves dq and dk by up to 4 times the bf16 tolerance the
+// tests hold the plain version to against the TPU kernel; a single launch
+// per (batch, head), 5 products, would hold dk and dv of every key (S 298:
+// 5 warpgroups x 64 fp32 accumulators a thread, plus s and dp) and does not
+// fit the register file of one SM.
+// All tiles use the 128-byte swizzle, so one copy of a tile is read K-major
+// by one product and MN-major by another (hopper.cuh).
+// Rows past S are loaded as zeros; key rows >= kv_len get exactly zero dk,
+// dv; a kv_len == 0 batch row gets zero grads (the TPU kernels of #4 and #6
+// differentiate their uniform weights over the padded block there,
+// unbounded; a kept divergence). The TPU kernel's head pairing is not
+// ported: it only fills the TPU's 128-deep matrix unit.
 
-#include "attention_common.cuh"
+#include "hopper.cuh"
 
 using namespace vpt;
 
 namespace {
 
 constexpr int kRows = 64;     // query rows (dq kernel) / key rows (dk/dv) per block
+constexpr int kThreads = 128; // one warpgroup
+constexpr int kStages = 3;    // depth of the Q/dO ring of the dk/dv kernel
+constexpr int kDqStages = 2;  // K/V ring of the dq kernel: 49 KB a block at
+                              // D 64, four blocks an SM
 constexpr int kTileF32 = 16;  // inner-loop rows per shared-memory tile, fp32
 constexpr int kColsF32 = 32;  // columns of a row each thread holds, fp32
 
@@ -75,10 +93,13 @@ struct BwdParams {
   const void* k;
   const void* v;
   const void* dout;
+  const float* lse;    // (B, H, Sq), natural log, from the forward (16-bit)
   void* dq;
   void* dk;
   void* dv;
-  float* stats;        // (3, B, H, Sq): row max (log2 domain), denom, delta
+  // (3, B, H, Sq) fp32 scratch: 16-bit, delta in plane 0; fp32, the row max
+  // (log2 domain), denominator and delta
+  float* stats;
   const int* kv_lens;  // (B,) or null for "all Sk keys"
   int heads, sq, sk;
   // batch, row and head strides, in elements
@@ -91,201 +112,204 @@ struct BwdParams {
   int bounded;
 };
 
+__device__ __forceinline__ long long stat_offset(const BwdParams& p, int b,
+                                                 int h) {
+  return ((long long)b * p.heads + h) * p.sq;
+}
+
 __device__ __forceinline__ float clipped_exp2(float x) {
   const float lim = kClip * kLog2e;
   return exp2f(fminf(fmaxf(x, -lim), lim));
 }
 
-// out (16 x D) += bf16(f) (16 x 8NT, C fragments) times the first 8NT rows
-// of `xs` ((rows, D) in shared memory), B built from 16-bit shared loads.
-// The header's warp_fx (ldmatrix.trans) computes the same; here it raised the
-// dk/dv kernel to 186 registers and the backward from 1.07 to 1.26 ms at
-// B 64, S 298 (H100, chip_smoke.py), so this kernel keeps its own.
-template <int D, int NT>
-__device__ __forceinline__ void warp_fx_u16(float out[D / 8][4],
-                                            const float f[NT][4],
-                                            const __nv_bfloat16* xs, int g,
-                                            int t) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kc = 0; kc < NT / 2; ++kc) {
-    const uint32_t fa[4] = {
-        pack_bf16(f[2 * kc][0], f[2 * kc][1]),
-        pack_bf16(f[2 * kc][2], f[2 * kc][3]),
-        pack_bf16(f[2 * kc + 1][0], f[2 * kc + 1][1]),
-        pack_bf16(f[2 * kc + 1][2], f[2 * kc + 1][3]),
-    };
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      const __nv_bfloat16* xb = xs + (kc * 16 + 2 * t) * LD + dn * 8 + g;
-      mma_bf16_16816(out[dn], fa, pack_raw(xb[0], xb[LD]),
-                     pack_raw(xb[8 * LD], xb[9 * LD]));
-    }
-  }
+// the logit in the exp2 domain, clipped when bounded
+__device__ __forceinline__ float logit2(float s, const BwdParams& p) {
+  const float x = s * p.scale_log2;
+  const float lim = kClip * kLog2e;
+  return p.bounded ? fminf(fmaxf(x, -lim), lim) : x;
 }
 
-// ---------------------------------------------------------------- bf16 / mma
+// ------------------------------------------------------ bf16, fp16 / wgmma
 
-template <int D, int KT>
-__global__ void __launch_bounds__(128) packed_bwd_dq_bf16(BwdParams p) {
-  constexpr int LD = D + 8, NT = KT / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + kRows * LD;
-  __nv_bfloat16* ks = dos + kRows * LD;
-  __nv_bfloat16* vs = ks + KT * LD;
+template <typename T, int D, int NT>
+constexpr size_t dq_smem() {
+  // Q, dO; the ring of K, V tiles; slack to align the tiles to 1024 bytes
+  return 1024 + 2 * kRows * D * sizeof(T) + kDqStages * 2 * NT * D * sizeof(T);
+}
+
+template <typename T, int D, int NT>
+constexpr size_t dkdv_smem() {
+  // K, V; the ring of Q, dO tiles and of their lse and delta; slack
+  return 1024 + 2 * kRows * D * sizeof(T) + kStages * 2 * NT * D * sizeof(T) +
+         kStages * 2 * NT * sizeof(float);
+}
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(raw);
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
+  return reinterpret_cast<unsigned char*>(base + ((1024 - (s & 1023)) & 1023));
+}
+
+// s (+)= A B^T and dp (+)= C D^T over the D / 16 k16 steps of four swizzled
+// tiles (A, C: 64 rows; B, D: NT rows), then wait for both
+template <typename T, int D, int NT>
+__device__ __forceinline__ void two_products(float (&s)[NT / 2], float (&dp)[NT / 2],
+                                             const unsigned char* a,
+                                             const unsigned char* b,
+                                             const unsigned char* c,
+                                             const unsigned char* d) {
+  pin(s);
+  pin(dp);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(s, desc_kmajor<kRows>(a, kk), desc_kmajor<NT>(b, kk), kk,
+             (T*)nullptr);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(dp, desc_kmajor<kRows>(c, kk), desc_kmajor<NT>(d, kk), kk,
+             (T*)nullptr);
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(s);
+  pin(dp);
+}
+
+template <typename T, int D, int NT>
+__global__ void __launch_bounds__(kThreads) packed_bwd_dq_wgmma(BwdParams p) {
+  constexpr int TILE = NT * D * sizeof(T), QT = kRows * D * sizeof(T);
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* qs = aligned_smem(smem_wg);
+  unsigned char* dos = qs + QT;
+  unsigned char* ring = dos + QT;  // [kDqStages][K, V]
 
   const int q0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = warp * 16 + g;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int kv = clamped_len(p.kv_lens, b, p.sk);
+  const int ntiles = (kv + NT - 1) / NT;
 
-  const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* dog =
-      static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const long long st = stat_offset(p, b, h);
 
-  load_rows2_bf16<D>(qs, dos, qg, dog, p.q_ss, p.do_ss, q0, kRows, p.sq);
+  cp_async_tile<kRows, D>(qs, qg, p.q_ss, q0, p.sq, kThreads);
+  cp_async_tile<kRows, D>(dos, dog, p.do_ss, q0, p.sq, kThreads);
+  cp_async_commit();
+  // step j < ntiles: the first sweep over key tile j; then the second over
+  // tile j - ntiles; each step's K/V tile into slot j % kDqStages, or an
+  // empty group past the last step
+  auto issue = [&](int j) {
+    if (j < 2 * ntiles) {
+      const int k0 = (j < ntiles ? j : j - ntiles) * NT;
+      unsigned char* slot = ring + (j % kDqStages) * 2 * TILE;
+      cp_async_tile<NT, D>(slot, kg, p.k_ss, k0, kv, kThreads);
+      cp_async_tile<NT, D>(slot + TILE, vg, p.v_ss, k0, kv, kThreads);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < kDqStages - 1; ++j) issue(j);
 
-  // pass 1: row statistics (this thread's partial sums of rows g, g + 8)
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.f, 0.f};
-  float d_run[2] = {0.f, 0.f};  // sum_j e * dp
-  for (int k0 = 0; k0 < kv; k0 += KT) {
-    __syncthreads();
-    load_rows2_bf16<D>(ks, vs, kg, vg, p.k_ss, p.v_ss, k0, KT, kv);
-    __syncthreads();
-    float s[NT][4], dp[NT][4];
-    warp_abt<D, NT>(s, qs, ks, r0, g, t);
-    warp_abt<D, NT>(dp, dos, vs, r0, g, t);
-    if (p.bounded) {
+  const int rr[2] = {warp * 16 + g, warp * 16 + g + 8};
+  float lse2[2];
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+  for (int r = 0; r < 2; ++r)
+    lse2[r] = q0 + rr[r] < p.sq ? p.lse[st + q0 + rr[r]] * kLog2e : 0.f;
+
+  float delta[2] = {0.f, 0.f};  // this thread's partial sums, then the rows'
+  float dq[D / 2];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + j * 8 + 2 * t + (e & 1);
-          const float x = col < kv ? clipped_exp2(s[j][e] * p.scale_log2) : 0.f;
-          l_run[e >> 1] += x;
-          d_run[e >> 1] += x * dp[j][e];
-        }
-    } else {
-      float tile_max[2] = {kNegInf, kNegInf};
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  for (int j = 0; j < 2 * ntiles; ++j) {
+    cp_async_wait<kDqStages - 2>();  // Q/dO and step j's tile have landed
+    fence_async_smem();
+    __syncthreads();                 // ... for every thread; slot j - 1 is free
+    issue(j + kDqStages - 1);
+    const bool second = j >= ntiles;
+    const int k0 = (second ? j - ntiles : j) * NT;
+    const unsigned char* ks = ring + (j % kDqStages) * 2 * TILE;
+    const unsigned char* vs = ks + TILE;
+
+    float s[NT / 2], dp[NT / 2];
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + j * 8 + 2 * t + (e & 1);
-          s[j][e] = col < kv ? s[j][e] * p.scale_log2 : kNegInf;
-          tile_max[e >> 1] = fmaxf(tile_max[e >> 1], s[j][e]);
-        }
+    for (int i = 0; i < NT / 2; ++i) s[i] = dp[i] = 0.f;
+    two_products<T, D, NT>(s, dp, qs, ks, dos, vs);
+
+    if (j == ntiles) {  // the first sweep is done: whole-row delta
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        float mx = tile_max[r];
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m_run[r], mx);  // finite: k0 < kv
-        const float alpha = exp2f(m_run[r] - m_new);
-        l_run[r] *= alpha;
-        d_run[r] *= alpha;
-        m_run[r] = m_new;
+        delta[r] += __shfl_xor_sync(0xffffffffu, delta[r], 1);
+        delta[r] += __shfl_xor_sync(0xffffffffu, delta[r], 2);
+        if (t == 0 && q0 + rr[r] < p.sq) p.stats[st + q0 + rr[r]] = delta[r];
       }
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + j * 8 + 2 * t + (e & 1);
-          const float x = col < kv ? exp2f(s[j][e] - m_run[e >> 1]) : 0.f;
-          l_run[e >> 1] += x;
-          d_run[e >> 1] += x * dp[j][e];
-        }
     }
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      const int col = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+      const float pr = col < kv ? exp2f(logit2(s[i], p) - lse2[r]) : 0.f;
+      if (second)
+        s[i] = pr * (dp[i] - delta[r]);  // ds
+      else
+        delta[r] = fmaf(pr, dp[i], delta[r]);
+    }
+    if (!second) continue;
+    uint32_t a[NT / 16][4];
+#pragma unroll
+    for (int kc = 0; kc < NT / 16; ++kc) pack_a<T>(a[kc], s, kc);
+    pin(a);
+    pin(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < NT / 16; ++kc)
+      wgmma_rs(dq, a[kc], desc_mnmajor<NT>(ks, kc), 1, (T*)nullptr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(dq);
   }
-  float mrow[2], denom[2], delta[2];
+  cp_async_wait<0>();
+
+  T* dqg = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float l = l_run[r], d = d_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    d += __shfl_xor_sync(0xffffffffu, d, 2);
-    denom[r] = fmaxf(l, kDenomFloor);
-    delta[r] = d / denom[r];
-    mrow[r] = p.bounded ? 0.f : m_run[r];
-    const int row = q0 + r0 + 8 * r;
-    if (t == 0 && row < p.sq) {
-      float* st = p.stats + ((long long)b * p.heads + h) * p.sq + row;
-      st[0] = mrow[r];
-      st[p.plane] = denom[r];
-      st[2 * p.plane] = delta[r];
-    }
+    const int row = q0 + rr[r];
+    if (row >= p.sq) continue;
+    T* out = dqg + row * p.dq_ss + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(out + n * 8) =
+          pack2<T>(dq[4 * n + 2 * r] * p.scale, dq[4 * n + 2 * r + 1] * p.scale);
   }
-
-  // pass 2: dq = ds k
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-  for (int k0 = 0; k0 < kv; k0 += KT) {
-    __syncthreads();
-    load_rows2_bf16<D>(ks, vs, kg, vg, p.k_ss, p.v_ss, k0, KT, kv);
-    __syncthreads();
-    float s[NT][4], dp[NT][4];
-    warp_abt<D, NT>(s, qs, ks, r0, g, t);
-    warp_abt<D, NT>(dp, dos, vs, r0, g, t);
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const int r = e >> 1;
-        const float x = s[j][e] * p.scale_log2;
-        const float ex = p.bounded ? clipped_exp2(x) : exp2f(x - mrow[r]);
-        const float pr = col < kv ? ex / denom[r] : 0.f;
-        s[j][e] = pr * (dp[j][e] - delta[r]);  // ds
-      }
-    warp_fx_u16<D, NT>(acc, s, ks, g, t);
-  }
-  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-  store_rows_bf16<D>(dqg, p.dq_ss, acc, q0 + r0, p.sq, p.scale, t);
 }
 
-template <int D, int QT>
-__global__ void __launch_bounds__(128) packed_bwd_dkdv_bf16(BwdParams p) {
-  constexpr int LD = D + 8, NQ = QT / 8, CH = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kRows * LD;
-  __nv_bfloat16* qs = vs + kRows * LD;
-  __nv_bfloat16* dos = qs + QT * LD;
-  float* st_m = reinterpret_cast<float*>(dos + QT * LD);
-  float* st_d = st_m + QT;
-  float* st_delta = st_d + QT;
+template <typename T, int D, int NT>
+__global__ void __launch_bounds__(kThreads) packed_bwd_dkdv_wgmma(BwdParams p) {
+  constexpr int TILE = NT * D * sizeof(T), KT = kRows * D * sizeof(T);
+  constexpr int CH = D / 8;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* ks = aligned_smem(smem_wg);
+  unsigned char* vs = ks + KT;
+  unsigned char* ring = vs + KT;  // [kStages][Q, dO]
+  float* rows_ring = reinterpret_cast<float*>(ring + kStages * 2 * TILE);  // [kStages][lse, delta][NT]
 
   const int k0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = warp * 16 + g;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int kv = clamped_len(p.kv_lens, b, p.sk);
 
-  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  T* dkg = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  T* dvg = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
   if (k0 >= kv) {  // every key of the tile is masked: zero grads
     const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    for (int i = threadIdx.x; i < kRows * CH; i += blockDim.x) {
+    for (int i = threadIdx.x; i < kRows * CH; i += kThreads) {
       const int row = k0 + i / CH, c = i % CH;
       if (row >= p.sk) continue;
       *reinterpret_cast<uint4*>(dkg + row * p.dk_ss + c * 8) = zero;
@@ -294,54 +318,112 @@ __global__ void __launch_bounds__(128) packed_bwd_dkdv_bf16(BwdParams p) {
     return;
   }
 
-  const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* dog =
-      static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const float* st = p.stats + ((long long)b * p.heads + h) * p.sq;
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const long long st = stat_offset(p, b, h);
+  const int ntiles = (p.sq + NT - 1) / NT;
 
-  load_rows2_bf16<D>(ks, vs, kg, vg, p.k_ss, p.v_ss, k0, kRows, kv);
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
-
-  for (int q0 = 0; q0 < p.sq; q0 += QT) {
-    __syncthreads();
-    load_rows2_bf16<D>(qs, dos, qg, dog, p.q_ss, p.do_ss, q0, QT, p.sq);
-    for (int i = threadIdx.x; i < QT; i += blockDim.x) {
-      const bool in = q0 + i < p.sq;
-      st_m[i] = in ? st[q0 + i] : 0.f;
-      st_d[i] = in ? st[p.plane + q0 + i] : 1.f;
-      st_delta[i] = in ? st[2 * p.plane + q0 + i] : 0.f;
+  cp_async_tile<kRows, D>(ks, kg, p.k_ss, k0, kv, kThreads);
+  cp_async_tile<kRows, D>(vs, vg, p.v_ss, k0, kv, kThreads);
+  cp_async_commit();
+  auto issue = [&](int i) {  // query tile i into its slot, or an empty group
+    if (i < ntiles) {
+      const int slot = i % kStages, q0 = i * NT;
+      unsigned char* tiles = ring + slot * 2 * TILE;
+      cp_async_tile<NT, D>(tiles, qg, p.q_ss, q0, p.sq, kThreads);
+      cp_async_tile<NT, D>(tiles + TILE, dog, p.do_ss, q0, p.sq, kThreads);
+      float* rows = rows_ring + slot * 2 * NT;
+      for (int r = threadIdx.x; r < 2 * NT; r += kThreads) {
+        const int row = q0 + (r % NT);
+        const bool ok = row < p.sq;
+        const float* src = r < NT ? p.lse : p.stats;  // delta: plane 0
+        cp_async4(rows + r, ok ? src + st + row : src, ok);
+      }
     }
-    __syncthreads();
-    float s[NQ][4], dp[NQ][4];  // s^T = k q^T, dp^T = v do^T
-    warp_abt<D, NQ>(s, ks, qs, r0, g, t);
-    warp_abt<D, NQ>(dp, vs, dos, r0, g, t);
+    cp_async_commit();
+  };
 #pragma unroll
-    for (int j = 0; j < NQ; ++j)
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+
+  const int rr[2] = {warp * 16 + g, warp * 16 + g + 8};
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<kStages - 2>();  // K/V and query tile i have landed
+    fence_async_smem();
+    __syncthreads();               // ... for every thread; slot i - 1 is free
+    issue(i + kStages - 1);
+    const int slot = i % kStages, q0 = i * NT;
+    const unsigned char* qs = ring + slot * 2 * TILE;
+    const unsigned char* dos = qs + TILE;
+    const float* lse_s = rows_ring + slot * 2 * NT;
+    const float* delta_s = lse_s + NT;
+
+    float s[NT / 2], dp[NT / 2];  // s^T = K Q^T, dp^T = V dO^T
+#pragma unroll
+    for (int n = 0; n < NT / 2; ++n) s[n] = dp[n] = 0.f;
+    two_products<T, D, NT>(s, dp, ks, qs, vs, dos);
+
+#pragma unroll
+    for (int n = 0; n < NT / 8; ++n) {
+      const int qi = n * 8 + 2 * t;  // this thread's two query columns
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + qi);
+      const float2 dl = *reinterpret_cast<const float2*>(delta_s + qi);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + r0 + 8 * (e >> 1);
-        const int qi = j * 8 + 2 * t + (e & 1);
-        const float x = s[j][e] * p.scale_log2;
-        const float ex = p.bounded ? clipped_exp2(x) : exp2f(x - st_m[qi]);
-        const float pr = (key < kv && q0 + qi < p.sq) ? ex / st_d[qi] : 0.f;
-        s[j][e] = pr;                               // p^T
-        dp[j][e] = pr * (dp[j][e] - st_delta[qi]);  // ds^T
+        const int idx = 4 * n + e;
+        const int key = k0 + rr[e >> 1];
+        const int q = q0 + qi + (e & 1);
+        const float lse2 = ((e & 1) ? l2.y : l2.x) * kLog2e;
+        const float del = (e & 1) ? dl.y : dl.x;
+        const float pr = (key < kv && q < p.sq) ? exp2f(logit2(s[idx], p) - lse2)
+                                                : 0.f;
+        s[idx] = pr;                       // p^T
+        dp[idx] = pr * (dp[idx] - del);    // ds^T
       }
-    warp_fx_u16<D, NQ>(dv, s, dos, g, t);
-    warp_fx_u16<D, NQ>(dk, dp, qs, g, t);
+    }
+    uint32_t pa[NT / 16][4], da[NT / 16][4];
+#pragma unroll
+    for (int kc = 0; kc < NT / 16; ++kc) {
+      pack_a<T>(pa[kc], s, kc);
+      pack_a<T>(da[kc], dp, kc);
+    }
+    pin(pa);
+    pin(da);
+    pin(dk);
+    pin(dv);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < NT / 16; ++kc)
+      wgmma_rs(dv, pa[kc], desc_mnmajor<NT>(dos, kc), 1, (T*)nullptr);
+#pragma unroll
+    for (int kc = 0; kc < NT / 16; ++kc)
+      wgmma_rs(dk, da[kc], desc_mnmajor<NT>(qs, kc), 1, (T*)nullptr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(dk);
+    pin(dv);
   }
-  store_rows_bf16<D>(dkg, p.dk_ss, dk, k0 + r0, p.sk, p.scale, t);
-  store_rows_bf16<D>(dvg, p.dv_ss, dv, k0 + r0, p.sk, 1.f, t);
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + rr[r];
+    if (row >= p.sk) continue;
+    T* dko = dkg + row * p.dk_ss + 2 * t;
+    T* dvo = dvg + row * p.dv_ss + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(dko + n * 8) =
+          pack2<T>(dk[4 * n + 2 * r] * p.scale, dk[4 * n + 2 * r + 1] * p.scale);
+      *reinterpret_cast<uint32_t*>(dvo + n * 8) =
+          pack2<T>(dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
+    }
+  }
 }
 
 // ------------------------------------------------------------ fp32 / scalar
@@ -579,42 +661,40 @@ int launch_pair(DqKernel dq_kernel, DkdvKernel dkdv_kernel, const BwdParams& p,
   return launch(dkdv_kernel, p, dkdv_grid, threads, dkdv_smem, stream);
 }
 
-constexpr size_t bf16_smem(int d, int inner) {
-  return (2 * kRows + 2 * inner) * (d + 8) * sizeof(__nv_bfloat16);
+// the wgmma pair for T and D: inner tiles of 64 rows at D 64, 32 at D 128
+// (the dk/dv kernel then holds 2 x 64 fp32 accumulators a thread)
+template <typename T, int D>
+int launch_wgmma(const BwdParams& p, int batch, cudaStream_t s) {
+  constexpr int NT = D == 64 ? 64 : 32;
+  return launch_pair(packed_bwd_dq_wgmma<T, D, NT>,
+                     packed_bwd_dkdv_wgmma<T, D, NT>, p, batch, kThreads,
+                     dq_smem<T, D, NT>(), dkdv_smem<T, D, NT>(), s);
 }
 
-// Launches the dq kernel, then the dk/dv kernel, for p's dtype (0 = bf16,
-// 1 = fp32) and head_dim. Returns 0, a cudaError_t code, or -1 for a
-// head_dim/dtype pair this file has no kernel for.
-int run_bwd(BwdParams& p, int batch, int head_dim, int dtype, float scale,
-            int bounded, float* stats, cudaStream_t s) {
-  p.stats = stats;
-  p.plane = (long long)batch * p.heads * p.sq;
-  p.scale = scale;
-  p.scale_log2 = scale * kLog2e;
-  p.bounded = bounded;
-  constexpr size_t stats_smem = 3 * 64 * sizeof(float);
+// Launches the dq kernel, then the dk/dv kernel, for dtype (0 = bf16,
+// 1 = fp32, 2 = fp16) and head_dim. Returns 0, a cudaError_t code, or -1 for
+// a head_dim/dtype pair this file has no kernel for.
+int run_bwd(const BwdParams& p, int batch, int head_dim, int dtype,
+            cudaStream_t s) {
   if (dtype == 0) {
-    if (head_dim == 64)
-      return launch_pair(packed_bwd_dq_bf16<64, 64>, packed_bwd_dkdv_bf16<64, 64>,
-                         p, batch, 128, bf16_smem(64, 64),
-                         bf16_smem(64, 64) + stats_smem, s);
-    if (head_dim == 128)
-      return launch_pair(packed_bwd_dq_bf16<128, 32>,
-                         packed_bwd_dkdv_bf16<128, 32>, p, batch, 128,
-                         bf16_smem(128, 32), bf16_smem(128, 32) + stats_smem, s);
+    if (head_dim == 64) return launch_wgmma<__nv_bfloat16, 64>(p, batch, s);
+    if (head_dim == 128) return launch_wgmma<__nv_bfloat16, 128>(p, batch, s);
+  } else if (dtype == 2) {
+    if (head_dim == 64) return launch_wgmma<__half, 64>(p, batch, s);
+    if (head_dim == 128) return launch_wgmma<__half, 128>(p, batch, s);
   } else if (dtype == 1) {
+    constexpr size_t stats_smem = 3 * kTileF32 * sizeof(float);
     const size_t rows = 2 * kRows, tile = 2 * kTileF32;
     if (head_dim == 64)
       return launch_pair(packed_bwd_dq_f32<64>, packed_bwd_dkdv_f32<64>, p,
                          batch, kRows * 64 / kColsF32,
                          (rows * 65 + tile * 64) * sizeof(float),
-                         (rows * 65 + tile * 64 + 3 * kTileF32) * sizeof(float), s);
+                         (rows * 65 + tile * 64) * sizeof(float) + stats_smem, s);
     if (head_dim == 128)
       return launch_pair(packed_bwd_dq_f32<128>, packed_bwd_dkdv_f32<128>, p,
                          batch, kRows * 128 / kColsF32,
                          (rows * 129 + tile * 128) * sizeof(float),
-                         (rows * 129 + tile * 128 + 3 * kTileF32) * sizeof(float),
+                         (rows * 129 + tile * 128) * sizeof(float) + stats_smem,
                          s);
   }
   return -1;
@@ -622,25 +702,29 @@ int run_bwd(BwdParams& p, int batch, int head_dim, int dtype, float scale,
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = fp32. `strides` holds (batch, row, head) strides in
-// elements for q, k, v, dout, dq, dk, dv in that order (21 values); the last
-// dimension of every tensor is contiguous. `stats` is fp32 scratch of
-// 3 * B * H * Sq. Launches the dq kernel, then the dk/dv kernel, on `stream`.
-// Returns 0, a cudaError_t code, or -1 for a head_dim/dtype pair this file
-// has no kernel for.
+// dtype: 0 = bf16, 1 = fp32, 2 = fp16. `strides` holds (batch, row, head)
+// strides in elements for q, k, v, dout, dq, dk, dv in that order (21
+// values); the last dimension of every tensor is contiguous. `lse` is the
+// forward's fp32 (B, H, Sq) log-sum-exp (read for bf16 and fp16), `stats`
+// fp32 scratch of 3 * B * H * Sq. Launches the dq kernel, then the dk/dv
+// kernel, on `stream`. Returns 0, a cudaError_t code, or -1 for a
+// head_dim/dtype pair this file has no kernel for.
 extern "C" int vpt_short_attention_bwd(
-    const void* q, const void* k, const void* v, const void* dout, void* dq,
-    void* dk, void* dv, float* stats, const int* kv_lens, int batch, int sq,
-    int sk, int heads, int head_dim, const long long* strides, float scale,
-    int bounded, int dtype, void* stream) {
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, void* dq, void* dk, void* dv, float* stats,
+    const int* kv_lens, int batch, int sq, int sk, int heads, int head_dim,
+    const long long* strides, float scale, int bounded, int dtype,
+    void* stream) {
   BwdParams p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.dout = dout;
+  p.lse = lse;
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
+  p.stats = stats;
   p.kv_lens = kv_lens;
   p.heads = heads;
   p.sq = sq;
@@ -652,6 +736,9 @@ extern "C" int vpt_short_attention_bwd(
       {&p.dv_sb, &p.dv_ss, &p.dv_sh}};
   for (int i = 0; i < 7; ++i)
     for (int j = 0; j < 3; ++j) *fields[i][j] = strides[3 * i + j];
-  return run_bwd(p, batch, head_dim, dtype, scale, bounded, stats,
-                 static_cast<cudaStream_t>(stream));
+  p.plane = (long long)batch * heads * sq;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  p.bounded = bounded;
+  return run_bwd(p, batch, head_dim, dtype, static_cast<cudaStream_t>(stream));
 }

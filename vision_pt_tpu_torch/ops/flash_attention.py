@@ -34,7 +34,7 @@ from .short_attention import _acc_dtype, _device_lens, _ptr
 NEG_INF = -1e30
 _LSE_FLOOR = 1e-37
 
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -126,8 +126,9 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, kv_lens=None, *,
 
 def _check(q, *others):
     """Raise on what the kernels do not take: (B, S, H, D) tensors of one
-    dtype (bf16 or fp32) and device, D 64 or 128, a contiguous last dimension
-    and 16-byte (bf16) or 4-byte (fp32) aligned rows and heads."""
+    dtype (bf16, fp16 or fp32) and device, D 64 or 128, a contiguous last
+    dimension and 16-byte (bf16, fp16) or 4-byte (fp32) aligned rows and
+    heads."""
     tensors = (q, *others)
     if any(x.dim() != 4 for x in tensors):
         raise ValueError("q, k, v must be (B, S, H, D)")
@@ -138,13 +139,13 @@ def _check(q, *others):
     if q.dtype not in _DTYPE_CODES or any(x.dtype != q.dtype for x in others):
         raise ValueError(
             f"dtypes {[x.dtype for x in tensors]}: the kernel takes one of "
-            "bfloat16, float32 for all"
+            "bfloat16, float16, float32 for all"
         )
     if q.shape[3] not in (64, 128):
         raise ValueError(f"head dim {q.shape[3]}: the kernel takes 64 or 128")
     if any(x.device != q.device for x in others):
         raise ValueError("q, k, v must be on one device")
-    align = 16 if q.dtype == torch.bfloat16 else 4  # vector loads
+    align = 16 if q.element_size() == 2 else 4  # vector loads
     for x in tensors:
         if x.stride(3) != 1:
             raise ValueError("the last dimension must be contiguous")

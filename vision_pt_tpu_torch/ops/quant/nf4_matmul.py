@@ -15,10 +15,12 @@ are fp32.
 
 On a CUDA tensor :func:`dequant_matmul_4bit` launches the kernel in
 ``csrc/nf4_matmul.cu`` or raises; on a CPU tensor it runs
-:func:`dequant_matmul_4bit_reference`, which takes the chunks in the kernel's
-order (j, j + in/128, j + 1, ...: the two chunks of one byte row in turn) so
-that it repeats the kernel's sums, and which the tests hold against the JAX
-kernel in interpret mode.
+:func:`dequant_matmul_4bit_reference`, which repeats the kernel's sums in
+the kernel's order, and which the tests hold against the JAX kernel in
+interpret mode. The order: the in/128 byte rows of ``packed_t`` (k-steps)
+are cut into ``splits`` contiguous ranges (:func:`plan`); each range sums
+its k-steps from 0, chunk j then chunk j + in/128 of byte row j; the ranges'
+fp32 sums are added in order and rounded once.
 """
 
 from __future__ import annotations
@@ -32,9 +34,11 @@ from .. import _build
 from .nf4 import CODEBOOKS, unpack_4bit
 
 BLOCK = 64  # bnb absmax blocksize; also the per-chunk contraction width
+SMS = 132  # streaming multiprocessors of an H100 SXM: the plan fills them
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 _fns: dict[str, ctypes._CFuncPtr] = {}
+_luts: dict[str, ctypes.Array] = {}  # the codebooks as the C entry takes them
 
 
 def repack_deinterleaved(packed_bnb: np.ndarray, shape: tuple[int, int]) -> np.ndarray:
@@ -68,8 +72,30 @@ def _codebook(quant_type: str, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(CODEBOOKS[quant_type]).to(device).to(dtype)
 
 
+def plan(rows: int, in_dim: int, out_dim: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(block shape, splits) of the kernel for a (rows, in) x (in, out)
+    product: the shape's index in ``csrc/nf4_matmul.cu`` (16-bit x: 64 x 64
+    tiles up to 64 rows, two blocks an SM; 128 x 64 up to 128 and 256 x 32
+    above, one; fp32 x: 64 x 64, one) and the number of contiguous ranges K
+    is cut into: as many as one wave of blocks holds, each range at least
+    two k-steps."""
+    per_sm = 1
+    if dtype == torch.float32:
+        shape, bm, bn = 0, 64, 64
+    elif rows <= 64:
+        shape, bm, bn, per_sm = 0, 64, 64, 2
+    elif rows <= 128:
+        shape, bm, bn = 1, 128, 64
+    else:
+        shape, bm, bn = 2, 256, 32
+    tiles = -(-rows // bm) * -(-out_dim // bn)
+    steps = in_dim // (2 * BLOCK)
+    return shape, max(1, min(steps // 2, per_sm * SMS // tiles))
+
+
 def dequant_matmul_4bit_reference(x, packed_t, absmax_t, quant_type: str = "nf4"):
-    """Plain PyTorch version of the kernel, chunk by chunk in its order."""
+    """Plain PyTorch version of the kernel, chunk by chunk in its order: each
+    of the plan's K ranges from 0, then the ranges in turn."""
     lead, in_dim = x.shape[:-1], x.shape[-1]
     out_dim = packed_t.shape[1]
     x2 = x.reshape(-1, in_dim).float()
@@ -77,13 +103,17 @@ def dequant_matmul_4bit_reference(x, packed_t, absmax_t, quant_type: str = "nf4"
     p = packed_t.long()
     w = torch.cat([code[p >> 4], code[p & 0x0F]], dim=0)  # (in, out) unscaled
     scales = absmax_t.float()
-    acc = torch.zeros(x2.shape[0], out_dim, dtype=torch.float32, device=x.device)
-    half = in_dim // (2 * BLOCK)
-    for row in range(half):
-        for j in (row, row + half):
-            chunk = slice(j * BLOCK, (j + 1) * BLOCK)
-            acc += (x2[:, chunk] @ w[chunk]) * scales[j]
-    return acc.to(x.dtype).reshape(*lead, out_dim)
+    steps = in_dim // (2 * BLOCK)
+    splits = plan(x2.shape[0], in_dim, out_dim, x.dtype)[1]
+    total = None
+    for split in range(splits):
+        acc = torch.zeros(x2.shape[0], out_dim, dtype=torch.float32, device=x.device)
+        for row in range(split * steps // splits, (split + 1) * steps // splits):
+            for j in (row, row + steps):
+                chunk = slice(j * BLOCK, (j + 1) * BLOCK)
+                acc = acc + (x2[:, chunk] @ w[chunk]) * scales[j]
+        total = acc if total is None else total + acc
+    return total.to(x.dtype).reshape(*lead, out_dim)
 
 
 def _kernel_fn():
@@ -92,7 +122,7 @@ def _kernel_fn():
     if "fwd" not in _fns:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         fn = _build.load("nf4_matmul").vpt_nf4_matmul
-        fn.argtypes = [ptr, ptr, ptr, ptr, i, i, i, ptr, i, ptr]
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i, i, i, ptr, i, i, i, ptr]
         fn.restype = ctypes.c_int
         _fns["fwd"] = fn
     return _fns["fwd"]
@@ -133,16 +163,21 @@ def dequant_matmul_4bit(x, packed_t, absmax_t, quant_type: str = "nf4"):
         raise ValueError(f"unknown quant type {quant_type}")
     lead = x.shape[:-1]
     x2 = _aligned(x.reshape(-1, in_dim), 16)
-    packed_t, absmax_t = _aligned(packed_t, 8), _aligned(absmax_t, 4)
+    packed_t, absmax_t = _aligned(packed_t, 8), _aligned(absmax_t, 16)
     rows = x2.shape[0]
     out = torch.empty(rows, out_dim, dtype=x.dtype, device=x.device)
     if rows == 0:
         return out.reshape(*lead, out_dim)
-    lut = (ctypes.c_float * 16)(*CODEBOOKS[quant_type].tolist())
+    shape, splits = plan(rows, in_dim, out_dim, x.dtype)
+    ws = (torch.empty(splits, rows, out_dim, dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    if quant_type not in _luts:
+        _luts[quant_type] = (ctypes.c_float * 16)(*CODEBOOKS[quant_type].tolist())
     rc = _kernel_fn()(
         x2.data_ptr(), packed_t.data_ptr(), absmax_t.data_ptr(), out.data_ptr(),
-        rows, in_dim, out_dim, ctypes.cast(lut, ctypes.c_void_p),
-        _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+        None if ws is None else ws.data_ptr(), rows, in_dim, out_dim,
+        ctypes.addressof(_luts[quant_type]), _DTYPE_CODES[x.dtype], shape, splits,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"dequant_matmul_4bit kernel launch failed: {rc}")

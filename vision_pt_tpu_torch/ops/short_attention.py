@@ -1,9 +1,11 @@
 """One-pass attention for short sequences (port of
 ``vision_pt_tpu/ops/short_attention.py``).
 
-Three entry points, each a ``torch.autograd.Function`` that saves ``(q, k,
-v, kv_lens)`` and recomputes the probabilities in the backward, as the JAX
-package's custom VJPs do:
+Three entry points, each a ``torch.autograd.Function`` whose forward saves
+``(q, k, v, kv_lens, lse)`` when autograd will need them; the backward
+recomputes the probabilities, in bf16 and fp16 from the lse (which the
+forward then also writes), in fp32 from scratch as the JAX package's custom
+VJPs do (the lse's rounding would exceed the fp32 tolerance; lse is None):
 
 - :func:`short_attention_packed` on the packed (B, S, H*D) layout, bounded or
   not (kernels #1 and #2);
@@ -20,6 +22,9 @@ On a CUDA tensor the forwards launch the CUDA kernels in
 PyTorch version (the ``*_reference`` functions), which the tests hold against
 the JAX kernels and which ``chip_smoke.py`` holds against the CUDA kernels.
 A row with kv_len 0 gives exactly 0 and zero gradients in every entry.
+Inputs are bfloat16, float16 or float32, as the JAX kernels are
+dtype-generic; the 16-bit backwards take the lse of a ``*_with_lse``
+forward, the fp32 ones ignore it (None will do).
 """
 
 from __future__ import annotations
@@ -37,10 +42,11 @@ MAX_SHORT_SEQ = 768
 # even if learned gains grow (exact softmax inside the clip).
 BOUNDED_LOGIT_CLIP = 60.0
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 NEG_INF = -1e30
 _DENOM_FLOOR = 2.0**-100
 
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -52,11 +58,10 @@ def _kernel_fn(name: str):
         ptr, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         if name == "fwd":
             fn = _build.load("short_attention").vpt_short_attention_fwd
-            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i, i, i, i, i,
-                           *[ll] * 12, f, i, i, ptr]
+            fn.argtypes = [*[ptr] * 6, i, i, i, i, i, *[ll] * 12, f, i, i, ptr]
         else:
             fn = _build.load("short_attention_bwd").vpt_short_attention_bwd
-            fn.argtypes = [*[ptr] * 9, i, i, i, i, i, ptr, f, i, i, ptr]
+            fn.argtypes = [*[ptr] * 10, i, i, i, i, i, ptr, f, i, i, ptr]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -87,11 +92,15 @@ def _key_valid(kv_lens, batch, sk, device):
 
 
 def short_attention_packed_reference(q, k, v, num_heads, kv_lens=None,
-                                     scale=None, bounded=False):
+                                     scale=None, bounded=False,
+                                     return_lse=False):
     """Plain PyTorch version of the forward kernel: same arithmetic,
     (B, H, Sq, Sk) tensors. Products of the (exactly upcast) inputs
     accumulate in fp32, the unnormalised weights are rounded to v's dtype
-    before the PV product, and the output is divided by the fp32 row sums."""
+    before the PV product, and the output is divided by the fp32 row sums.
+    ``return_lse`` also returns the (B, H, Sq) row log-sum-exp the kernel
+    writes: log(max(sum e, 2^-100)) when bounded, max + log(sum e) when not
+    (-1e30 on a row with no valid key)."""
     batch, sq, width = q.shape
     sk = k.shape[1]
     if scale is None:
@@ -110,19 +119,32 @@ def short_attention_packed_reference(q, k, v, num_heads, kv_lens=None,
     # masked weights are exactly 0, so a kv_len == 0 row gives 0 in both
     # modes (the floor keeps 0/0 out)
     e = torch.where(valid, e, 0.0)
-    denom = e.sum(dim=-1, keepdim=True).clamp_min(_DENOM_FLOOR)
+    total = e.sum(dim=-1, keepdim=True)
+    denom = total.clamp_min(_DENOM_FLOOR)
     o = (e.to(v.dtype).to(acc) @ _split_heads(v, num_heads).to(acc)) / denom
-    return _merge_heads(o).to(q.dtype)
+    out = _merge_heads(o).to(q.dtype)
+    if not return_lse:
+        return out
+    if bounded:
+        lse = torch.log(denom)
+    else:
+        lse = torch.where(total > 0, s.amax(dim=-1, keepdim=True) * LN2
+                          + torch.log(total.clamp_min(_DENOM_FLOOR)), NEG_INF)
+    return out, lse[..., 0]
 
 
-def short_attention_packed_bwd_reference(q, k, v, do, num_heads, kv_lens=None,
-                                         scale=None, bounded=False):
-    """Plain PyTorch version of the backward kernel, ``_head_bwd``'s
-    arithmetic: probabilities recomputed in fp32 (bounded: clipped exp2, no
-    max; unbounded: max-subtracted exp), ``p`` and ``ds`` rounded to the
-    input dtype before their products, ``delta`` from fp32 ``p`` and ``dp``.
-    ``do`` is cast to q's dtype first. Returns (dq, dk, dv) in q's dtype; a
-    kv_len == 0 row gets zero grads in both modes."""
+def short_attention_packed_bwd_reference(q, k, v, lse, do, num_heads,
+                                         kv_lens=None, scale=None,
+                                         bounded=False):
+    """Plain PyTorch version of the backward kernels, ``_head_bwd``'s
+    arithmetic: probabilities in fp32, for bf16 and fp16 inputs from the
+    forward's (B, H, Sq) ``lse`` (``p = exp2(x - lse log2 e)``, x the logit
+    in the exp2 domain, clipped when bounded: the forward's weights over
+    their row sum), for fp32 (and fp64) inputs recomputed (bounded: clipped
+    exp2, no max; unbounded: max-subtracted exp; ``lse`` is not read); ``p`` and ``ds`` rounded to
+    the input dtype before their products, ``delta`` from fp32 ``p`` and
+    ``dp``. ``do`` is cast to q's dtype first. Returns (dq, dk, dv) in q's
+    dtype; a kv_len == 0 row gets zero grads in both modes."""
     batch, sq, width = q.shape
     sk = k.shape[1]
     if scale is None:
@@ -132,14 +154,20 @@ def short_attention_packed_bwd_reference(q, k, v, do, num_heads, kv_lens=None,
                        for x in (q, k, v, do))
     s = qh @ kh.transpose(-1, -2)
     valid = _key_valid(kv_lens, batch, sk, q.device)
-    if bounded:
-        lim = BOUNDED_LOGIT_CLIP * LOG2E
-        e = torch.exp2((s * (scale * LOG2E)).clamp(-lim, lim))
+    lim = BOUNDED_LOGIT_CLIP * LOG2E
+    if dt.itemsize == 2:
+        x = s * (scale * LOG2E)
+        if bounded:
+            x = x.clamp(-lim, lim)
+        p = torch.where(valid, torch.exp2(x - lse.to(acc)[..., None] * LOG2E), 0.0)
     else:
-        s = torch.where(valid, s * scale, NEG_INF)
-        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    e = torch.where(valid, e, 0.0)
-    p = e / e.sum(dim=-1, keepdim=True).clamp_min(_DENOM_FLOOR)
+        if bounded:
+            e = torch.exp2((s * (scale * LOG2E)).clamp(-lim, lim))
+        else:
+            s = torch.where(valid, s * scale, NEG_INF)
+            e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        e = torch.where(valid, e, 0.0)
+        p = e / e.sum(dim=-1, keepdim=True).clamp_min(_DENOM_FLOOR)
     dv = p.to(dt).to(acc).transpose(-1, -2) @ doh
     dp = doh @ vh.transpose(-1, -2)
     delta = (p * dp).sum(dim=-1, keepdim=True)
@@ -171,6 +199,11 @@ def _ptr(x):
     return x.data_ptr() if x is not None else None
 
 
+def _lse_used(q):
+    """True where the backward reads the forward's lse: bf16 and fp16."""
+    return q.element_size() == 2
+
+
 def _wants_kernel(q):
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (the plain version); raise for any other device."""
@@ -181,47 +214,63 @@ def _wants_kernel(q):
     return True
 
 
-def _forward(q, k, v, num_heads, kv_lens, scale, bounded):
+def _forward(q, k, v, num_heads, kv_lens, scale, bounded, want_lse):
+    """(out, lse), lse None unless ``want_lse``: the kernel for a CUDA
+    tensor, the plain version for a CPU one."""
     if not _wants_kernel(q):
-        return short_attention_packed_reference(
-            q, k, v, num_heads, kv_lens, scale, bounded
+        ref = short_attention_packed_reference(
+            q, k, v, num_heads, kv_lens, scale, bounded, return_lse=want_lse
         )
-    out = _strided_forward(*_head_views(num_heads, q, k, v), kv_lens, scale,
-                           bounded, short_attention_packed)
-    return out.view(q.shape)
+        return ref if want_lse else (ref, None)
+    out, lse = _strided_forward(*_head_views(num_heads, q, k, v), kv_lens,
+                                scale, bounded, want_lse, short_attention_packed)
+    return out.view(q.shape), lse
 
 
-def short_attention_packed_bwd(q, k, v, do, num_heads, kv_lens=None,
+def short_attention_packed_with_lse(q, k, v, num_heads, kv_lens=None,
+                                    scale=None, bounded=False):
+    """The forward of :func:`short_attention_packed` with its (B, H, Sq)
+    fp32 row log-sum-exp, for an explicit :func:`short_attention_packed_bwd`
+    (not differentiable; launches count as the forward's)."""
+    return _forward(q, k, v, num_heads, kv_lens, scale, bounded, True)
+
+
+def short_attention_packed_bwd(q, k, v, lse, do, num_heads, kv_lens=None,
                                scale=None, bounded=False):
     """(dq, dk, dv) of :func:`short_attention_packed` for the output
-    cotangent ``do``. Launches the CUDA backward (its dq and dk/dv kernels)
-    for a CUDA tensor and raises if it cannot; a CPU tensor gets the plain
-    version."""
+    cotangent ``do``, from the forward's ``lse``. Launches the CUDA backward
+    (its dq and dk/dv kernels) for a CUDA tensor and raises if it cannot; a
+    CPU tensor gets the plain version."""
     if not _wants_kernel(q):
         return short_attention_packed_bwd_reference(
-            q, k, v, do, num_heads, kv_lens, scale, bounded
+            q, k, v, lse, do, num_heads, kv_lens, scale, bounded
         )
-    grads = _strided_backward(*_head_views(num_heads, q, k, v, do), kv_lens,
-                              scale, bounded, short_attention_packed_bwd)
+    grads = _strided_backward(*_head_views(num_heads, q, k, v, do), lse,
+                              kv_lens, scale, bounded, short_attention_packed_bwd)
     return tuple(g.view(x.shape) for g, x in zip(grads, (q, k, v)))
 
 
 class _PackedAttention(torch.autograd.Function):
-    """The JAX package's ``custom_vjp``: the forward saves (q, k, v,
-    kv_lens); the backward recomputes the probabilities."""
+    """The JAX package's ``custom_vjp``: when a gradient will be needed the
+    forward also writes the row log-sum-exp and saves (q, k, v, kv_lens,
+    lse); the backward recomputes the probabilities."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, kv_lens, scale, bounded):
-        ctx.save_for_backward(q, k, v, kv_lens)
+        needs_grad = any(ctx.needs_input_grad[:3])
+        out, lse = _forward(q, k, v, num_heads, kv_lens, scale, bounded,
+                            needs_grad and _lse_used(q))
+        if needs_grad:
+            ctx.save_for_backward(q, k, v, kv_lens, lse)
         ctx.args = (num_heads, scale, bounded)
-        return _forward(q, k, v, num_heads, kv_lens, scale, bounded)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, kv_lens = ctx.saved_tensors
+        q, k, v, kv_lens, lse = ctx.saved_tensors
         num_heads, scale, bounded = ctx.args
         dq, dk, dv = short_attention_packed_bwd(
-            q, k, v, dout, num_heads, kv_lens, scale, bounded
+            q, k, v, lse, dout, num_heads, kv_lens, scale, bounded
         )
         return dq, dk, dv, None, None, None, None
 
@@ -248,49 +297,62 @@ short_attention_packed_bwd.launches = 0
 # view), and the kernels read it through its (batch, row, head) strides.
 
 
-def short_attention_reference(q, k, v, kv_lens=None, scale=None):
+def _packed(x):
+    """(B, S, H*D) of a (B, S, H, D) tensor."""
+    return x.reshape(x.shape[0], x.shape[1], x.shape[2] * x.shape[3])
+
+
+def short_attention_reference(q, k, v, kv_lens=None, scale=None,
+                              return_lse=False):
     """Plain PyTorch version of the ``short`` forward on (B, S, H, D): the
     unbounded case of :func:`short_attention_packed_reference` (max-subtracted
     exp2 softmax, weights rounded to v's dtype before the PV product, fp32
-    accumulation)."""
-    batch, sq, heads, dim = q.shape
-    out = short_attention_packed_reference(
-        *(x.reshape(x.shape[0], x.shape[1], heads * dim) for x in (q, k, v)),
-        heads, kv_lens, scale, bounded=False,
+    accumulation), with its (B, H, Sq) lse when ``return_lse``."""
+    res = short_attention_packed_reference(
+        _packed(q), _packed(k), _packed(v), q.shape[2], kv_lens, scale,
+        bounded=False, return_lse=return_lse,
     )
-    return out.reshape(batch, sq, heads, dim)
+    out = res[0] if return_lse else res
+    out = out.reshape(q.shape)
+    return (out, res[1]) if return_lse else out
 
 
-def short_attention_bwd_reference(q, k, v, do, kv_lens=None, scale=None):
-    """Plain PyTorch version of the ``short`` backward on (B, S, H, D):
-    (dq, dk, dv) in q's dtype, ``do`` cast to q's dtype first."""
-    heads, dim = q.shape[2], q.shape[3]
+def short_attention_bwd_reference(q, k, v, lse, do, kv_lens=None, scale=None):
+    """Plain PyTorch version of the ``short`` backward on (B, S, H, D), from
+    the forward's ``lse``: (dq, dk, dv) in q's dtype, ``do`` cast to q's
+    dtype first."""
     grads = short_attention_packed_bwd_reference(
-        *(x.reshape(x.shape[0], x.shape[1], heads * dim) for x in (q, k, v, do)),
-        heads, kv_lens, scale, bounded=False,
+        _packed(q), _packed(k), _packed(v), lse, _packed(do), q.shape[2],
+        kv_lens, scale, bounded=False,
     )
     return tuple(g.reshape(x.shape) for g, x in zip(grads, (q, k, v)))
 
 
-def short_attention_bhsd_reference(q, k, v, kv_lens=None, scale=None):
+def short_attention_bhsd_reference(q, k, v, kv_lens=None, scale=None,
+                                   return_lse=False):
     """:func:`short_attention_reference` on (B, H, S, D)."""
-    out = short_attention_reference(*(x.transpose(1, 2) for x in (q, k, v)),
-                                    kv_lens, scale)
-    return out.transpose(1, 2)
+    res = short_attention_reference(*(x.transpose(1, 2) for x in (q, k, v)),
+                                    kv_lens, scale, return_lse)
+    if return_lse:
+        return res[0].transpose(1, 2), res[1]
+    return res.transpose(1, 2)
 
 
-def short_attention_bhsd_bwd_reference(q, k, v, do, kv_lens=None, scale=None):
+def short_attention_bhsd_bwd_reference(q, k, v, lse, do, kv_lens=None,
+                                       scale=None):
     """:func:`short_attention_bwd_reference` on (B, H, S, D)."""
     grads = short_attention_bwd_reference(
-        *(x.transpose(1, 2) for x in (q, k, v, do)), kv_lens, scale)
+        *(x.transpose(1, 2) for x in (q, k, v)), lse, do.transpose(1, 2),
+        kv_lens, scale)
     return tuple(g.transpose(1, 2) for g in grads)
 
 
 def _check_strided(q, *others):
     """Raise on what the strided kernels do not take: (B, S, H, D) views of
-    one dtype (bfloat16 or float32) and device, D 64 or 128, the others with
-    q's batch, heads and D, each with a contiguous last dimension and 16-byte
-    (bf16) or 4-byte (fp32) aligned pointer and strides."""
+    one dtype (bfloat16, float16 or float32) and device, D 64 or 128, the
+    others with q's batch, heads and D, each with a contiguous last dimension
+    and 16-byte (16-bit types) or 4-byte (fp32) aligned pointer and
+    strides."""
     tensors = (q, *others)
     if any(x.dim() != 4 for x in tensors):
         raise ValueError("q, k, v must be 4-D")
@@ -301,7 +363,7 @@ def _check_strided(q, *others):
     if q.dtype not in _DTYPE_CODES or any(x.dtype != q.dtype for x in others):
         raise ValueError(
             f"dtypes {[x.dtype for x in tensors]}: the kernel takes one of "
-            "bfloat16, float32 for all"
+            "bfloat16, float16, float32 for all"
         )
     if q.shape[3] not in (64, 128):
         raise ValueError(f"head dim {q.shape[3]}: the kernel takes 64 or 128")
@@ -310,14 +372,15 @@ def _check_strided(q, *others):
     if not all(_aligned(x) for x in tensors):
         raise ValueError(
             "the last dimension must be contiguous, and pointer and strides "
-            "16-byte (bf16) or 4-byte (fp32) aligned"
+            "16-byte (bf16, fp16) or 4-byte (fp32) aligned"
         )
 
 
 def _aligned(x):
     """A contiguous last dimension, and the pointer and the other strides
-    aligned for the kernels' vector loads: 16 bytes for bf16, 4 for fp32."""
-    align = 16 if x.dtype == torch.bfloat16 else 4
+    aligned for the kernels' vector loads: 16 bytes for bf16 and fp16, 4 for
+    fp32."""
+    align = 16 if x.element_size() == 2 else 4
     size = x.element_size()
     return (x.stride(3) == 1 and x.data_ptr() % align == 0
             and all((x.stride(i) * size) % align == 0 for i in range(3)))
@@ -328,9 +391,10 @@ def _strides(*tensors):
     return [n for x in tensors for n in x.stride()[:3]]
 
 
-def _strided_forward(q, k, v, kv_lens, scale, bounded, counter):
-    """Launch the forward kernel (#1, #3 or #5) on BSHD views; ``counter``
-    is the entry whose launches it counts."""
+def _strided_forward(q, k, v, kv_lens, scale, bounded, want_lse, counter):
+    """Launch the forward kernel (#1, #3 or #5) on BSHD views: (out, lse),
+    lse (B, H, Sq) fp32 when ``want_lse``, else None; ``counter`` is the
+    entry whose launches it counts."""
     if k.shape != v.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     _check_strided(q, k, v)
@@ -340,11 +404,14 @@ def _strided_forward(q, k, v, kv_lens, scale, bounded, counter):
         scale = dim**-0.5
     # an output with q's layout: BSHD, or the BSHD view of BHSD memory
     out = torch.empty_like(q)
+    lse = (torch.empty((batch, heads, sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     if batch == 0 or sq == 0:
-        return out
+        return out, lse
     lens = _device_lens(kv_lens, q.device)
     rc = _kernel_fn("fwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lens),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
+        _ptr(lens),
         batch, sq, sk, heads, dim, *_strides(q, k, v, out), float(scale),
         int(bool(bounded)), _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -352,12 +419,13 @@ def _strided_forward(q, k, v, kv_lens, scale, bounded, counter):
     if rc != 0:
         raise RuntimeError(f"{counter.__name__} kernel launch failed: {rc}")
     counter.launches += 1
-    return out
+    return out, lse
 
 
-def _strided_backward(q, k, v, do, kv_lens, scale, bounded, counter):
-    """Launch the backward kernels (#2, #4 or #6) on BSHD views; returns
-    (dq, dk, dv) with the layouts of q, k, v."""
+def _strided_backward(q, k, v, do, lse, kv_lens, scale, bounded, counter):
+    """Launch the backward kernels (#2, #4 or #6) on BSHD views, from the
+    forward's (B, H, Sq) ``lse``; returns (dq, dk, dv) with the layouts of
+    q, k, v."""
     if do.dtype != q.dtype:
         do = do.to(q.dtype)
     if k.shape != v.shape or do.shape != q.shape:
@@ -372,6 +440,13 @@ def _strided_backward(q, k, v, do, kv_lens, scale, bounded, counter):
     sk = k.shape[1]
     if scale is None:
         scale = dim**-0.5
+    if not _lse_used(q):
+        lse = None
+    elif (lse is None or tuple(lse.shape) != (batch, heads, sq)
+          or lse.dtype != torch.float32 or lse.device != q.device):
+        raise ValueError(f"lse must be fp32 {(batch, heads, sq)} on {q.device}")
+    else:
+        lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if batch == 0 or sq == 0 or sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -380,8 +455,9 @@ def _strided_backward(q, k, v, do, kv_lens, scale, bounded, counter):
     strides = array.array("q", _strides(q, k, v, do, dq, dk, dv))  # int64
     rc = _kernel_fn("bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-        _ptr(lens), batch, sq, sk, heads, dim, strides.buffer_info()[0],
+        _ptr(lse), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stats.data_ptr(), _ptr(lens), batch, sq, sk, heads, dim,
+        strides.buffer_info()[0],
         float(scale), int(bool(bounded)), _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -391,59 +467,81 @@ def _strided_backward(q, k, v, do, kv_lens, scale, bounded, counter):
     return dq, dk, dv
 
 
-def short_attention_bwd(q, k, v, do, kv_lens=None, scale=None):
+def short_attention_bwd(q, k, v, lse, do, kv_lens=None, scale=None):
     """(dq, dk, dv) of :func:`short_attention` on (B, S, H, D) for the output
-    cotangent ``do``. Launches the CUDA backward (kernel #4) for a CUDA tensor
-    and raises if it cannot; a CPU tensor gets the plain version."""
+    cotangent ``do``, from the forward's (B, H, Sq) ``lse``. Launches the
+    CUDA backward (kernel #4) for a CUDA tensor and raises if it cannot; a
+    CPU tensor gets the plain version."""
     if not _wants_kernel(q):
-        return short_attention_bwd_reference(q, k, v, do, kv_lens, scale)
-    return _strided_backward(q, k, v, do, kv_lens, scale, False,
+        return short_attention_bwd_reference(q, k, v, lse, do, kv_lens, scale)
+    return _strided_backward(q, k, v, do, lse, kv_lens, scale, False,
                              short_attention_bwd)
 
 
-def short_attention_bhsd_bwd(q, k, v, do, kv_lens=None, scale=None):
+def short_attention_bhsd_bwd(q, k, v, lse, do, kv_lens=None, scale=None):
     """(dq, dk, dv) of :func:`short_attention_bhsd` on (B, H, S, D): kernel
     #6 for a CUDA tensor (raises if it cannot), the plain version for a CPU
     tensor."""
     if not _wants_kernel(q):
-        return short_attention_bhsd_bwd_reference(q, k, v, do, kv_lens, scale)
-    grads = _strided_backward(*(x.transpose(1, 2) for x in (q, k, v, do)),
-                              kv_lens, scale, False, short_attention_bhsd_bwd)
+        return short_attention_bhsd_bwd_reference(q, k, v, lse, do, kv_lens,
+                                                  scale)
+    q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
+    grads = _strided_backward(q, k, v, do, lse, kv_lens, scale, False,
+                              short_attention_bhsd_bwd)
     return tuple(g.transpose(1, 2) for g in grads)
 
 
-def _short_forward(q, k, v, kv_lens, scale):
+def _short_forward(q, k, v, kv_lens, scale, want_lse, bhsd):
+    """(out, lse) of the ``short`` forward on (B, S, H, D), or on (B, H, S,
+    D) when ``bhsd``; lse None unless ``want_lse``."""
     if not _wants_kernel(q):
-        return short_attention_reference(q, k, v, kv_lens, scale)
-    return _strided_forward(q, k, v, kv_lens, scale, False, short_attention)
+        reference = short_attention_bhsd_reference if bhsd else short_attention_reference
+        res = reference(q, k, v, kv_lens, scale, return_lse=want_lse)
+        return res if want_lse else (res, None)
+    if not bhsd:
+        return _strided_forward(q, k, v, kv_lens, scale, False, want_lse,
+                                short_attention)
+    out, lse = _strided_forward(*(x.transpose(1, 2) for x in (q, k, v)),
+                                kv_lens, scale, False, want_lse,
+                                short_attention_bhsd)
+    return out.transpose(1, 2), lse
 
 
-def _short_bhsd_forward(q, k, v, kv_lens, scale):
-    if not _wants_kernel(q):
-        return short_attention_bhsd_reference(q, k, v, kv_lens, scale)
-    out = _strided_forward(*(x.transpose(1, 2) for x in (q, k, v)), kv_lens,
-                           scale, False, short_attention_bhsd)
-    return out.transpose(1, 2)
+def short_attention_with_lse(q, k, v, kv_lens=None, scale=None):
+    """The forward of :func:`short_attention` with its (B, H, Sq) fp32 row
+    log-sum-exp, for an explicit :func:`short_attention_bwd` (not
+    differentiable; launches count as the forward's)."""
+    return _short_forward(q, k, v, kv_lens, scale, True, False)
+
+
+def short_attention_bhsd_with_lse(q, k, v, kv_lens=None, scale=None):
+    """:func:`short_attention_with_lse` on (B, H, S, D), for an explicit
+    :func:`short_attention_bhsd_bwd`."""
+    return _short_forward(q, k, v, kv_lens, scale, True, True)
 
 
 class _ShortAttention(torch.autograd.Function):
     """The JAX package's ``custom_vjp`` of ``short_attention`` /
-    ``short_attention_bhsd``: the forward saves (q, k, v, kv_lens); the
+    ``short_attention_bhsd``: when a gradient will be needed the forward
+    also writes the row log-sum-exp and saves (q, k, v, kv_lens, lse); the
     backward recomputes the probabilities."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lens, scale, bhsd):
-        ctx.save_for_backward(q, k, v, kv_lens)
+        needs_grad = any(ctx.needs_input_grad[:3])
+        out, lse = _short_forward(q, k, v, kv_lens, scale,
+                                  needs_grad and _lse_used(q), bhsd)
+        if needs_grad:
+            ctx.save_for_backward(q, k, v, kv_lens, lse)
         ctx.args = (scale, bhsd)
-        forward = _short_bhsd_forward if bhsd else _short_forward
-        return forward(q, k, v, kv_lens, scale)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, kv_lens = ctx.saved_tensors
+        q, k, v, kv_lens, lse = ctx.saved_tensors
         scale, bhsd = ctx.args
         backward = short_attention_bhsd_bwd if bhsd else short_attention_bwd
-        dq, dk, dv = backward(q, k, v, dout, kv_lens, scale)
+        dq, dk, dv = backward(q, k, v, lse, dout, kv_lens, scale)
         return dq, dk, dv, None, None, None
 
 

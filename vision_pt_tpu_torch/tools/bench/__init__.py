@@ -9,11 +9,17 @@ from __future__ import annotations
 
 import ctypes
 import subprocess
-from typing import Callable
 
 import torch
 
 from ...ops import _build
+from .timing import (  # noqa: F401  (the probes' and chip_smoke's timing)
+    cuda_ms,
+    device_timing,
+    event_ms,
+    launches_of_timing,
+)
+
 
 def probe_kernel(entry: str, argtypes: list):
     """The C entry ``entry`` of ``csrc/attention_probe.cu``, built and bound
@@ -23,28 +29,6 @@ def probe_kernel(entry: str, argtypes: list):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
-
-
-def cuda_ms(fn: Callable[[], object], iters: int, warmup: int = 3) -> float:
-    """Mean device ms per call over ``iters`` back-to-back calls of ``fn`` on
-    the current stream (each waits for the one before), timed with CUDA
-    events after ``warmup`` calls. The one timing convention of the probes
-    and ``chip_smoke.py``."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def launches_of_timing(iters: int, warmup: int = 3) -> int:
-    """Kernel launches :func:`cuda_ms` makes of a ``fn`` that launches one."""
-    return warmup + iters
 
 
 def card() -> dict:

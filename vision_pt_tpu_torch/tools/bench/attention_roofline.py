@@ -125,8 +125,8 @@ def main(steps: int = 15) -> dict:
     of section 1 (3 windows)."""
     from ...models.jit import denoiser as dn_mod
     from ...ops.short_attention import (
-        short_attention_packed,
         short_attention_packed_bwd,
+        short_attention_packed_with_lse,
     )
 
     out = card()
@@ -151,8 +151,8 @@ def main(steps: int = 15) -> dict:
     q = torch.randn(B, S, E, generator=gen, device="cuda").to(bf16)
 
     def layer():
-        o = short_attention_packed(q, q, q, H, bounded=True)
-        return short_attention_packed_bwd(q, q, q, o, H, bounded=True)
+        o, lse = short_attention_packed_with_lse(q, q, q, H, bounded=True)
+        return short_attention_packed_bwd(q, q, q, lse, o, H, bounded=True)
 
     layer_ms = cuda_ms(layer, N_LAYERS)
     out["kernel_fwdbwd_ms_per_layer"] = layer_ms
