@@ -16,7 +16,9 @@ without a result line:
    the paths from the sources in ``vision_pt_tpu_torch/csrc`` (one ``nvcc``
    per source, started together), with the ptxas register and spill report;
 2. kernel: each kernel against its plain PyTorch version, on the card, at the
-   paths' shapes and at edge shapes, in bf16, fp16 and fp32. Every element
+   paths' shapes and at edge shapes (for the attention kernels the edges of
+   their key tiles too: S 129, 257, 1025 and 1153, Sq 200 with Sk 320), in
+   bf16, fp16 and fp32. Every element
    must lie within tol * (RMS(ref) + |ref|), tol 2e-2 for bf16, 5e-3 for
    fp16 (attention) and 1e-4 for fp32, and the forwards' LSE within 1e-4
    absolute; a kv_len 0 row must be exactly 0, and so must the key-gradient
@@ -180,7 +182,8 @@ TRAIN_PARITY_FLOOR = {"float32": {"loss": 1e-4, "grad": 1e-3},
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the port's own kernels among a profile's device kernels
 PORT_KERNEL = re.compile(
-    r"attn_fwd_|(packed|flash)_bwd_(dq|dkdv)_|nf4_matmul|(pairing|dots)_probe_")
+    r"attn_(fwd|bwd_dq|bwd_dkdv)_|(packed|flash)_bwd_(dq|dkdv)_|nf4_matmul|"
+    r"(pairing|dots)_probe_")
 SOURCES = ("short_attention", "short_attention_bwd", "flash_attention",
            "flash_attention_bwd", "nf4_matmul", "attention_probe")
 LATENT_BATCH, LATENT_SIDE, LATENT_ITEMS = 16, 128, 64
@@ -314,6 +317,7 @@ def phase_kernel() -> dict:
         ("s330_kv_unbounded", 16, 330, 330, 12, 64, bf16, False, "range"),
         ("sq266_sk330", 16, 266, 330, 12, 64, bf16, True, "range"),
         ("d128", 4, 266, 266, 6, 128, bf16, False, "range"),
+        ("s129", 4, 129, 129, 12, 64, bf16, False, [128, 0, 129, 64]),
         ("s266_fp32", 16, 266, 266, 12, 64, f32, True, None),
         ("d128_fp32", 4, 266, 330, 6, 128, f32, False, "range"),
         ("train_s298_fp16", 64, 298, 298, 12, 64, f16, True, None),
@@ -425,6 +429,17 @@ FLASH_CASES = [
     ("fp32_d128_causal", 2, 700, 700, 2, 128, torch.float32, True, [700, 333]),
     ("fp16_s1000_kv", 2, 1000, 1000, 12, 64, torch.float16, False, [777, 0]),
     ("fp16_d128_causal", 2, 700, 700, 2, 128, torch.float16, True, [700, 333]),
+    # the edges of the key tiles (64 keys below Sk 1024, 128 from it on at
+    # D 64): one key past a tile, causal with kv_len one past a tile, Sq !=
+    # Sk at D 128 with a zero row
+    *((f"{tag}_{label}", batch, sq, sk, heads, dim, dtype, causal, lens)
+      for tag, dtype in (("bf16", torch.bfloat16), ("fp16", torch.float16))
+      for label, batch, sq, sk, heads, dim, causal, lens in (
+          ("s129", 1, 129, 129, 1, 64, False, [128]),
+          ("s257_causal", 2, 257, 257, 2, 64, True, [257, 129]),
+          ("sq200_sk320_d128", 2, 200, 320, 1, 128, False, [255, 0]),
+          ("s1025", 2, 1025, 1025, 2, 64, False, [1025, 1024]),
+          ("s1153_causal", 2, 1153, 1153, 2, 64, True, [1153, 1025]))),
 ]
 
 
@@ -563,13 +578,15 @@ def phase_flash_kernel() -> dict:
 
 def _time_kernel(name, fn, plain, library, nbytes, flops, dtype, replaces,
                  source, shape, library_name, plain_chunk=None, iters=50,
-                 phase="timing"):
+                 phase="timing", executed_flops=None):
     """One row of the kernels line. Every time is of the same inputs: the
     kernel's and the library call's are device time (the median of 5
     windows of ``iters`` calls, with the fastest and slowest window,
     ``device_timing``), the plain version's one event window, host time
     included; ``plain_chunk`` notes that the plain version went over the
-    batch in chunks of that many rows, one call each."""
+    batch in chunks of that many rows, one call each. ``executed_flops``,
+    the products the kernel's design runs, adds their rate to the phase
+    line (not to the row)."""
     kernel = device_timing(fn, iters)
     plain_ms = event_ms(plain, 3 if plain_chunk else 5, warmup=1 if plain_chunk else 3)
     library = device_timing(library, iters)
@@ -583,8 +600,11 @@ def _time_kernel(name, fn, plain, library, nbytes, flops, dtype, replaces,
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=library.median, library_ms_range=[library.low, library.high],
     )
+    executed = {} if executed_flops is None else dict(
+        executed_flops=executed_flops,
+        executed_tflops=executed_flops / (kernel.median * 1e-3) / 1e12)
     emit(phase, shape=shape, dtype=str(dtype), bytes=nbytes, flops=flops,
-         library=library_name, **row,
+         library=library_name, **row, **executed,
          ms_by_kernel={k[:80]: v for k, v in kernel.by_kernel.items()})
     return row
 
@@ -655,6 +675,10 @@ def phase_timing() -> dict:
     return rows
 
 
+# (S, S, D) products that kernel #8 runs: s and dp in both of its launches,
+# then dq; dv and dk (the function needs 5)
+FLASH_BWD_PRODUCTS = 7
+
 # kernel #7's timed forward shapes (D 64, bf16, no kv_lens): the latent
 # trainer's, where kernel #8 is timed too, and the SDXL sampler's two
 # self-attentions at 1024^2 (B 2 with CFG)
@@ -701,7 +725,7 @@ def phase_flash_timing() -> dict:
                 4 * size + lse_bytes, 2 * product, dtype,
                 "vision_pt_tpu/ops/flash_attention.py:115",
                 "vision_pt_tpu_torch/csrc/flash_attention.cu", shape, library,
-                plain_chunk=plain_chunk, iters=20,
+                plain_chunk=plain_chunk, iters=20, executed_flops=2 * product,
             )
             if label == "latent":
                 leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
@@ -716,7 +740,7 @@ def phase_flash_timing() -> dict:
                     "vision_pt_tpu/ops/flash_attention.py:325",
                     "vision_pt_tpu_torch/csrc/flash_attention_bwd.cu", shape,
                     "torch.autograd.grad of " + library, plain_chunk=plain_chunk,
-                    iters=20,
+                    iters=20, executed_flops=FLASH_BWD_PRODUCTS * product,
                 )
                 del leaves, sdpa_out
         del q, k, v, do, out, lse, chunks, qh, kh, vh, doh

@@ -35,6 +35,9 @@ CASES = [
     (2, 100, 100, 2, 64, [100, 61], True),  # causal with kv_lens
     (2, 64, 192, 1, 128, [150, 0], False),  # Sq != Sk, D = 128
     (2, 100, 64, 1, 64, [64, 40], False),  # Sq > Sk
+    (1, 129, 129, 1, 64, [128], False),  # one key past a 128-key tile
+    (2, 257, 257, 2, 64, [257, 129], True),  # causal, kv_len one past a tile
+    (2, 200, 320, 1, 128, [255, 0], False),  # Sq != Sk, D = 128, a zero row
 ]
 
 

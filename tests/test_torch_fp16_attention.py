@@ -40,6 +40,9 @@ FLASH_CASES = [
     (2, 100, 100, 1, 64, [100, 37], False),  # ragged S
     (2, 100, 100, 2, 64, [100, 61], True),  # causal with kv_lens
     (2, 64, 192, 1, 128, [150, 0], False),  # Sq != Sk, D = 128, a kv_len of 0
+    (1, 129, 129, 1, 64, [128], False),  # one key past a 128-key tile
+    (2, 257, 257, 2, 64, [257, 129], True),  # causal, kv_len one past a tile
+    (2, 200, 320, 1, 128, [255, 0], False),  # Sq != Sk, D = 128, a zero row
 ]
 
 

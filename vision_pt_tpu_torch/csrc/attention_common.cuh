@@ -1,12 +1,12 @@
-// Helpers shared by the attention kernels (the forward of both, in
-// attention_fwd.cuh; the backwards short_attention_bwd.cu and
-// flash_attention_bwd.cu) and the NF4 kernel: constants of the softmax, the
-// mma.sync product of 16-bit operands (bf16 or fp16, T below) and its
-// fragment packing, tile loads of one head (or of the same rows of two) into
-// padded shared memory, the two warp-level products of a 16-row slice, and a
-// launch that raises the dynamic shared-memory limit first. Loads and stores
-// move 16-bit patterns; only the mma instruction and the rounding of fp32
-// values tell bf16 and fp16 apart.
+// Helpers shared by the attention kernels (the forwards of attention_fwd.cuh,
+// the backwards of attention_bwd.cuh, short_attention_bwd.cu and
+// flash_attention_bwd.cu, the probes of attention_probe.cu) and the NF4
+// kernel: constants of the softmax, the mma.sync product of 16-bit operands
+// (bf16 or fp16, T below) and its fragment packing, tile loads of the same
+// rows of two heads into padded shared memory, the two warp-level products
+// of a 16-row slice, and a launch that raises the dynamic shared-memory
+// limit first. Loads and stores move 16-bit patterns; only the mma
+// instruction and the rounding of fp32 values tell bf16 and fp16 apart.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
@@ -112,25 +112,9 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
       : "r"(addr));
 }
 
-// rows [r0, r0 + rows) of a (S, D) head slice with row stride `stride` ->
-// shared memory with row stride D + 8; rows at or past `limit` are zeros
-template <int D, typename T>
-__device__ __forceinline__ void load_rows16(T* dst, const T* src,
-                                            long long stride, int r0,
-                                            int rows, int limit) {
-  constexpr int LD = D + 8, CH = D / 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
-    const int r = i / CH, c = i % CH;
-    uint4 val = zero;
-    if (r0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
-}
-
-// load_rows16 for the same rows of two head slices, a and b: a load of
-// each in flight per thread, where two calls would wait on one at a time
+// rows [r0, r0 + rows) of two (S, D) head slices, a and b, with row strides
+// `stride_a` and `stride_b` -> shared memory with row stride D + 8; rows at
+// or past `limit` are zeros; a load of each in flight per thread
 template <int D, typename T>
 __device__ __forceinline__ void load_rows2_16(
     T* dst_a, T* dst_b, const T* src_a, const T* src_b, long long stride_a,
@@ -211,25 +195,6 @@ __device__ __forceinline__ void warp_fx(float out[D / 8][4],
       mma_16816<T>(out[dn], fa, b[0], b[1]);
       mma_16816<T>(out[dn + 1], fa, b[2], b[3]);
     }
-  }
-}
-
-// writes rows row0 and row0 + 8 of a (16 x D) fragment accumulator, times
-// `mul`, to a (S, D) head slice, below `limit`
-template <int D, typename T>
-__device__ __forceinline__ void store_rows16(T* dst, long long stride,
-                                             const float acc[D / 8][4],
-                                             int row0, int limit, float mul,
-                                             int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= limit) continue;
-    T* out = dst + row * stride + 2 * t;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(out + dn * 8) =
-          pack2<T>(acc[dn][2 * r] * mul, acc[dn][2 * r + 1] * mul);
   }
 }
 

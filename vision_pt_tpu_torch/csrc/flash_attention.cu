@@ -23,27 +23,28 @@
 //          -> / 3.35 TB/s = 0.12 ms
 // so the kernel is bound by the tensor cores, at about 0.86 ms per call.
 //
-// Design (simple first). The TPU kernel runs 1024 x 1024 blocks with a
-// sequential key axis and VMEM scratch; a block on Hopper has 227 KB of
-// shared memory and blocks run in no order. So the forward of
-// attention_fwd.cuh, which short_attention.cu shares, gives one thread block
-// (64 query rows, head, batch) the whole key loop: K and V stream through
-// shared memory in 64-key tiles up to kv_len (tiles wholly past kv_len, or
-// wholly above the diagonal when causal, are never loaded), QK^T and PV run
-// in mma.sync bf16 fragments with the online max and sum in registers, and
-// the LSE is written beside o. fp16 inputs take the bf16 kernel's template
-// with fp16 fragments (mma.sync ...f32.f16.f16.f32). 12,672 blocks at the training shape keep every
-// SM busy. fp32 inputs take a scalar FMA kernel (one thread per query row).
-// wgmma, TMA and pipelining of the tile loads are left for later work.
+// Design. The TPU kernel runs 1024 x 1024 blocks with a sequential key axis
+// and VMEM scratch; a block on Hopper has 227 KB of shared memory and blocks
+// run in no order. So the forward of attention_fwd.cuh, which
+// short_attention.cu shares, gives each warpgroup 64 query rows of one
+// (head, batch) and the whole key loop: Q stays in a swizzled shared-memory
+// tile, K and V stream through a TMA ring (tiles wholly past kv_len, or
+// wholly above the diagonal when causal, are never loaded), s = Q K^T
+// and o += P V run as wgmma with the online max and sum in registers, and
+// the LSE is written beside o. From Sk 1024 on (the latent trainer, SDXL's
+// self-attentions) the key tiles are kFwdKeysLong wide. fp16 inputs take
+// the bf16 kernel's template; fp32 inputs a scalar FMA kernel (one thread
+// per query row).
 
 #include "attention_fwd.cuh"
 
 using namespace vpt;
 
-// dtype: 0 = bf16, 1 = fp32, 2 = fp16. Strides are in elements, (batch, row, head) for
-// each of q, k, v, o; the last dimension of every tensor is contiguous.
-// Returns 0, a cudaError_t code, or -1 for a head_dim/dtype pair this file has
-// no kernel for.
+// dtype: 0 = bf16, 1 = fp32, 2 = fp16. Strides are in elements, (batch, row,
+// head) for each of q, k, v, o; the last dimension of every tensor is
+// contiguous. Returns 0, a cudaError_t (or, for a refused tensor map,
+// CUresult) code, or -1 for a head_dim/dtype pair this file has no kernel
+// for.
 extern "C" int vpt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
     const int* kv_lens, int batch, int sq, int sk, int heads, int head_dim,

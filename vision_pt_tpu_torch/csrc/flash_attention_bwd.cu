@@ -13,10 +13,10 @@
 //   ds    = T(p * (dp - delta) * scale)
 //   dq    = ds k,   dk = ds^T q
 //
-// with T the inputs' type, bf16 or fp16 (one template, mma.sync fragments of
-// T with fp32 accumulation); outputs in T. fp32 inputs keep fp32 throughout. Key rows at
-// or past kv_len get exactly zero dk, dv; a kv_len 0 batch row gets zero
-// gradients everywhere.
+// with T the inputs' type, bf16 or fp16 (one template, fp32 accumulation);
+// outputs in T. fp32 inputs keep fp32 throughout. Key rows at or past kv_len
+// get exactly zero dk, dv; a kv_len 0 batch row gets zero gradients
+// everywhere.
 //
 // Bound at the latent JiT 1024^2 training shape (B = 16, S = 4170, H = 12,
 // D = 64, bf16, kv_lens near S), on an H100 SXM:
@@ -26,228 +26,31 @@
 //          = 0.82 GB -> / 3.35 TB/s = 0.25 ms
 // so the backward is bound by the tensor cores, at about 2.2 ms per call.
 //
-// Design (simple first): the two launches that kernel #2
-// (short_attention_bwd.cu) proved, deterministic, no atomics. The TPU
-// kernels carry dq (and dk/dv) across a sequential grid axis in VMEM; blocks
-// on Hopper run in no order, and dk/dv contract over query rows, so:
-//   1. dq kernel, one block per (64 query rows, head, batch): its prologue
-//      takes delta from do and o and writes it to an fp32 (B, H, Sq) scratch;
-//      then it streams K/V tiles up to kv_len (the diagonal when causal),
-//      recomputes p from the forward's LSE and accumulates dq = ds k in
-//      mma.sync fragments.
-//   2. dk/dv kernel, one block per (64 key rows, head, batch), after it on the
-//      same stream: K/V rows stay in shared memory, it loops over query tiles
-//      (from the diagonal when causal) and computes the scores transposed
-//      (s^T = k q^T), so key rows are the fragment rows and p^T, ds^T feed the
-//      dv and dk products straight from registers. A key tile wholly past
-//      kv_len writes zeros and stops.
-// B operands stored (k, n) row major come in through ldmatrix.trans. fp32
-// inputs take scalar FMA kernels. wgmma, TMA and pipelining are left for
-// later work.
+// Design. The 16-bit kernels are the pair of attention_bwd.cuh, which #2
+// shares (two launches, deterministic, no atomics; wgmma over TMA rings,
+// the next tile's copy in flight during this tile's products), with
+// delta = rowsum(do * o) taken by the dq kernel from the stored o before its
+// one sweep over the key tiles, and causal as a template parameter: the dq
+// kernel stops its key loop at the diagonal, the dk/dv kernel starts its
+// query loop there. The TPU kernels carry dq (and dk/dv) across a sequential
+// grid axis in VMEM; blocks on Hopper run in no order, and dk/dv contract
+// over query rows, hence the two launches and 7 executed (S, S, D) products
+// (s and dp in both kernels) where the function needs 5. fp32 inputs take
+// scalar FMA kernels.
 
-#include "attention_common.cuh"
+#include "attention_bwd.cuh"
 
 using namespace vpt;
 
 namespace {
 
-constexpr int kRows = 64;     // query rows (dq kernel) / key rows (dk/dv) per block
+constexpr int kRows = 64;     // query / key rows of an fp32 block
 constexpr int kTileF32 = 16;  // inner-loop rows per shared-memory tile, fp32
 constexpr int kColsF32 = 32;  // columns of a row each thread holds, fp32
-
-struct BwdParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;
-  const void* dout;
-  const float* lse;    // (B, H, Sq), natural log
-  void* dq;
-  void* dk;
-  void* dv;
-  float* delta;        // (B, H, Sq) scratch, written by the dq kernel
-  const int* kv_lens;  // (B,) or null for "all Sk keys"
-  int heads, sq, sk;
-  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;  // elements
-  long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh;
-  long long dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
-  float scale;       // softmax scale
-  float scale_log2;  // scale * log2(e)
-  int causal;
-};
 
 __device__ __forceinline__ bool valid_pair(const BwdParams& p, int kv, int key,
                                            int row) {
   return key < kv && row < p.sq && (!p.causal || key <= row);
-}
-
-__device__ __forceinline__ long long stat_offset(const BwdParams& p, int b,
-                                                 int h) {
-  return ((long long)b * p.heads + h) * p.sq;
-}
-
-// ------------------------------------------------------- bf16, fp16 / mma
-
-template <typename T, int D, int KT>
-__global__ void __launch_bounds__(128) flash_bwd_dq_mma(BwdParams p) {
-  constexpr int LD = D + 8, NT = KT / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);
-  T* dos = qs + kRows * LD;
-  T* ks = dos + kRows * LD;
-  T* vs = ks + KT * LD;
-  float* st_lse2 = reinterpret_cast<float*>(vs + KT * LD);
-  float* st_delta = st_lse2 + kRows;
-
-  const int q0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16 + g;
-  const int kv = clamped_len(p.kv_lens, b, p.sk);
-  const int kend = p.causal ? min(kv, q0 + kRows) : kv;
-
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* og = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const long long st = stat_offset(p, b, h);
-
-  load_rows2_16<D>(qs, dos, qg, dog, p.q_ss, p.do_ss, q0, kRows, p.sq);
-  __syncthreads();
-
-  // prologue: delta = sum_d do * o, two threads per row
-  {
-    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-    const int row = q0 + r;
-    float d = 0.f;
-    if (row < p.sq) {
-      const T* orow = og + row * p.o_ss + half * (D / 2);
-      const T* drow = dos + r * LD + half * (D / 2);
-#pragma unroll
-      for (int c = 0; c < D / 2; ++c)
-        d = fmaf(to_float(drow[c]), to_float(orow[c]), d);
-    }
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    if (half == 0) {
-      st_delta[r] = d;
-      st_lse2[r] = row < p.sq ? p.lse[st + row] * kLog2e : 0.f;
-      if (row < p.sq) p.delta[st + row] = d;
-    }
-  }
-  __syncthreads();
-  const float lse2[2] = {st_lse2[r0], st_lse2[r0 + 8]};
-  const float delta[2] = {st_delta[r0], st_delta[r0 + 8]};
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-  for (int k0 = 0; k0 < kend; k0 += KT) {
-    __syncthreads();
-    load_rows2_16<D>(ks, vs, kg, vg, p.k_ss, p.v_ss, k0, KT, kv);
-    __syncthreads();
-    float s[NT][4], dp[NT][4];
-    warp_abt<D, NT>(s, qs, ks, r0, g, t);
-    warp_abt<D, NT>(dp, dos, vs, r0, g, t);
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const float pr = valid_pair(p, kv, col, q0 + r0 + 8 * r)
-                             ? exp2f(s[j][e] * p.scale_log2 - lse2[r])
-                             : 0.f;
-        s[j][e] = pr * (dp[j][e] - delta[r]) * p.scale;  // ds
-      }
-    warp_fx<D, NT>(acc, s, ks, lane);
-  }
-  T* dqg = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-  store_rows16<D>(dqg, p.dq_ss, acc, q0 + r0, p.sq, 1.f, t);
-}
-
-template <typename T, int D, int QT>
-__global__ void __launch_bounds__(128) flash_bwd_dkdv_mma(BwdParams p) {
-  constexpr int LD = D + 8, NQ = QT / 8, CH = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);
-  T* vs = ks + kRows * LD;
-  T* qs = vs + kRows * LD;
-  T* dos = qs + QT * LD;
-  float* st_lse2 = reinterpret_cast<float*>(dos + QT * LD);
-  float* st_delta = st_lse2 + QT;
-
-  const int k0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16 + g;
-  const int kv = clamped_len(p.kv_lens, b, p.sk);
-
-  T* dkg = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  T* dvg = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
-  if (k0 >= kv) {  // every key of the tile is masked: zero grads
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    for (int i = threadIdx.x; i < kRows * CH; i += blockDim.x) {
-      const int row = k0 + i / CH, c = i % CH;
-      if (row >= p.sk) continue;
-      *reinterpret_cast<uint4*>(dkg + row * p.dk_ss + c * 8) = zero;
-      *reinterpret_cast<uint4*>(dvg + row * p.dv_ss + c * 8) = zero;
-    }
-    return;
-  }
-
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const long long st = stat_offset(p, b, h);
-
-  load_rows2_16<D>(ks, vs, kg, vg, p.k_ss, p.v_ss, k0, kRows, kv);
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
-
-  // causal: rows below k0 attend no key of this tile (k0 is a multiple of QT)
-  for (int q0 = p.causal ? k0 : 0; q0 < p.sq; q0 += QT) {
-    __syncthreads();
-    load_rows2_16<D>(qs, dos, qg, dog, p.q_ss, p.do_ss, q0, QT, p.sq);
-    for (int i = threadIdx.x; i < QT; i += blockDim.x) {
-      const bool in = q0 + i < p.sq;
-      st_lse2[i] = in ? p.lse[st + q0 + i] * kLog2e : 0.f;
-      st_delta[i] = in ? p.delta[st + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    float s[NQ][4], dp[NQ][4];  // s^T = k q^T, dp^T = v do^T
-    warp_abt<D, NQ>(s, ks, qs, r0, g, t);
-    warp_abt<D, NQ>(dp, vs, dos, r0, g, t);
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + r0 + 8 * (e >> 1);
-        const int qi = j * 8 + 2 * t + (e & 1);
-        const float pr = valid_pair(p, kv, key, q0 + qi)
-                             ? exp2f(s[j][e] * p.scale_log2 - st_lse2[qi])
-                             : 0.f;
-        s[j][e] = pr;                                          // p^T
-        dp[j][e] = pr * (dp[j][e] - st_delta[qi]) * p.scale;  // ds^T
-      }
-    warp_fx<D, NQ>(dv, s, dos, lane);
-    warp_fx<D, NQ>(dk, dp, qs, lane);
-  }
-  store_rows16<D>(dkg, p.dk_ss, dk, k0 + r0, p.sk, 1.f, t);
-  store_rows16<D>(dvg, p.dv_ss, dv, k0 + r0, p.sk, 1.f, t);
 }
 
 // ------------------------------------------------------------ fp32 / scalar
@@ -295,7 +98,7 @@ __global__ void __launch_bounds__(kRows * (D / kColsF32)) flash_bwd_dq_f32(BwdPa
   }
   delta = row_sum<P>(delta);
   const float lse2 = row < p.sq ? p.lse[st + row] * kLog2e : 0.f;
-  if (c0 == 0 && row < p.sq) p.delta[st + row] = delta;
+  if (c0 == 0 && row < p.sq) p.stats[st + row] = delta;
 
   float acc[kColsF32];
 #pragma unroll
@@ -383,7 +186,7 @@ __global__ void __launch_bounds__(kRows * (D / kColsF32)) flash_bwd_dkdv_f32(Bwd
     for (int i = tid; i < kTileF32; i += blockDim.x) {
       const bool in = q0 + i < p.sq;
       st_lse2[i] = in ? p.lse[st + q0 + i] * kLog2e : 0.f;
-      st_delta[i] = in ? p.delta[st + q0 + i] : 0.f;
+      st_delta[i] = in ? p.stats[st + q0 + i] : 0.f;
     }
     __syncthreads();
 #pragma unroll 1
@@ -425,18 +228,22 @@ int launch_pair(DqKernel dq_kernel, DkdvKernel dkdv_kernel, const BwdParams& p,
   return launch(dkdv_kernel, p, dkdv_grid, threads, dkdv_smem, stream);
 }
 
-constexpr size_t bf16_smem(int d, int inner) {
-  return (2 * kRows + 2 * inner) * (d + 8) * sizeof(__nv_bfloat16);
+// the wgmma pair of attention_bwd.cuh for T and D, delta from rowsum(do * o),
+// causal or not
+template <typename T, int D>
+int launch_wgmma(const BwdParams& p, int batch, cudaStream_t s) {
+  if (p.causal) return launch_bwd_wgmma<T, D, true, false, true>(p, batch, s);
+  return launch_bwd_wgmma<T, D, true, false, false>(p, batch, s);
 }
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = fp32, 2 = fp16. Strides are in elements, (batch, row, head) for
-// each of q, k, v, o, do, dq, dk, dv; the last dimension of every tensor is
-// contiguous. `lse` is the forward's fp32 (B, H, Sq); `delta` fp32 scratch of
-// B * H * Sq. Launches the dq kernel, then the dk/dv kernel, on `stream`.
-// Returns 0, a cudaError_t code, or -1 for a head_dim/dtype pair this file has
-// no kernel for.
+// dtype: 0 = bf16, 1 = fp32, 2 = fp16. Strides are in elements, (batch, row,
+// head) for each of q, k, v, o, do, dq, dk, dv; the last dimension of every
+// tensor is contiguous. `lse` is the forward's fp32 (B, H, Sq); `delta` fp32
+// scratch of B * H * Sq. Launches the dq kernel, then the dk/dv kernel, on
+// `stream`. Returns 0, a cudaError_t (or, for a refused tensor map, CUresult)
+// code, or -1 for a head_dim/dtype pair this file has no kernel for.
 extern "C" int vpt_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, void* dq, void* dk, void* dv,
@@ -448,7 +255,7 @@ extern "C" int vpt_flash_attention_bwd(
     long long dq_sb, long long dq_ss, long long dq_sh, long long dk_sb,
     long long dk_ss, long long dk_sh, long long dv_sb, long long dv_ss,
     long long dv_sh, float scale, int causal, int dtype, void* stream) {
-  BwdParams p;
+  BwdParams p{};
   p.q = q;
   p.k = k;
   p.v = v;
@@ -458,7 +265,7 @@ extern "C" int vpt_flash_attention_bwd(
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
-  p.delta = delta;
+  p.stats = delta;  // delta in plane 0
   p.kv_lens = kv_lens;
   p.heads = heads;
   p.sq = sq;
@@ -491,28 +298,12 @@ extern "C" int vpt_flash_attention_bwd(
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr size_t rows_smem = 2 * kRows * sizeof(float);
-  if (dtype == 0 || dtype == 2) {
-    if (head_dim == 64)
-      return dtype == 0
-          ? launch_pair(flash_bwd_dq_mma<__nv_bfloat16, 64, 64>,
-                        flash_bwd_dkdv_mma<__nv_bfloat16, 64, 64>, p, batch, 128,
-                        bf16_smem(64, 64) + rows_smem,
-                        bf16_smem(64, 64) + rows_smem, s)
-          : launch_pair(flash_bwd_dq_mma<__half, 64, 64>,
-                        flash_bwd_dkdv_mma<__half, 64, 64>, p, batch, 128,
-                        bf16_smem(64, 64) + rows_smem,
-                        bf16_smem(64, 64) + rows_smem, s);
-    if (head_dim == 128)
-      return dtype == 0
-          ? launch_pair(flash_bwd_dq_mma<__nv_bfloat16, 128, 32>,
-                        flash_bwd_dkdv_mma<__nv_bfloat16, 128, 32>, p, batch,
-                        128, bf16_smem(128, 32) + rows_smem,
-                        bf16_smem(128, 32) + rows_smem, s)
-          : launch_pair(flash_bwd_dq_mma<__half, 128, 32>,
-                        flash_bwd_dkdv_mma<__half, 128, 32>, p, batch, 128,
-                        bf16_smem(128, 32) + rows_smem,
-                        bf16_smem(128, 32) + rows_smem, s);
+  if (dtype == 0) {
+    if (head_dim == 64) return launch_wgmma<__nv_bfloat16, 64>(p, batch, s);
+    if (head_dim == 128) return launch_wgmma<__nv_bfloat16, 128>(p, batch, s);
+  } else if (dtype == 2) {
+    if (head_dim == 64) return launch_wgmma<__half, 64>(p, batch, s);
+    if (head_dim == 128) return launch_wgmma<__half, 128>(p, batch, s);
   } else if (dtype == 1) {
     const size_t rows = 2 * kRows, tile = 2 * kTileF32;
     if (head_dim == 64)

@@ -46,12 +46,12 @@
 //   8.73 GFLOP -> 8.8 us;
 // so the kernel is bound by memory: 0.0078 and 0.0350 ms per launch.
 //
-// Design (simple first). The TPU kernel keeps a whole (S, S) score tile in
-// VMEM; here the forward of attention_fwd.cuh, which flash_attention.cu
-// shares, streams K and V through shared memory in tiles of 64 keys up to
-// kv_len, one thread block per (64 query rows, head, batch). The TPU kernel's
-// head pairing is not ported: it only fills the TPU's 128-deep matrix unit.
-// wgmma, TMA and a persistent schedule are left for later work.
+// Design. The TPU kernel keeps a whole (S, S) score tile in VMEM; here the
+// forward of attention_fwd.cuh, which flash_attention.cu shares, streams K
+// and V through a TMA ring of 64-key swizzled tiles up to kv_len, one
+// warpgroup per (64 query rows, head, batch), with both products on wgmma.
+// The TPU kernel's head pairing is not ported: it only fills the TPU's
+// 128-deep matrix unit.
 
 #include "attention_fwd.cuh"
 
@@ -59,8 +59,9 @@ using namespace vpt;
 
 // dtype: 0 = bf16, 1 = fp32, 2 = fp16. Strides are in elements, (batch, row,
 // head) for each tensor; the last dimension of every tensor is contiguous.
-// `lse` is null or fp32 (B, H, Sq). Returns 0, a cudaError_t code, or -1 for
-// a head_dim/dtype pair this file has no kernel for.
+// `lse` is null or fp32 (B, H, Sq). Returns 0, a cudaError_t (or, for a
+// refused tensor map, CUresult) code, or -1 for a head_dim/dtype pair this
+// file has no kernel for.
 extern "C" int vpt_short_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
     const int* kv_lens,

@@ -4,7 +4,12 @@ package's bench shape (M 64, K = N = 8192) and at the SDXL sampler's
 cross-attention shapes (M 154, K 2048, N 1280 and 640), bf16, nf4; kernels
 #2, #4, #6 (the short-attention backward: packed bounded, BSHD, BHSD) and
 the forwards #1, #3, #5 at JiT-B/16's training shape (B 64, S 298, 12 x 64,
-bf16), #1 also at the sampler's (B 16, S 266); each beside its library call.
+bf16), #1 also at the sampler's (B 16, S 266); the flash forward #7 at the
+latent trainer's shape (B 16, S 4106, 12 x 64, as a training step runs it,
+writing the lse) and at the SDXL sampler's two self-attentions (B 2, S 4096,
+10 heads; B 2, S 1024, 20 heads), the flash backward #8 at the latent shape;
+each beside its library call (the flash rows beside SDPA under its
+FLASH_ATTENTION backend).
 
     python -m vision_pt_tpu_torch.tools.bench.kernel_ab \\
         --tree .chipwork/base --tree . --tree . --tree .chipwork/base
@@ -29,11 +34,14 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ["nf4_matmul", "short_attention", "short_attention_bwd"]
+SOURCES = ["nf4_matmul", "short_attention", "short_attention_bwd",
+           "flash_attention", "flash_attention_bwd"]
 NF4_SHAPES = (("bench", 64, 8192, 8192), ("path", 154, 2048, 1280),
               ("path_n640", 154, 2048, 640))
 TRAIN, SAMPLER = (64, 298), (16, 266)
 HEADS, DIM = 12, 64
+FLASH_SHAPES = (("latent", 16, 4106, 12), ("sdxl_s4096", 2, 4096, 10),
+                ("sdxl_s1024", 2, 1024, 20))  # label, B, S, H (D 64, bf16)
 
 
 def _timing():
@@ -67,11 +75,24 @@ def _autograd(fn, inputs):
     return (lambda: fn(*leaves)), backward
 
 
+def _flash_sdpa(fn):
+    """``fn`` run under SDPA's FLASH_ATTENTION backend, as ``chip_smoke.py``
+    times the flash kernels' yardstick."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call(*args):
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return fn(*args)
+
+    return call
+
+
 def measure() -> dict:
     """This process's tree (on sys.path) timed with this file's timing."""
     import torch
     import torch.nn.functional as F
 
+    from vision_pt_tpu_torch.ops import flash_attention as fa
     from vision_pt_tpu_torch.ops import short_attention as sa
     from vision_pt_tpu_torch.ops.quant.layers import _dequant_deint
     from vision_pt_tpu_torch.ops.quant.nf4 import quantize_4bit_device_kernel_layout
@@ -121,6 +142,23 @@ def measure() -> dict:
         rows["short_attention_bhsd/train"] = _row(
             timing, lambda: sa.short_attention_bhsd(*bhsd[:3]),
             lambda: F.scaled_dot_product_attention(*bhsd[:3]), 50)
+
+    sdpa = _flash_sdpa(F.scaled_dot_product_attention)
+    for label, batch, s, heads in FLASH_SHAPES:
+        q, k, v, do = (torch.randn(batch, s, heads, DIM, generator=gen,
+                                   device="cuda").to(bf16) for _ in range(4))
+        bhsd = [x.transpose(1, 2) for x in (q, k, v, do)]
+        if label != "latent":  # the sampler's call: no lse, no autograd
+            rows[f"flash_attention/{label}"] = _row(
+                timing, lambda: fa.flash_attention(q, k, v),
+                lambda: sdpa(*bhsd[:3]), 20)
+            continue
+        forward, backward = _autograd(fa.flash_attention, (q, k, v))
+        sdpa_forward, sdpa_backward = _autograd(sdpa, bhsd[:3])
+        rows[f"flash_attention/{label}"] = _row(timing, forward, sdpa_forward, 20)
+        rows[f"flash_attention_bwd/{label}"] = _row(
+            timing, lambda: backward(do),
+            _flash_sdpa(lambda: sdpa_backward(bhsd[3])), 10)
     return rows
 
 
