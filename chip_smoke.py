@@ -106,10 +106,12 @@ JiT-B/16 train shape and at edge shapes (S 37; Sq 266 with Sk 77; kv_lens
 full, partial and 0; D 128; bf16 and fp32) under phase 2's limits, which must
 fail a plain version one key short; autograd through both entries must give
 exactly their backward; #10 and #11 at the probes' shape (B 64, S 304, 12 x
-64) under the same limits, which must fail a plain version with one head's
-output left out; fp16 cases of #3-#6 likewise. short_timing times #3-#6 at the train shape (SDPA forward,
-and forward and backward, as the yardsticks), #10 and #11 at theirs (SDPA
-forward and backward with the adds; seven bf16 matmuls) and #2 again.
+64) and at S that cut their 64-row tiles (S 37, 65, 129, 257, 298) under the
+same limits, which must fail a plain version with one head's output left out
+and one that drops the last key; fp16 cases of #3-#6 likewise. short_timing
+times #3-#6 at the train shape (SDPA forward, and forward and backward, as
+the yardsticks), #10 and #11 at theirs (SDPA forward and backward with the
+adds; seven bf16 matmuls; with the products each executes) and #2 again.
 nf4_kernel holds kernel #9 (``dequant_matmul_4bit``) against
 its plain version at the sampler's shapes and at edge shapes (M 1, 37, 1024;
 K 128, 5120; N 8, 136, 10240), nf4 and fp4, bf16, fp16 and fp32, under
@@ -1543,6 +1545,10 @@ SHORT_CASES = [
 ]
 SHORT_SHAPE = (64, 298, 12, 64)  # JiT-B/16's training step: B, S, H, D
 PROBE_SHAPE = (64, 304, 12, 64)  # the probes' (S padded to 304 on the TPU)
+# (name, batch, seq, heads) of the probes' cases (D 64, bf16): their shape,
+# then S that cut their 64-row tiles, JiT-B/16's unpadded S 298 last
+PROBE_CASES = [("probe", *PROBE_SHAPE[:3]), ("s37", 2, 37, 2), ("s65", 3, 65, 4),
+               ("s129", 4, 129, 12), ("s257", 8, 257, 12), ("s298", 64, 298, 12)]
 ROOFLINE_STEPS = 5  # training steps per timing window of the roofline probe
 
 
@@ -1645,30 +1651,42 @@ def phase_short_kernel() -> dict:
              autograd_equals_explicit=equal)
         check(equal, f"autograd through {fwd.__name__} differs from its backward")
 
-    # the probes at their shape; the limits must fail a plain version that
-    # leaves out one head's output
-    batch, seq, heads, dim = PROBE_SHAPE
-    x = torch.randn(batch, seq, heads * dim, generator=gen, device="cuda").to(torch.bfloat16)
-    for kernel, outs, refs in (
-            ("run_variant", pairing.run_variant(x), pairing.run_variant_reference(x)),
-            ("dots_variant", [roofline.dots_variant(x)],
-             [roofline.dots_variant_reference(x)])):
-        torch.cuda.synchronize()
-        tol = TOL[torch.bfloat16]
-        err, share, within = _agree([_compare(o, r, tol) for o, r in zip(outs, refs)])
-        finite = all(bool(torch.isfinite(o).all()) for o in outs)
-        head = slice(5 * dim, 6 * dim)
-        dropped = [r.clone() for r in refs]
-        for r in dropped:
-            r[..., head] = 0
-        dropped_share = max(_compare(o, r, tol)[1] for o, r in zip(outs, dropped))
-        emit("short_kernel", kernel=kernel, case="probe", shape=list(PROBE_SHAPE),
-             dtype="torch.bfloat16", max_abs_err=err, tolerance=tol,
-             limit_share=share, finite=finite, head_dropped_share=dropped_share)
-        check(finite and within, f"{kernel} disagrees with its plain version")
-        check(dropped_share > 1, f"the {kernel} limits pass a head left out: "
-              f"{dropped_share}")
-        errors[kernel] = err
+    # the probes at their shape and at edges of their 64-row tiles; the
+    # limits must fail a plain version that leaves out one head's output, and
+    # one that drops the last key
+    tol = TOL[torch.bfloat16]
+    for name, batch, seq, heads in PROBE_CASES:
+        dim = 64
+        x = torch.randn(batch, seq, heads * dim, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        for kernel, run, plain in (
+                ("run_variant", pairing.run_variant, pairing.run_variant_reference),
+                ("dots_variant", lambda x, h: [roofline.dots_variant(x, h)],
+                 lambda x, h, **kw: [roofline.dots_variant_reference(x, h, **kw)])):
+            outs = run(x, heads)
+            torch.cuda.synchronize()
+            refs = plain(x, heads)
+            err, share, within = _agree([_compare(o, r, tol) for o, r in zip(outs, refs)])
+            finite = all(bool(torch.isfinite(o).all()) for o in outs)
+            head = min(5, heads - 1)
+            dropped = [r.clone() for r in refs]
+            for r in dropped:
+                r[..., head * dim:(head + 1) * dim] = 0
+            dropped_share = max(_compare(o, r, tol)[1] for o, r in zip(outs, dropped))
+            short_share = max(_compare(o, r, tol)[1]
+                              for o, r in zip(outs, plain(x, heads, kv_len=seq - 1)))
+            emit("short_kernel", kernel=kernel, case=name, shape=[batch, seq, heads, dim],
+                 dtype="torch.bfloat16", max_abs_err=err, tolerance=tol,
+                 limit_share=share, finite=finite, head_dropped_share=dropped_share,
+                 one_key_short_share=short_share)
+            check(finite and within, f"{kernel} disagrees with its plain version at {name}")
+            check(dropped_share > 1, f"the {kernel} limits pass a head left out at "
+                  f"{name}: {dropped_share}")
+            check(short_share > 1, f"the {kernel} limits pass a kernel one key short "
+                  f"at {name}: {short_share}")
+            if name == "probe":
+                errors[kernel] = err
+        del x, outs, refs, dropped
     return errors
 
 
@@ -1681,6 +1699,7 @@ def phase_short_timing() -> dict:
     from vision_pt_tpu_torch.ops import short_attention as sa
     from vision_pt_tpu_torch.tools.bench import attention_pairing_probe as pairing
     from vision_pt_tpu_torch.tools.bench import attention_roofline as roofline
+    from vision_pt_tpu_torch.tools.bench.kernel_ab import probe_yardsticks
 
     batch, s, heads, dim = SHORT_SHAPE
     bf16 = torch.bfloat16
@@ -1736,23 +1755,9 @@ def phase_short_timing() -> dict:
 
     batch, s, heads, dim = PROBE_SHAPE
     x = torch.randn(batch, s, heads * dim, generator=gen, device="cuda").to(bf16)
-    xh = x.view(batch, s, heads, dim).transpose(1, 2)
     size = x.numel() * x.element_size()
     product = 2 * batch * heads * s * s * dim
-    leaves = [xh.detach().requires_grad_() for _ in range(3)]
-
-    def sdpa_pair():  # o + dv and dq + dk of SDPA, k = v = do = q = x
-        o = F.scaled_dot_product_attention(*leaves)
-        dq, dk, dv = torch.autograd.grad(o, leaves, xh)
-        return o + dv, dq + dk
-
-    def seven_matmuls():  # #11's products, each a bf16 torch.matmul
-        t = xh.transpose(-1, -2)
-        s1 = xh @ t
-        s2 = xh @ t
-        dp = xh @ t
-        return s1 @ xh, s2.transpose(-1, -2) @ xh, dp @ xh, dp.transpose(-1, -2) @ xh
-
+    sdpa_pair, seven_matmuls = probe_yardsticks(x, heads)
     rows["run_variant"] = _time_kernel(
         "run_variant", lambda: pairing.run_variant(x),
         lambda: pairing.run_variant_reference(x), sdpa_pair,
@@ -1760,7 +1765,7 @@ def phase_short_timing() -> dict:
         "tools/bench/attention_pairing_probe.py:143",
         "vision_pt_tpu_torch/csrc/attention_probe.cu", ["probe", batch, s, s, heads, dim],
         "F.scaled_dot_product_attention forward and backward, and the two adds",
-        phase="short_timing")
+        phase="short_timing", executed_flops=pairing.PRODUCTS_EXECUTED * product)
     rows["dots_variant"] = _time_kernel(
         "dots_variant", lambda: roofline.dots_variant(x),
         lambda: roofline.dots_variant_reference(x), seven_matmuls,
@@ -1768,7 +1773,8 @@ def phase_short_timing() -> dict:
         "tools/bench/attention_roofline.py:252",
         "vision_pt_tpu_torch/csrc/attention_probe.cu", ["probe", batch, s, s, heads, dim],
         "the seven products as seven bf16 torch.matmul calls (no one call "
-        "computes the function)", phase="short_timing")
+        "computes the function)", phase="short_timing",
+        executed_flops=roofline.PRODUCTS_EXECUTED * product)
     return rows
 
 

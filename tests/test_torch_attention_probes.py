@@ -15,6 +15,12 @@ package, so the module is loaded by path; its import sets
 and cannot be imported, so its seven products are restated here in ``jnp``
 (``tools/bench/attention_roofline.py:155-194``).
 
+Both at S that cut the CUDA kernels' 64-row tiles (37, 65, 129) as well as
+at the JAX tests' own sizes; the plain versions' ``kv_len`` (the check
+``chip_smoke.py`` makes that the limits fail a kernel one key short) against
+a numpy restatement; and the wrappers' refusals of what the kernels do not
+take.
+
 Tolerances: fp32 1e-5 relative (the same arithmetic, sums in another order),
 bf16 2e-2 (roundings at places that may differ by one: the JAX #11 rounds
 each of its four outputs and adds in bf16, the port sums in fp32 and rounds
@@ -72,17 +78,18 @@ def _assert_close(ours, theirs, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("body", ["_base_kernel", "_paired_kernel"])
-def test_pairing_probe_plain_matches_jax(jax_pairing, monkeypatch, body, dtype):
-    for name, value in dict(B=BATCH, S=SEQ, H=HEADS, D=DIM, E=HEADS * DIM,
+@pytest.mark.parametrize("seq", [SEQ, 37, 65, 129])
+def test_pairing_probe_plain_matches_jax(jax_pairing, monkeypatch, seq, body, dtype):
+    for name, value in dict(B=BATCH, S=seq, H=HEADS, D=DIM, E=HEADS * DIM,
                             SCALE=DIM**-0.5).items():
         monkeypatch.setattr(jax_pairing, name, value)
     # std 0.5: at std 1 and D 64 each row's p is nearly one-hot, and dq + dk
     # come from dp - delta with both near 64, where fp32 sums in another
     # order differ by 1e-5 of the result (measured 5.9x the fp32 limit);
     # at std 0.5 the largest error is 0.05 of it
-    x = _x(std=0.5)
+    x = _x(seq=seq, std=0.5)
     jx = jnp.asarray(x, getattr(jnp, dtype))
-    spec = pl.BlockSpec((1, SEQ, HEADS * DIM), lambda b: (b, 0, 0))
+    spec = pl.BlockSpec((1, seq, HEADS * DIM), lambda b: (b, 0, 0))
     theirs = pl.pallas_call(
         getattr(jax_pairing, body), grid=(BATCH,), in_specs=[spec],
         out_specs=[spec, spec],
@@ -125,8 +132,9 @@ def _jax_dots_only(x, heads, dim):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_dots_probe_plain_matches_jax(dtype):
-    x = _x(seq=32, seed=1)
+@pytest.mark.parametrize("seq", [32, 37, 65, 129])
+def test_dots_probe_plain_matches_jax(seq, dtype):
+    x = _x(seq=seq, seed=1)
     theirs = _jax_dots_only(jnp.asarray(x, getattr(jnp, dtype)), HEADS, DIM)
     ours = roofline.dots_variant_reference(
         torch.from_numpy(x).to(getattr(torch, dtype)), HEADS)
@@ -147,6 +155,88 @@ def test_probe_wrappers_take_the_plain_version_on_the_cpu_only():
     for fn in (pairing.run_variant, roofline.dots_variant):
         with pytest.raises(ValueError, match="no kernel"):
             fn(meta, HEADS)
+
+
+def _numpy_heads(x):
+    """(B, H, S, D) float64 heads of a (B, S, H*D) array."""
+    b, s, _ = x.shape
+    return x.astype(np.float64).reshape(b, s, HEADS, DIM).transpose(0, 2, 1, 3)
+
+
+def _numpy_merge(t):
+    b, h, s, d = t.shape
+    return t.transpose(0, 2, 1, 3).reshape(b, s, h * d)
+
+
+def test_pairing_probe_plain_kv_len_drops_the_last_keys():
+    """``kv_len`` n: the softmax runs over keys [0, n) only, and the key rows
+    from n on get no dv, dk; n = S is the probe's own function, bit for bit."""
+    x = _x(seq=37, seed=2, std=0.5)
+    n = 36
+    q = _numpy_heads(x)
+    k = v = q[:, :, :n]  # do = q: every row
+    scale = DIM**-0.5
+    s = np.clip(q @ k.transpose(0, 1, 3, 2) * scale * pairing.LOG2E,
+                -pairing.CLIP, pairing.CLIP)
+    e = np.exp2(s)
+    denom = e.sum(-1, keepdims=True)
+    p = e / denom
+    dp = q @ v.transpose(0, 1, 3, 2)
+    delta = (p * dp).sum(-1, keepdims=True)
+    ds = p * (dp - delta)
+    o = (e @ v) / denom
+    dq = ds @ k * scale
+    dv = np.zeros_like(q)
+    dk = np.zeros_like(q)
+    dv[:, :, :n] = p.transpose(0, 1, 3, 2) @ q
+    dk[:, :, :n] = ds.transpose(0, 1, 3, 2) @ q * scale
+    ours = pairing.run_variant_reference(torch.from_numpy(x), HEADS, kv_len=n)
+    for a, b in zip(ours, (_numpy_merge(o + dv), _numpy_merge(dq + dk))):
+        _assert_close(a.numpy(), b, "float32")
+    full = torch.from_numpy(x)
+    for a, b in zip(pairing.run_variant_reference(full, HEADS, kv_len=37),
+                    pairing.run_variant_reference(full, HEADS)):
+        assert torch.equal(a, b)
+
+
+def test_dots_probe_plain_kv_len_drops_the_last_keys():
+    """``kv_len`` n: s and dp over keys [0, n) only, and the key rows from n
+    on get no dv, dk; n = S is the probe's own function, bit for bit."""
+    x = _x(seq=65, seed=3)
+    n = 64
+    q = _numpy_heads(x)
+    k = v = q[:, :, :n]
+    s = q @ k.transpose(0, 1, 3, 2)
+    dp = q @ v.transpose(0, 1, 3, 2)
+    out = s @ v + dp @ k
+    out[:, :, :n] += s.transpose(0, 1, 3, 2) @ q + dp.transpose(0, 1, 3, 2) @ q
+    ours = roofline.dots_variant_reference(torch.from_numpy(x), HEADS, kv_len=n)
+    _assert_close(ours.numpy(), _numpy_merge(out), "float32")
+    full = torch.from_numpy(x)
+    assert torch.equal(roofline.dots_variant_reference(full, HEADS, kv_len=65),
+                       roofline.dots_variant_reference(full, HEADS))
+
+
+def test_probe_wrappers_refuse_what_their_kernels_do_not_take():
+    """Off the CPU a wrapper launches its kernel or raises: it names a device
+    that is not CUDA, a dtype other than bfloat16 and a head dim other than
+    64 (here on the meta device, where no kernel runs)."""
+    def meta(width, dtype):
+        return torch.zeros(2, 40, width, device="meta", dtype=dtype)
+
+    for fn in (pairing.run_variant, roofline.dots_variant):
+        with pytest.raises(ValueError, match=r"float32: the kernel takes .*bfloat16"):
+            fn(meta(HEADS * DIM, torch.float32), HEADS)
+        with pytest.raises(ValueError, match=r"float16: the kernel takes"):
+            fn(meta(HEADS * DIM, torch.float16), HEADS)
+        with pytest.raises(ValueError, match=r"\(2, 40, 160\).*H\*64"):
+            fn(meta(HEADS * 80, torch.bfloat16), HEADS)
+        with pytest.raises(ValueError, match=r"^no kernel for device meta$"):
+            fn(meta(HEADS * DIM, torch.bfloat16), HEADS)
+        with pytest.raises(ValueError, match="the kernel takes"):
+            fn(torch.zeros(40, HEADS * DIM, device="meta", dtype=torch.bfloat16),
+               HEADS)
+    assert pairing.run_variant.launches == roofline.dots_variant.launches == 0
 
 
 def test_probe_main_needs_the_card(monkeypatch):

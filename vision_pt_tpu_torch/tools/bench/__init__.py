@@ -31,6 +31,20 @@ def probe_kernel(entry: str, argtypes: list):
     return fn
 
 
+def check_kernel_input(x: torch.Tensor, heads: int) -> None:
+    """Raise ``ValueError`` unless ``x`` is what the probe kernels take: a
+    (B, S, H*64) bfloat16 tensor on a CUDA device; the message names each
+    thing that is not."""
+    faults = []
+    if x.device.type != "cuda":
+        faults.append(f"no kernel for device {x.device}")
+    if x.dim() != 3 or x.dtype != torch.bfloat16 or x.shape[2] != heads * 64:
+        faults.append(f"x {tuple(x.shape)} {x.dtype}: the kernel takes "
+                      "(B, S, H*64) bfloat16")
+    if faults:
+        raise ValueError("; ".join(faults))
+
+
 def card() -> dict:
     """The card that ran: its name, and its name and power limit as
     ``nvidia-smi`` prints them. Raises without a CUDA card."""

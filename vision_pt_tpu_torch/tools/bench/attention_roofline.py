@@ -23,9 +23,16 @@ Five sections, as in the TPU probe:
    beside the card's name and power limit.
 
 The TPU probe also times the head-PAIRED dots-only schedule
-(``_dots_only_paired_kernel``); it only fills the TPU's 128-deep matrix
-unit, which ``mma.sync`` has no half-idle depth pass to fill, so it is not
-ported and its keys are absent.
+(``_dots_only_paired_kernel``): two heads side by side with block-diagonal
+operands, which only fills the TPU's 128-deep matrix unit. ``wgmma`` takes a
+depth of 16 a step, so a depth of 64 leaves nothing idle to fill, and the
+block-diagonal operands would double the multiply-adds of 4 of the 6
+products: it is not ported and its keys are absent. Kernel #11 is one
+launch of one warpgroup a block, every product a ``wgmma`` over tiles that
+TMA brings into a ring while the products run: per 64 rows, a sweep over
+the keys (s, dp, then o + dq of its query rows) and one over the queries
+(s^T, dp^T, then dv + dk of its key rows), the sum rounded once: 8 (S, S,
+D) products executed, where the function needs 6.
 
     python -m vision_pt_tpu_torch.tools.bench.attention_roofline
 
@@ -40,7 +47,7 @@ import json
 import torch
 
 from ...ops.short_attention import _merge_heads, _split_heads
-from . import card, cuda_ms, launches_of_timing, probe_kernel
+from . import card, check_kernel_input, cuda_ms, launches_of_timing, probe_kernel
 
 B, S, H, D = 64, 298, 12, 64
 E = H * D
@@ -49,29 +56,41 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 N_LAYERS = 12
 # launches of dots_variant by main(): the timing and one comparison call
 MAIN_LAUNCHES = launches_of_timing(N_LAYERS) + 1
+# (S, S, D) products the kernel executes (s and dp in both of its sweeps;
+# o, dq, dv, dk); the function's 6
+PRODUCTS_EXECUTED = 8
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [*[_PTR] * 6, _INT, _INT, _INT, _INT, _PTR]
+_ARGTYPES = [*[_PTR] * 5, _INT, _INT, _INT, _INT, _PTR]
 
 
-def dots_variant_reference(x: torch.Tensor, heads: int = H) -> torch.Tensor:
+def dots_variant_reference(x: torch.Tensor, heads: int = H,
+                           kv_len: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of kernel #11 (``_dots_only_kernel``'s seven
     dots, ``tools/bench/attention_roofline.py:155-194``) with q = k = v =
     do = x: fp32 products of the (exactly upcast) input, s and dp rounded to
     x's dtype before the products that take them. Returns (o + dq) + (dv +
-    dk), summed in fp32 and rounded once to x's dtype."""
+    dk), summed in fp32 and rounded once to x's dtype.
+
+    ``kv_len`` keeps only the first ``kv_len`` rows of x as keys and values
+    (s and dp are 0 past it): not the probe's function, but the plain
+    version a check holds the kernel against to show that its limits fail a
+    kernel that drops a key."""
     dt = x.dtype
     acc = torch.float64 if dt == torch.float64 else torch.float32
     q = k = v = do = _split_heads(x, heads).to(acc)
+    keys = 1.0
+    if kv_len is not None:
+        keys = torch.arange(x.shape[1], device=x.device) < kv_len
 
     def low(t):  # rounded to x's dtype, computed on in fp32
         return t.to(dt).to(acc)
 
-    s = q @ k.transpose(-1, -2)  # forward q k^T
+    s = (q @ k.transpose(-1, -2)) * keys  # forward q k^T
     o = low(s) @ v
-    p = low(q @ k.transpose(-1, -2))  # the backward's recompute
+    p = low((q @ k.transpose(-1, -2)) * keys)  # the backward's recompute
     dv = p.transpose(-1, -2) @ do
-    ds = low(do @ v.transpose(-1, -2))
+    ds = low((do @ v.transpose(-1, -2)) * keys)
     dq = ds @ k
     dk = ds.transpose(-1, -2) @ q
     return _merge_heads((o + dq) + (dv + dk)).to(dt)
@@ -82,20 +101,14 @@ def dots_variant(x: torch.Tensor, heads: int = H) -> torch.Tensor:
     not take); the plain version for a CPU tensor."""
     if x.device.type == "cpu":
         return dots_variant_reference(x, heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if x.dim() != 3 or x.dtype != torch.bfloat16 or x.shape[2] != heads * 64:
-        raise ValueError(
-            f"x {tuple(x.shape)} {x.dtype}: the kernel takes (B, S, H*64) bfloat16"
-        )
+    check_kernel_input(x, heads)
     x = x.contiguous()
     batch, seq, _ = x.shape
     out = torch.empty_like(x)
-    scratch = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     ptr = x.data_ptr()
     rc = probe_kernel("vpt_attention_dots_probe", _ARGTYPES)(
-        ptr, ptr, ptr, ptr, out.data_ptr(), scratch.data_ptr(), batch, seq,
-        heads, 64, torch.cuda.current_stream(x.device).cuda_stream,
+        ptr, ptr, ptr, ptr, out.data_ptr(), batch, seq, heads, 64,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"attention dots probe kernel launch failed: {rc}")

@@ -9,7 +9,10 @@ latent trainer's shape (B 16, S 4106, 12 x 64, as a training step runs it,
 writing the lse) and at the SDXL sampler's two self-attentions (B 2, S 4096,
 10 heads; B 2, S 1024, 20 heads), the flash backward #8 at the latent shape;
 each beside its library call (the flash rows beside SDPA under its
-FLASH_ATTENTION backend).
+FLASH_ATTENTION backend); the probe kernels #10 (``run_variant``) and #11
+(``dots_variant``) at the probes' shape (B 64, S 304, 12 x 64, bf16), each
+beside its yardstick (:func:`probe_yardsticks`: no one PyTorch call computes
+either function).
 
     python -m vision_pt_tpu_torch.tools.bench.kernel_ab \\
         --tree .chipwork/base --tree . --tree . --tree .chipwork/base
@@ -19,9 +22,9 @@ each ``--tree``, in the order given, is timed in a process of its own that
 imports that tree's package and this tree's ``timing.device_timing`` (loaded
 by path): the median of 5 windows under torch.profiler, with the fastest and
 slowest window. The attention rows call the public entry points only
-(the backward through autograd, as a training step does), so the same
-calls time every tree. One JSON line: the card, and per run the tree and
-its rows.
+(the backward through autograd, as a training step does), and the probe
+rows the probe tools' wrappers, so the same calls time every tree. One
+JSON line: the card, and per run the tree and its rows.
 """
 
 from __future__ import annotations
@@ -35,13 +38,14 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ["nf4_matmul", "short_attention", "short_attention_bwd",
-           "flash_attention", "flash_attention_bwd"]
+           "flash_attention", "flash_attention_bwd", "attention_probe"]
 NF4_SHAPES = (("bench", 64, 8192, 8192), ("path", 154, 2048, 1280),
               ("path_n640", 154, 2048, 640))
 TRAIN, SAMPLER = (64, 298), (16, 266)
 HEADS, DIM = 12, 64
 FLASH_SHAPES = (("latent", 16, 4106, 12), ("sdxl_s4096", 2, 4096, 10),
                 ("sdxl_s1024", 2, 1024, 20))  # label, B, S, H (D 64, bf16)
+PROBE_SHAPE = (64, 304, 12)  # the attention probes' B, S, H (D 64, bf16)
 
 
 def _timing():
@@ -85,6 +89,33 @@ def _flash_sdpa(fn):
             return fn(*args)
 
     return call
+
+
+def probe_yardsticks(x, heads: int):
+    """The probes' yardsticks on a (B, S, H*64) tensor x, as two callables:
+    #10's, SDPA forward and its backward through autograd with k = v = do =
+    q = x and the two adds (o + dv, dq + dk); #11's, its seven products as
+    seven bf16 ``torch.matmul`` calls."""
+    import torch
+    import torch.nn.functional as F
+
+    batch, seq, _ = x.shape
+    xh = x.view(batch, seq, heads, -1).transpose(1, 2)
+    leaves = [xh.detach().requires_grad_() for _ in range(3)]
+
+    def sdpa_pair():
+        o = F.scaled_dot_product_attention(*leaves)
+        dq, dk, dv = torch.autograd.grad(o, leaves, xh)
+        return o + dv, dq + dk
+
+    def seven_matmuls():
+        t = xh.transpose(-1, -2)
+        s1 = xh @ t
+        s2 = xh @ t
+        dp = xh @ t
+        return s1 @ xh, s2.transpose(-1, -2) @ xh, dp @ xh, dp.transpose(-1, -2) @ xh
+
+    return sdpa_pair, seven_matmuls
 
 
 def measure() -> dict:
@@ -159,6 +190,18 @@ def measure() -> dict:
         rows[f"flash_attention_bwd/{label}"] = _row(
             timing, lambda: backward(do),
             _flash_sdpa(lambda: sdpa_backward(bhsd[3])), 10)
+    del q, k, v, do, bhsd, forward, backward, sdpa_forward, sdpa_backward
+
+    from vision_pt_tpu_torch.tools.bench import attention_pairing_probe as pairing
+    from vision_pt_tpu_torch.tools.bench import attention_roofline as roofline
+
+    batch, s, heads = PROBE_SHAPE
+    x = torch.randn(batch, s, heads * DIM, generator=gen, device="cuda").to(bf16)
+    sdpa_pair, seven_matmuls = probe_yardsticks(x, heads)
+    rows["run_variant/probe"] = _row(timing, lambda: pairing.run_variant(x),
+                                     sdpa_pair, 20)
+    rows["dots_variant/probe"] = _row(timing, lambda: roofline.dots_variant(x),
+                                      seven_matmuls, 20)
     return rows
 
 
