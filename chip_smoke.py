@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's JiT-B/16 class-to-image sampler and training step,
 its latent JiT 1024^2 trainer, its SDXL 1024^2 text-to-image sampler (bf16
-and NF4), its ``short`` attention backend and its two attention probes, on
-one CUDA card.
+and NF4) and LoRA / QLoRA trainers, its ``short`` attention backend and its
+two attention probes, on one CUDA card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 (with nf4_kernel,
@@ -51,7 +51,10 @@ without a result line:
    batch 64, bf16, 4 steps, with clipping, EMA, a cosine schedule, a
    safetensors save and a 4-step preview; 4 forward and 4 backward launches
    per step; the saved file must load back through ``JiTModel.from_pretrained``;
-   the last step runs under the profiler;
+   the last step runs under the profiler. Then the same run with train-state
+   checkpointing, stopped by a SIGTERM during step 2 (it must save step 2
+   and stop), and resumed: steps 3-4 within 1e-3 of the unbroken run's
+   losses;
 7. train_parity: one training step's loss and gradients, same weights, batch
    and injected draws, on the card (kernels) and on the CPU (plain versions
    of the same path), batch 2, in fp32, bf16 and fp16 (the fp16 loss scaled
@@ -98,7 +101,26 @@ without a result line:
 14. attention_probes (after short_path): the two probe tools' ``main()``
    (``tools.bench.attention_pairing_probe``, ``tools.bench.attention_roofline``,
    the roofline's training step with 5 steps a window), each printing its
-   JSON line; #10 and #11 launch exactly as their timing asks.
+   JSON line; #10 and #11 launch exactly as their timing asks;
+15. sdxl_lora_trainer: the SDXL entry point (``train.sdxl.text_to_image.run``)
+   on ``configs/sdxl/text_to_image_lora.yml`` at full width and depth, 1024^2,
+   batch 2, RAdamScheduleFree and per-layer recompute as shipped; cut to
+   random weights, the word-hash tokenizer, 2 synthetic images (4 steps) and
+   a 2-step preview, each cut listed in the phase line; s/step over steps
+   2-4, peak memory, losses; exactly 140 launches of #7 and 70 of #8 a step;
+   a LoRA file of the 700 adapted linears;
+16. sdxl_qlora_trainer: the same for ``text_to_image_qlora_nf4.yml`` (AdamW8bit)
+   on a random-weight checkpoint whose UNet linears ``quantize_state_dict``
+   NF4-prequantized on the card; 280 launches of #9 a step besides; then one
+   more step under the profiler;
+17. sdxl_lora_parity: one LoRA training step (nonzero lora_up, cached latents,
+   injected draws) of sdxl_parity's model at 512^2, card (kernels) against
+   CPU (plain versions), bf16, then with the UNet NF4: the loss within 2e-2
+   and every LoRA gradient within 1e-1 relative L2, or within 1.5 times the
+   witness's error (the card's plain versions against the CPU) where bf16
+   alone puts it further (SDXL_LORA_PARITY_FLOOR); 3 + 3 flash launches, and
+   54 of #9 under NF4; the floors must fail the same step with #7 / #8
+   dropping the last key tile, and with #9's scale row 3 25% off.
 
 After phase 2, short_kernel holds kernels #3-#6 (the short backend's BSHD
 and BHSD entries, forward and backward) against their plain versions at the
@@ -118,10 +140,11 @@ K 128, 5120; N 8, 136, 10240), nf4 and fp4, bf16, fp16 and fp32, under
 phase 2's limits (fp16's tol 2e-3), which must fail a plain version with one absmax row 25% off or one
 64-row chunk left out, and on both sides of each block-shape boundary (M 1,
 64, 65, 128, 129, 154, 256, 257, 1024 at K 2048, N 1280, which K splits);
-two calls at M 64 and 154 must give the same bits. Phase 3 also times kernel #7 at SDXL's two
-self-attention shapes, and nf4_timing times kernel #9 at the sampler's
-shapes and at the JAX package's bench shape (M 64, K = N = 8192), beside
-F.linear on the weight dequantized beforehand.
+two calls at M 64 and 154 must give the same bits; the QLoRA trainer's M 454
+is held too. Phase 3 also times kernels #7 and #8 at SDXL's two
+self-attention shapes, and nf4_timing times kernel #9 at the sampler's and
+the QLoRA trainer's shapes and at the JAX package's bench shape (M 64, K =
+N = 8192), beside F.linear on the weight dequantized beforehand.
 
 Every kernel launch counter is set to 0 just before a path is driven and read
 just after. Then the ``{"kernels": [...]}`` line, the card's name and power
@@ -681,16 +704,16 @@ def phase_timing() -> dict:
 # then dq; dv and dk (the function needs 5)
 FLASH_BWD_PRODUCTS = 7
 
-# kernel #7's timed forward shapes (D 64, bf16, no kv_lens): the latent
-# trainer's, where kernel #8 is timed too, and the SDXL sampler's two
-# self-attentions at 1024^2 (B 2 with CFG)
+# kernels #7 and #8's timed shapes (D 64, bf16, no kv_lens): the latent
+# trainer's, and the SDXL sampler's and trainer's two self-attentions at
+# 1024^2 (B 2: CFG, or the training batch)
 FLASH_TIMING_SHAPES = (("latent", LATENT_BATCH, 4106, 12), ("sdxl_s4096", 2, 4096, 10),
                        ("sdxl_s1024", 2, 1024, 20))
 
 
 def phase_flash_timing() -> dict:
-    """Kernel #7 at each of FLASH_TIMING_SHAPES and #8 at the latent one,
-    keyed by label (the backward as ``latent_bwd``); their plain versions on
+    """Kernels #7 and #8 at each of FLASH_TIMING_SHAPES, keyed by label (the
+    backward as ``<label>_bwd``); their plain versions on
     the same inputs in calls of batch 2, whose (B, H, S, S) fp32 tensors are
     1.6 GB each at the latent shape (12.9 GB at batch 16)."""
     import torch.nn.functional as F
@@ -729,22 +752,21 @@ def phase_flash_timing() -> dict:
                 "vision_pt_tpu_torch/csrc/flash_attention.cu", shape, library,
                 plain_chunk=plain_chunk, iters=20, executed_flops=2 * product,
             )
-            if label == "latent":
-                leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
-                sdpa_out = F.scaled_dot_product_attention(*leaves)
-                rows["latent_bwd"] = _time_kernel(
-                    "flash_attention_bwd",
-                    lambda: flash_attention_bwd(q, k, v, out, lse, do),
-                    lambda: [flash_attention_bwd_reference(*c) for c in chunks],
-                    lambda: torch.autograd.grad(sdpa_out, leaves, doh,
-                                                retain_graph=True),
-                    8 * size + lse_bytes, 5 * product, dtype,
-                    "vision_pt_tpu/ops/flash_attention.py:325",
-                    "vision_pt_tpu_torch/csrc/flash_attention_bwd.cu", shape,
-                    "torch.autograd.grad of " + library, plain_chunk=plain_chunk,
-                    iters=20, executed_flops=FLASH_BWD_PRODUCTS * product,
-                )
-                del leaves, sdpa_out
+            leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+            sdpa_out = F.scaled_dot_product_attention(*leaves)
+            rows[f"{label}_bwd"] = _time_kernel(
+                "flash_attention_bwd",
+                lambda: flash_attention_bwd(q, k, v, out, lse, do),
+                lambda: [flash_attention_bwd_reference(*c) for c in chunks],
+                lambda: torch.autograd.grad(sdpa_out, leaves, doh,
+                                            retain_graph=True),
+                8 * size + lse_bytes, 5 * product, dtype,
+                "vision_pt_tpu/ops/flash_attention.py:325",
+                "vision_pt_tpu_torch/csrc/flash_attention_bwd.cu", shape,
+                "torch.autograd.grad of " + library, plain_chunk=plain_chunk,
+                iters=20, executed_flops=FLASH_BWD_PRODUCTS * product,
+            )
+            del leaves, sdpa_out
         del q, k, v, do, out, lse, chunks, qh, kh, vh, doh
         torch.cuda.empty_cache()
     return rows
@@ -852,8 +874,11 @@ def profile(path: str, run):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     averages = prof.key_averages()
+    # device events less the ranges of annotated regions on the device's
+    # timeline (e.g. "Optimizer.step#...", which spans the whole update)
     kernels = [e for e in averages
-               if e.device_type.name == "CUDA" and e.device_time_total > 0]
+               if e.device_type.name == "CUDA" and e.device_time_total > 0
+               and not e.is_user_annotation]
     device_us = sum(e.device_time_total for e in kernels)
     ops = [e for e in averages
            if e.device_type.name == "CPU" and e.self_device_time_total > 0]
@@ -994,7 +1019,69 @@ def phase_trainer(tmp: str) -> tuple[int, ...]:
           f"saved {saved}, previews {previews}, reloaded {reloaded}")
     del trainer, loaded
     torch.cuda.empty_cache()
+    _trainer_resume(tmp, cfg, losses)
     return counts
+
+
+def _trainer_resume(tmp: str, cfg: dict, unbroken: list[float]) -> None:
+    """The trainer run again with train-state checkpointing, stopped by a
+    SIGTERM during step 2, then resumed from its checkpoint: steps 3-4 must
+    give the unbroken run's losses within RESUME_REL_TOL."""
+    import signal
+
+    import yaml
+
+    from vision_pt_tpu_torch.train.jit.class_to_image import run
+    from vision_pt_tpu_torch.training.trainer import Trainer
+
+    cfg = json.loads(json.dumps(cfg))
+    cfg.update(saving=None, preview=None, tracker=None)
+    cfg["trainer"]["checkpointing"] = {"save_dir": os.path.join(tmp, "train_state"),
+                                       "resume": True}
+    path = os.path.join(tmp, "trainer_resume.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    losses, kill, inner = [], [True], Trainer.train_step
+
+    def recording(self, *args, **kwargs):
+        if kill[0] and self.global_step == 1:  # during step 2
+            os.kill(os.getpid(), signal.SIGTERM)
+        loss, metrics = inner(self, *args, **kwargs)
+        losses.append(float(loss))
+        return loss, metrics
+
+    Trainer.train_step = recording
+    t0 = time.perf_counter()
+    try:
+        killed = run(path)
+        stopped_at, preempted = killed.global_step, killed._preempted
+        saved = killed.checkpointer.all_steps()
+        del killed
+        torch.cuda.empty_cache()
+        kill[0] = False
+        losses.clear()
+        resumed = run(path)
+    finally:
+        Trainer.train_step = inner
+    seconds = time.perf_counter() - t0
+    resumed_losses = list(losses)
+    gaps = [abs(a - b) / abs(b) for a, b in zip(resumed_losses, unbroken[2:])]
+    emit("trainer", case="resume", stopped_at_step=stopped_at, preempted=preempted,
+         checkpoints=saved, resumed_steps=resumed.global_step,
+         losses_resumed=resumed_losses, losses_unbroken=unbroken[2:],
+         rel_gap=gaps, tolerance=RESUME_REL_TOL, seconds=seconds)
+    check(preempted and stopped_at == 2 and saved == [2],
+          f"SIGTERM in step 2: stopped at {stopped_at}, checkpoints {saved}")
+    check(resumed.global_step == 4 and len(resumed_losses) == 2
+          and max(gaps) <= RESUME_REL_TOL,
+          f"resumed losses {resumed_losses} against {unbroken[2:]}")
+    del resumed
+    torch.cuda.empty_cache()
+
+
+# a resumed run's losses against the unbroken run's: the same arithmetic on
+# the same card; the slack covers kernels whose reductions may reorder
+RESUME_REL_TOL = 1e-3
 
 
 def _step_parity(phase: str, model: str, label2id: str, cases, **fields) -> None:
@@ -1210,7 +1297,10 @@ def phase_latent_parity(tmp: str) -> None:
 
 # kernel #9 at the sampler's shapes (the 2 x 77 context rows of every
 # cross-attention to_k / to_v, K 2048, N 640 or 1280) and at edge shapes
-NF4_PATH_SHAPES = ((154, 2048, 640), (154, 2048, 1280))
+# the sampler's cross-attention to_k / to_v over 154 context rows (CFG),
+# then the QLoRA trainer's over 2 x 227 (batch 2, 225 tokens + bos/eos)
+NF4_PATH_SHAPES = ((154, 2048, 640), (154, 2048, 1280), (454, 2048, 640),
+                   (454, 2048, 1280))
 NF4_EDGE_SHAPES = tuple((m, k, n) for m in (1, 37, 1024) for k in (128, 5120)
                         for n in (8, 136, 10240))
 # kernel #9's block shapes change at M 64, 128 and 256, and its K splits
@@ -1302,9 +1392,9 @@ def phase_nf4_kernel() -> float:
 
 
 def phase_nf4_timing() -> dict:
-    """Kernel #9 at the sampler's two shapes and at the JAX package's bench
-    shape (M 64, K = N = 8192), bf16, nf4; the yardstick is F.linear on the
-    weight dequantized to bf16 beforehand."""
+    """Kernel #9 at the sampler's two shapes, the QLoRA trainer's two and the
+    JAX package's bench shape (M 64, K = N = 8192), bf16, nf4; the yardstick
+    is F.linear on the weight dequantized to bf16 beforehand."""
     import torch.nn.functional as F
 
     from vision_pt_tpu_torch.ops.quant.layers import _dequant_deint
@@ -1317,7 +1407,10 @@ def phase_nf4_timing() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = {}
     for label, (m, k, n) in (("path_n640", NF4_PATH_SHAPES[0]),
-                             ("path", NF4_PATH_SHAPES[1]), ("bench", (64, 8192, 8192))):
+                             ("path", NF4_PATH_SHAPES[1]),
+                             ("qlora_n640", NF4_PATH_SHAPES[2]),
+                             ("qlora_n1280", NF4_PATH_SHAPES[3]),
+                             ("bench", (64, 8192, 8192))):
         w = torch.randn(n, k, generator=gen, device="cuda") * 0.05
         packed, absmax = quantize_4bit_device_kernel_layout(w)
         dense = _dequant_deint(packed, absmax, "nf4", torch.bfloat16)  # (n, k)
@@ -1524,6 +1617,365 @@ def phase_sdxl_parity() -> None:
         for wrong_label, e in wrong_errors.items():
             check(all(e[k] > SDXL_PARITY_FLOOR[k] for k in e),
                   f"an SDXL parity floor passes kernel #9 with {wrong_label}: {e}")
+    del card
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------- SDXL LoRA / QLoRA training
+
+SDXL_TRAIN_CONFIGS = {"lora": "configs/sdxl/text_to_image_lora.yml",
+                      "qlora": "configs/sdxl/text_to_image_qlora_nf4.yml"}
+SDXL_TRAIN_IMAGES, SDXL_TRAIN_STEPS = 2, 4  # num_repeats 4, batch 2: 4 steps
+# per training step at 1024^2, batch 2, per-layer recompute: the 70
+# self-attentions (10 at S 4096, 60 at S 1024) take #7 in the forward and
+# again in the recompute and #8 once; under QLoRA the to_k / to_v of the 70
+# cross-attentions over the 2 x 227 context rows take #9 in the forward and
+# the recompute (every other NF4 product has more than 1024 rows)
+SDXL_TRAIN_LAUNCHES = {"lora": _expect({7: 140, 8: 70}),
+                       "qlora": _expect({7: 140, 8: 70, 9: 280})}
+# the QLoRA checkpoint's NF4 linears, by their sgm keys: the CLI's set (the
+# transformers' attention and feed-forward linears and their projections)
+QLORA_QUANT_KEYS = ["attn1.", "attn2.", "ff.net.", "proj_in.", "proj_out."]
+# sdxl_lora_parity: sdxl_parity's model (full widths, one layer and one
+# transformer per stage) at 512^2 from cached latents, 75 tokens; a step
+# runs #7 / #8 in the level-2 self-attentions (S 1024: 1 down, 2 up) and,
+# NF4, #9 in the products of at most 1024 rows: the 7 cross-attentions'
+# to_k / to_v (2 x 77 rows) and the 40 other quantized products of the
+# level-3 and middle transformers (2 x 256 rows)
+SDXL_LORA_PARITY_LAUNCHES = {"bf16": _expect({7: 3, 8: 3}),
+                             "nf4": _expect({7: 3, 8: 3, 9: 54})}
+# sdxl_lora_parity's floors, card against CPU: the loss within the bf16
+# training-step floor (2e-2); each LoRA gradient within 1e-1 relative L2 (the
+# bf16 training-step floor), or within 1.5 times the witness's error where
+# bf16 alone puts it further: the witness is the same step on the card with
+# the plain versions (no kernel) against the CPU. A LoRA gradient summed over
+# tokens cancels, so the two devices' bf16 roundings upstream of it move it by
+# more than 1e-1 with no kernel in the step (measured 0.139 on a
+# cross-attention to_q adapter, plain attention, no NF4, NVIDIA H100 80GB
+# HBM3 700 W; median 0.038). Both floors must fail the wrong kernels the phase
+# runs.
+SDXL_LORA_PARITY_FLOOR = {"loss": 2e-2, "grad": 1e-1, "witness": 1.5}
+
+
+def _write_sdxl_images(folder: str) -> None:
+    """SDXL_TRAIN_IMAGES 1024^2 images (smooth colour fields with noise) with
+    captions: the data the configs name is not in the repository."""
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:1024, 0:1024] / 1024.0
+    for i in range(SDXL_TRAIN_IMAGES):
+        base = np.stack([np.sin(3 * xx + i), np.cos(2 * yy - i), xx * yy], -1)
+        pixels = (127.5 * (base + 1) + rng.normal(0, 12, size=base.shape))
+        Image.fromarray(np.clip(pixels, 0, 255).astype(np.uint8)).save(
+            os.path.join(folder, f"img{i}.png"))
+        with open(os.path.join(folder, f"img{i}.txt"), "w") as f:
+            f.write(f"1girl, solo, looking at viewer, colorful background {i}, "
+                    "masterpiece, high score, absurdres")
+
+
+def _write_nf4_checkpoint(path: str) -> dict:
+    """A random-weight SDXL checkpoint in the sgm layout, fp16, its UNet
+    linears (QLORA_QUANT_KEYS) NF4-prequantized by ``quantize_state_dict``
+    on the card."""
+    from safetensors.numpy import save_file
+
+    from vision_pt_tpu_torch.models.sdxl import SDXLConfig, SDXLModel
+    from vision_pt_tpu_torch.ops.quant.functional import quantize_state_dict
+
+    t0 = time.perf_counter()
+    model = SDXLModel.from_config(SDXLConfig(checkpoint_path="", dtype="bfloat16"),
+                                  seed=0, device="cuda", param_dtype=torch.float16)
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    unet = [k for k in sd if k.startswith("model.diffusion_model.")]
+    quantized = quantize_state_dict({k: sd.pop(k) for k in unet}, "bnb_nf4",
+                                    QLORA_QUANT_KEYS, device="cuda")
+    sd.update(quantized)
+    save_file({k: np.ascontiguousarray(v) for k, v in sd.items()}, path)
+    return {"nf4_linears": sum(k.endswith(".quant_state.bitsandbytes__nf4") for k in sd),
+            "bytes": os.path.getsize(path), "seconds": time.perf_counter() - t0}
+
+
+def _sdxl_train_config(tmp: str, label: str, checkpoint: str | None) -> tuple[str, list]:
+    """The shipped config with its cuts: returns the written path and the
+    cuts, listed."""
+    import yaml
+
+    with open(os.path.join(ROOT, SDXL_TRAIN_CONFIGS[label])) as f:
+        cfg = yaml.safe_load(f)
+    with open(os.path.join(ROOT, cfg["preview"]["data"]["path"])) as f:
+        preview = yaml.safe_load(f)[:1]
+    work = os.path.join(tmp, label)
+    os.makedirs(work, exist_ok=True)
+    preview[0]["num_steps"] = 2
+    with open(os.path.join(work, "preview.yml"), "w") as f:
+        yaml.safe_dump(preview, f)
+    cfg["model"].update(checkpoint_path=checkpoint, tokenizer="word-hash")
+    cfg["dataset"]["folder"] = os.path.join(tmp, "images")
+    cfg["num_train_epochs"] = 1
+    cfg["tracker"]["log_dir"] = os.path.join(work, "logs")
+    cfg["saving"]["callbacks"][0]["save_dir"] = os.path.join(work, "out")
+    cfg["preview"]["callbacks"][0]["save_dir"] = os.path.join(work, "preview")
+    cfg["preview"]["data"]["path"] = os.path.join(work, "preview.yml")
+    path = os.path.join(work, "config.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    cuts = ["random weights from the seed" if checkpoint is None else
+            "random weights from a seed, NF4-prequantized in-process "
+            "(quantize_state_dict)",
+            "word-hash tokenizer (the repository has no CLIP vocabulary)",
+            f"{SDXL_TRAIN_IMAGES} synthetic 1024^2 images with captions, "
+            f"num_repeats 4, batch 2: 1 epoch of {SDXL_TRAIN_STEPS} steps",
+            "output paths in a temporary directory",
+            "preview: the first prompt of configs/sdxl/preview.yml, 2 steps"]
+    return path, cuts
+
+
+def phase_sdxl_trainer(tmp: str, label: str) -> tuple[int, ...]:
+    """The port's SDXL entry point (``train.sdxl.text_to_image.run``) on the
+    shipped LoRA or QLoRA config at full width and depth, 1024^2, its cuts
+    listed in the phase line; returns the kernel launches of the run."""
+    from vision_pt_tpu_torch.train.sdxl.text_to_image import run
+    from vision_pt_tpu_torch.training.trainer import Trainer
+
+    phase = f"sdxl_{label}_trainer"
+    if not os.path.isdir(os.path.join(tmp, "images")):
+        _write_sdxl_images(os.path.join(tmp, "images"))
+    checkpoint, written = None, None
+    if label == "qlora":
+        checkpoint = os.path.join(tmp, "sdxl_random.bnb_nf4.safetensors")
+        written = _write_nf4_checkpoint(checkpoint)
+    path, cuts = _sdxl_train_config(tmp, label, checkpoint)
+    per_step, step_seconds, peaks, inner = [], [], [], Trainer.train_step
+
+    def counting(self, *args, **kwargs):
+        if not per_step:
+            torch.cuda.reset_peak_memory_stats()
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        step_seconds.append(time.perf_counter() - t0)
+        per_step.append(_diff(_counts(), before))
+        peaks.append(torch.cuda.max_memory_allocated())
+        return out
+
+    Trainer.train_step = counting
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer = run(path)
+    finally:
+        Trainer.train_step = inner
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    work = os.path.join(tmp, label)
+    with open(os.path.join(work, "logs", os.listdir(os.path.join(work, "logs"))[0])) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    saved = os.listdir(os.path.join(work, "out"))
+    from safetensors.torch import load_file
+
+    lora = load_file(os.path.join(work, "out", saved[0])) if len(saved) == 1 else {}
+    tree = trainer.model.trainable()
+    adapters = sum(p.numel() for p in tree.parameters() if p.requires_grad)
+    timed = step_seconds[1:]
+    emit(phase, config=SDXL_TRAIN_CONFIGS[label], cuts=cuts, resolution=1024,
+         batch=2, optimizer=trainer.config.optimizer.name,
+         gradient_checkpointing=trainer.config.trainer.gradient_checkpointing,
+         checkpoint=written, steps=trainer.global_step, run_seconds=seconds,
+         step_seconds=step_seconds,
+         seconds_per_step_2_to_4=sum(timed) / max(len(timed), 1),
+         peak_memory_bytes=max(peaks) if peaks else None, losses=losses,
+         launches_per_step=per_step, expected_per_step=SDXL_TRAIN_LAUNCHES[label],
+         run_launches=counts, adapter_params=adapters, lora_file_keys=len(lora),
+         previews=len(os.listdir(os.path.join(work, "preview"))))
+    check(trainer.global_step == SDXL_TRAIN_STEPS and len(losses) == SDXL_TRAIN_STEPS
+          and all(np.isfinite(losses)), f"{phase} losses {losses}")
+    check(per_step == [SDXL_TRAIN_LAUNCHES[label]] * SDXL_TRAIN_STEPS,
+          f"{phase} launches per step {per_step}, expected "
+          f"{SDXL_TRAIN_LAUNCHES[label]}")
+    # 700 adapted linears (attn1, attn2, .ff.), 3 tensors each
+    check(len(lora) == 3 * 700 and all(k.startswith("diffusion_model.") for k in lora),
+          f"{phase} LoRA file with {len(lora)} tensors")
+    if label == "qlora":
+        # where a QLoRA step's time goes (the dense NF4 dequantization of the
+        # products over 1024 rows among it): one more step, profiled
+        batch = trainer.model.prepare_batch(next(iter(trainer.train_dataset)))
+        profile(f"{phase}_step", lambda: trainer.train_step(batch,
+                                                            trainer._next_generator()))
+    del trainer, tree
+    torch.cuda.empty_cache()
+    if checkpoint is not None:
+        os.remove(checkpoint)
+    return counts
+
+
+def phase_sdxl_lora_parity() -> None:
+    """One LoRA training step, card against CPU: sdxl_parity's model at
+    512^2, random weights, nonzero lora_up, cached latents, injected draws,
+    bf16; then with the UNet NF4. Held to SDXL_LORA_PARITY_FLOOR, with the
+    card's plain versions as the witness."""
+    import copy
+
+    import yaml
+
+    import vision_pt_tpu_torch.ops.attention as attention
+    from vision_pt_tpu_torch.config import TrainConfig
+    from vision_pt_tpu_torch.ops.quant import layers as qlayers
+    from vision_pt_tpu_torch.ops.quant import quantize_inplace
+    from vision_pt_tpu_torch.peft import (
+        LoRAConfig,
+        adapter_parameters,
+        freeze_all_but_adapters,
+        replace_to_peft_layer,
+    )
+    from vision_pt_tpu_torch.tools import inference_cli as cli
+    from vision_pt_tpu_torch.workloads.sdxl_text_to_image import (
+        SDXLForTextToImageTraining,
+    )
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    with open(os.path.join(ROOT, SDXL_TRAIN_CONFIGS["lora"])) as f:
+        peft = yaml.safe_load(f)["peft"]
+    config = TrainConfig.model_validate({
+        "model": {"checkpoint_path": None, "dtype": "bfloat16", "tokenizer": "word-hash",
+                  "max_token_length": 75,
+                  "denoiser": {"layers_per_block": 1,
+                               "num_transformers_per_block": [1, 1, 1]}},
+        "dataset": {}, "peft": peft, "seed": 1})
+    rng = np.random.default_rng(6)
+    batch = {"latents": rng.normal(size=(2, 64, 64, 4)).astype(np.float32),
+             "caption": ["1girl, solo, red hair, looking at viewer",
+                         "a red fox in the snow, detailed fur"],
+             "original_size": np.full((2, 2), 512, np.int32),
+             "target_size": np.full((2, 2), 512, np.int32),
+             "crop_coords_top_left": np.zeros((2, 2), np.int32)}
+    draws = {"timesteps": torch.tensor([150, 700], dtype=torch.int32),
+             "noise": torch.from_numpy(rng.normal(size=(2, 64, 64, 4)).astype(np.float32))}
+
+    def step(workload, kernels=True):
+        """Loss, LoRA gradients, launches and seconds of one step; with
+        ``kernels`` the gates are open (the CPU runs the same path through
+        the plain versions), without, the card takes the plain versions."""
+        arrays = workload.prepare_batch(batch)
+        trainable = workload.trainable()
+        trainable.zero_grad(set_to_none=True)
+        _reset_counts()
+        gates = attention._on_cuda, qlayers._on_cuda
+        attention._on_cuda = qlayers._on_cuda = lambda x: kernels
+        t0 = time.perf_counter()
+        try:
+            loss, _ = workload.compute_loss(
+                trainable, arrays, {k: v.to(workload.device) for k, v in draws.items()})
+            loss.backward()
+        finally:
+            attention._on_cuda, qlayers._on_cuda = gates
+        grads = {n: p.grad.float().cpu().numpy() for n, p in trainable.named_parameters()
+                 if p.requires_grad}
+        return float(loss.detach()), grads, _counts(), time.perf_counter() - t0
+
+    def errors(ours, theirs):
+        return (abs(ours[0] - theirs[0]) / abs(theirs[0]),
+                {n: _rel_l2(ours[1][n], theirs[1][n]) for n in theirs[1]})
+
+    def verdict(run, host, witness):
+        """The names of the gradients over their floor (loss as "loss")."""
+        loss_err, grad_err = errors(run, host)
+        floor = SDXL_LORA_PARITY_FLOOR
+        over = [n for n, e in grad_err.items()
+                if e > max(floor["grad"], floor["witness"] * witness[n])]
+        return over + (["loss"] if loss_err > floor["loss"] else [])
+
+    card = SDXLForTextToImageTraining(config, torch.device("cuda"))
+    card.setup_model()
+    for label in ("bf16", "nf4"):
+        if label == "nf4":
+            card.setup_model()
+            quantize_inplace(card.model.denoiser, "bnb_nf4", cli.INCLUDE_KEYS,
+                             cli.EXCLUDE_KEYS)
+        tree = card._full_trainable
+        replace_to_peft_layer(tree, peft["include_keys"], peft["exclude_keys"],
+                              LoRAConfig.model_validate(peft["config"]), seed=1)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        with torch.no_grad():
+            for name, p in tree.named_parameters():
+                if name.endswith("lora_up.weight"):
+                    p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.05)
+        freeze_all_but_adapters(tree)
+        card._is_peft = True
+        host = SDXLForTextToImageTraining(config, torch.device("cpu"))
+        host.model, host._full_trainable = copy.deepcopy((card.model, tree))
+        host.model.to("cpu")
+        host._is_peft = True
+        run = step(card)
+        plain = step(card, kernels=False)
+        cpu = step(host)
+        loss_err, grad_err = errors(run, cpu)
+        witness = errors(plain, cpu)[1]
+        worst = max(grad_err, key=grad_err.get)
+        over = verdict(run, cpu, witness)
+        # the floors must fail a kernel that is wrong in every launch: #7 / #8
+        # with the last key tile (64 keys) left out, and #9 with one scale
+        # row 25% off
+        kernel, flash = qlayers.dequant_matmul_4bit, attention.flash_attention
+
+        def short_flash(q, k, v, kv_lens=None, **kw):
+            lens = torch.full((q.shape[0],), k.shape[1] - 64, dtype=torch.int32,
+                              device=q.device)
+            return flash(q, k, v, lens, **kw)
+
+        def wrong_nf4(x, packed, absmax, quant_type="nf4"):
+            absmax = absmax.clone()
+            absmax[3] *= 1.25
+            return kernel(x, packed, absmax, quant_type)
+
+        wrong = {}
+        for wrong_label, module, name, fn in (
+                ("flash_last_tile_dropped", attention, "flash_attention", short_flash),
+                ("nf4_absmax_row_perturbed", qlayers, "dequant_matmul_4bit", wrong_nf4)):
+            if label == "bf16" and module is qlayers:
+                continue
+            real = getattr(module, name)
+            setattr(module, name, fn)
+            try:
+                wrong[wrong_label] = verdict(step(card), cpu, witness)
+            finally:
+                setattr(module, name, real)
+        emit("sdxl_lora_parity", unet=label, resolution=512, batch=2,
+             depth="layers_per_block 1, one transformer per stage",
+             inputs="cached latents, 75 tokens, injected draws, lora_up nonzero",
+             adapters=len(grad_err), loss_cuda=run[0], loss_cpu=cpu[0],
+             loss_cuda_plain=plain[0], loss_rel_err=loss_err,
+             grad_rel_l2_max=grad_err[worst], worst_param=worst,
+             worst_witness=witness[worst],
+             grad_rel_l2_median=float(np.median(list(grad_err.values()))),
+             witness_max=max(witness.values()),
+             witness_median=float(np.median(list(witness.values()))),
+             card_vs_plain_max=max(errors(run, plain)[1].values()),
+             over_floor=over, wrong_kernel_over_floor=wrong,
+             floor=SDXL_LORA_PARITY_FLOOR, launches_cuda=run[2],
+             launches_cuda_plain=plain[2], launches_cpu=cpu[2],
+             expected_cuda=SDXL_LORA_PARITY_LAUNCHES[label], seconds_cuda=run[3],
+             seconds_cpu=cpu[3])
+        check(np.isfinite(run[0]) and all(np.isfinite(g).all() for g in run[1].values()),
+              "non-finite SDXL LoRA parity step")
+        check(run[1].keys() == cpu[1].keys() and len(run[1]) == 2 * 70
+              and len(list(adapter_parameters(tree))) == 2 * 70,
+              f"{len(run[1])} LoRA gradients, expected {2 * 70}")
+        check(run[2] == SDXL_LORA_PARITY_LAUNCHES[label] and plain[2] == _expect({})
+              and cpu[2] == _expect({}),
+              f"SDXL LoRA parity launches: card {run[2]}, expected "
+              f"{SDXL_LORA_PARITY_LAUNCHES[label]}; plain {plain[2]} and CPU "
+              f"{cpu[2]}, expected none")
+        check(not over, f"SDXL LoRA {label} parity over its floors: {over[:4]}")
+        check(all(wrong.values()),
+              f"an SDXL LoRA parity floor passes a wrong kernel: {wrong}")
+        del host, cpu, plain, run
     del card
     torch.cuda.empty_cache()
 
@@ -1913,11 +2365,16 @@ def main(args: list[str]) -> int:
         phase_latent_parity(tmp)
     launches.update(phase_sdxl_sampler())
     phase_sdxl_parity()
+    with tempfile.TemporaryDirectory() as tmp:
+        for label in ("lora", "qlora"):
+            launches[f"sdxl_{label}_trainer"] = phase_sdxl_trainer(tmp, label)
+    phase_sdxl_lora_parity()
     kernels = []
     # each kernel's launches are those of its main path: the training step
     # for the packed kernels, the short backend's path for #3-#6, the latent
-    # trainer for the flash kernels (the SDXL requests beside them), the NF4
-    # SDXL request for kernel #9, the probe tools for #10 and #11
+    # trainer for the flash kernels (the SDXL requests and trainers beside
+    # them), the NF4 SDXL request for kernel #9 (the QLoRA trainer beside
+    # it), the probe tools for #10 and #11
     for number, (row, kernel, path) in enumerate((
             (rows["train"], "short_attention_packed", "train_step"),
             (rows["train_bwd"], "short_attention_packed_bwd", "train_step"),
@@ -1941,7 +2398,10 @@ def main(args: list[str]) -> int:
     kernels[1]["retimed_ms"] = short_rows["packed_bwd"]["ms"]  # short_timing
     kernels[6]["sdxl_timing"] = [{**rows[label], "max_abs_err": errors[label]}
                                  for label in ("sdxl_s4096", "sdxl_s1024")]
-    kernels[8]["other_shapes"] = [nf4_rows["path_n640"], nf4_rows["bench"]]
+    kernels[7]["sdxl_timing"] = [{**rows[f"{label}_bwd"], "shape": label}
+                                 for label in ("sdxl_s4096", "sdxl_s1024")]
+    kernels[8]["other_shapes"] = [{**nf4_rows[label], "shape": label} for label in
+                                  ("path_n640", "qlora_n640", "qlora_n1280", "bench")]
     emit("done", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": kernels}))
     print(smi)

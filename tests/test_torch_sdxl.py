@@ -401,6 +401,17 @@ def test_cli_runs_on_the_cpu(models, tmp_path):
 
 
 def test_gradient_checkpointing_names_the_training_slice():
+    """The training slice has come: per-layer recompute gives the UNet's
+    output and input gradient unchanged."""
     unet = Denoiser(DenoiserConfig(**TINY_UNET))
-    with pytest.raises(NotImplementedError, match="training"):
-        unet.set_gradient_checkpointing(True)
+    args = [torch.from_numpy(a) for a in _unet_inputs(2, 16, 32)]
+    outs = []
+    for enable in (False, True):
+        unet.set_gradient_checkpointing(enable)
+        assert unet.input_blocks.gradient_checkpointing is enable
+        latents = args[0].clone().requires_grad_(True)
+        out = unet(latents, *args[1:])
+        out.square().mean().backward()
+        outs.append((out.detach(), latents.grad))
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=0, atol=0)
+    torch.testing.assert_close(outs[1][1], outs[0][1], rtol=1e-6, atol=1e-9)

@@ -189,7 +189,7 @@ def test_adamw_has_optax_defaults():
     assert isinstance(opt, torch.optim.AdamW)
     assert (group["weight_decay"], group["eps"], group["betas"]) == (1e-4, 1e-8, (0.9, 0.95))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_optimizer("schedulefree.RAdamScheduleFree", [p])
+        get_optimizer("prodigy", [p])
 
 
 def test_adamw_step_matches_optax():

@@ -61,8 +61,9 @@ DEBUG_MODE_TYPE = Literal[False, "sanity_check", "1step", "dataset"]
 
 
 class CheckpointingConfig(BaseModel):
-    """Full train-state checkpoint and resume; not ported yet (the Trainer
-    raises when ``save_dir`` is set)."""
+    """Full train-state checkpoints under ``save_dir`` every ``per_steps``
+    steps (and on SIGTERM and at the end), the newest ``keep`` kept; with
+    ``resume`` a run continues from the newest."""
 
     save_dir: str | None = None
     per_steps: int | None = None

@@ -10,8 +10,9 @@ Reads the JAX package's cache layout under ``cache_dir``:
 Training draws ``mean + std * eps`` with the bucket's per-(seed, epoch, index)
 generator, exactly as the JAX package does, so both packages give the same
 arrays from the same cache. Latents are NHWC. Writing a cache runs the SDXL
-VAE (``models.sdxl.vae``, ported) over the text-to-image bucket dataset,
-which is not ported yet: :func:`cache_latents` raises.
+VAE (``models.sdxl.vae``) over the text-to-image bucket dataset
+(``data.text_to_image``); that writer is not ported yet:
+:func:`cache_latents` raises.
 """
 
 from __future__ import annotations
@@ -33,10 +34,10 @@ def cache_latents(*args, **kwargs) -> str:
     """The batched VAE encode pass that writes a cache; it iterates the
     text-to-image bucket dataset."""
     raise NotImplementedError(
-        "cache_latents iterates the text-to-image bucket dataset "
-        "(vision_pt_tpu/data/text_to_image.py), which is not ported yet: "
-        "ROADMAP Queue 1, slice 5; build the cache with the JAX package's "
-        "tools/data/cache_latents.py"
+        "cache_latents (the VAE encode pass over the text-to-image dataset) "
+        "is not ported yet: ROADMAP Queue 1 item 3, a leftover of the SDXL "
+        "training slice (slice 5 of the first plan); build the cache with the "
+        "JAX package's tools/data/cache_latents.py"
     )
 
 

@@ -1,6 +1,6 @@
-"""Image transforms of the class-image dataset (the port's own copy of the
-part of ``vision_pt_tpu/data/transforms.py`` it uses), PIL + NumPy. Images
-flow as NumPy float32 HWC in [-1, 1]."""
+"""Image transforms of the class-image and text-image datasets (the port's
+own copy of the part of ``vision_pt_tpu/data/transforms.py`` they use),
+PIL + NumPy. Images flow as NumPy float32 HWC in [-1, 1]."""
 
 from __future__ import annotations
 
@@ -29,3 +29,33 @@ def resize_max_side(img: Image.Image, max_size: int) -> Image.Image:
     return img.resize(
         (int(round(w * scale)), int(round(h * scale))), Image.Resampling.BICUBIC
     )
+
+
+class ObjectCoverResize:
+    """CSS ``object-fit: cover``: scale (bicubic) to cover (width, height),
+    keeping the aspect; without ``do_upscale`` a smaller image keeps its
+    size. The crop to the exact size follows."""
+
+    def __init__(self, width: int, height: int, do_upscale: bool = True):
+        self.width = width
+        self.height = height
+        self.do_upscale = do_upscale
+
+    def __call__(self, img: Image.Image) -> Image.Image:
+        w, h = img.size
+        scale = max(self.width / w, self.height / h)
+        if scale > 1.0 and not self.do_upscale:
+            scale = 1.0
+        new_w = max(self.width, int(round(w * scale)))
+        new_h = max(self.height, int(round(h * scale)))
+        return img.resize((new_w, new_h), Image.Resampling.BICUBIC)
+
+
+def random_crop(arr: np.ndarray, height: int, width: int,
+                rng: np.random.Generator) -> tuple[np.ndarray, tuple[int, int]]:
+    """A random (height, width) crop and its (top, left), for SDXL's size
+    conditioning."""
+    h, w = arr.shape[:2]
+    top = int(rng.integers(0, max(h - height, 0) + 1))
+    left = int(rng.integers(0, max(w - width, 0) + 1))
+    return arr[top : top + height, left : left + width], (top, left)

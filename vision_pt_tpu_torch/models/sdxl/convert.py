@@ -129,6 +129,17 @@ def convert_to_comfy_key(key: str) -> str:
     return key
 
 
+def convert_from_comfy_key(key: str) -> str:
+    """The inverse of :func:`convert_to_comfy_key`: an exported LoRA key back
+    to its module path in the training tree."""
+    key = key.replace("clip_l.", "text_encoder.text_encoder_1.", 1)
+    key = key.replace("clip_g.", "text_encoder.text_encoder_2.", 1)
+    if key.startswith("diffusion_model."):
+        key = key.replace("diffusion_model.", "denoiser.", 1)
+        key = unet_block_convert_from_original_key(key)
+    return key
+
+
 # ------------------------------------------------- internal torch <-> port
 
 # the reference's sequential indices and container names -> the port's
@@ -184,19 +195,28 @@ def fix_vae_attention_projections(sd: dict) -> dict:
     return sd
 
 
+_LORA_LEAVES = {"lora_down": "lora_down.weight", "lora_up": "lora_up.weight",
+                "lora_up_bias": "lora_up.bias"}
+
+
 def from_jax_state(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     """The JAX package's parameters (``flatten_state`` keys, as numpy) -> the
     port's ``state_dict``: a linear ``kernel`` (in, out) becomes ``weight``
     (out, in), a conv ``kernel`` HWIO becomes ``weight`` OIHW, a norm
-    ``scale`` and an embedding table become ``weight``."""
+    ``scale`` and an embedding table become ``weight``, and a LoRA factor
+    (``lora_down`` (in, rank), ``lora_up`` (rank, out)) its kohya-layout
+    ``weight``."""
     out: dict[str, torch.Tensor] = {}
     for key, value in flat.items():
         value = np.asarray(value)
-        base, _, leaf = key.rpartition(".")
+        base, dot, leaf = key.rpartition(".")
         if leaf == "kernel":
             value = value.T if value.ndim == 2 else value.transpose(3, 2, 0, 1)
-            key = f"{base}.weight"
+            key = f"{base}{dot}weight"
         elif leaf in ("scale", "embedding"):
-            key = f"{base}.weight"
+            key = f"{base}{dot}weight"
+        elif leaf in _LORA_LEAVES:
+            value = value.T if value.ndim == 2 else value
+            key = f"{base}{dot}{_LORA_LEAVES[leaf]}"
         out[key] = torch.from_numpy(np.array(value))
     return out

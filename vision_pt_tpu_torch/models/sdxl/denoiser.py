@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import dot_product_attention
 from ...ops.linear import Conv2d, Linear
@@ -272,6 +273,18 @@ def _apply_layer(layer, hidden_states, context, global_embedding):
     return layer(hidden_states)  # conv stem / Downsample / Upsample
 
 
+def _apply_layer_remat(layer, hidden_states, context, global_embedding):
+    """Per-layer recompute, the JAX package's ``nnx.remat`` of each layer:
+    the backward runs the layer's forward again instead of keeping its
+    activations (what fits 1024^2 training batches in memory)."""
+    return checkpoint(_apply_layer, layer, hidden_states, context,
+                      global_embedding, use_reentrant=False)
+
+
+def _layer_fn(gradient_checkpointing: bool):
+    return _apply_layer_remat if gradient_checkpointing else _apply_layer
+
+
 def _spatial_transformer(channels, num_head_channels, num_transformers,
                          context_dim, kw):
     return SpatialTransformer(
@@ -316,13 +329,14 @@ class DownBlocks(nn.Module):
                 blocks.append([Downsample(out_channels, out_channels,
                                           use_resample=conv_resample, **kw)])
         self.blocks = nn.ModuleList(nn.ModuleList(layers) for layers in blocks)
+        self.gradient_checkpointing = False
 
     def forward(self, hidden_states, context, global_embedding) -> DownBlocksOutput:
+        apply = _layer_fn(self.gradient_checkpointing)
         skips = []
         for layers in self.blocks:
             for layer in layers:
-                hidden_states = _apply_layer(layer, hidden_states, context,
-                                             global_embedding)
+                hidden_states = apply(layer, hidden_states, context, global_embedding)
             skips.append(hidden_states)
         return DownBlocksOutput(hidden_states, skips)
 
@@ -341,11 +355,12 @@ class MidBlock(nn.Module):
                                                num_transformers, context_dim, kw))
         blocks.append(ResidualBlock(hidden_dim, time_embed_dim, hidden_dim, **kw))
         self.blocks = nn.ModuleList(blocks)
+        self.gradient_checkpointing = False
 
     def forward(self, hidden_states, context, global_embedding):
+        apply = _layer_fn(self.gradient_checkpointing)
         for layer in self.blocks:
-            hidden_states = _apply_layer(layer, hidden_states, context,
-                                         global_embedding)
+            hidden_states = apply(layer, hidden_states, context, global_embedding)
         return hidden_states
 
 
@@ -383,14 +398,15 @@ class UpBlocks(nn.Module):
                                           use_resample=conv_resample, **kw))
             blocks.extend(stage)
         self.blocks = nn.ModuleList(nn.ModuleList(layers) for layers in blocks)
+        self.gradient_checkpointing = False
 
     def forward(self, hidden_states, context, global_embedding, skip_connections):
+        apply = _layer_fn(self.gradient_checkpointing)
         skips = list(skip_connections)
         for layers in self.blocks:
             hidden_states = torch.cat([hidden_states, skips.pop()], dim=-1)
             for layer in layers:
-                hidden_states = _apply_layer(layer, hidden_states, context,
-                                             global_embedding)
+                hidden_states = apply(layer, hidden_states, context, global_embedding)
         return hidden_states
 
 
@@ -482,10 +498,10 @@ class UNet(nn.Module):
         return self.out_conv(F.silu(self.out_norm(h)))
 
     def set_gradient_checkpointing(self, enable: bool):
-        raise NotImplementedError(
-            "SDXL training is not ported yet (ROADMAP Queue 1, the SDXL QLoRA "
-            "training slice): the port's UNet samples only"
-        )
+        """Recompute each layer of the input, middle and output blocks in
+        the backward."""
+        for blocks in (self.input_blocks, self.middle_block, self.output_blocks):
+            blocks.gradient_checkpointing = enable
 
 
 class Denoiser(UNet):

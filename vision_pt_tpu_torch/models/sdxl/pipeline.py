@@ -19,6 +19,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from ...ops.quant.functional import replace_by_prequantized_weights
 from ...utils import PromptType, resolve_device
 from ...utils import tensor as tensor_utils
 from ...utils.state_dict import (
@@ -100,6 +101,8 @@ class SDXLModel:
                 _TE2: self.text_encoder.text_encoder_2}
 
     def _load_checkpoint(self, checkpoint_path: str, strict: bool = True):
+        """Load an sgm single-file checkpoint, plain or with linears
+        prequantized in the bnb layout (``quantize_state_dict``)."""
         from safetensors.numpy import load_file
 
         sd = {convert_from_original_key(k): v
@@ -112,9 +115,18 @@ class SDXLModel:
         parts[_TE2] = convert_open_clip_to_transformers(parts[_TE2])
         parts["vae."] = fix_vae_attention_projections(parts["vae."])
         for prefix, module in self._submodules().items():
-            port_sd = {torch_to_port_key(k): torch.from_numpy(np.array(v))
-                       for k, v in parts[prefix].items()}
-            module.load_state_dict(port_sd, strict=strict)
+            port_sd = {torch_to_port_key(k): v for k, v in parts[prefix].items()}
+            # prequantized linears (bnb quant-state keys beside the packed
+            # weight) are swapped for quantized layers holding those weights
+            for path in replace_by_prequantized_weights(module, port_sd):
+                weight = f"{path}.weight"
+                port_sd = {k: v for k, v in port_sd.items()
+                           if k != weight and not k.startswith(weight + ".")}
+                port_sd.update({f"{path}.{name}": buf for name, buf in
+                                module.get_submodule(path).named_buffers()})
+            module.load_state_dict(
+                {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+                 for k, v in port_sd.items()}, strict=strict)
 
     @classmethod
     def from_checkpoint(cls, config: SDXLConfig, **kw) -> "SDXLModel":

@@ -14,6 +14,7 @@ Tokenizers are pluggable: an HF ``CLIPTokenizer`` built from local files, or
 
 from __future__ import annotations
 
+import os
 import zlib
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -79,6 +80,19 @@ class WordHashTokenizer:
             ids += [self.pad_token_id] * (max_length - len(ids))
             out.append(ids)
         return {"input_ids": np.asarray(out, dtype=np.int64)}
+
+
+def load_tokenizers(spec: str):
+    """(tokenizer_1, tokenizer_2) from a local directory holding the two CLIP
+    tokenizers (``tokenizer/``, ``tokenizer_2/``, HF layout), or the
+    word-hash stand-in for ``"word-hash"``. Nothing is downloaded."""
+    if spec == "word-hash":
+        return WordHashTokenizer(), WordHashTokenizer()
+    from transformers import CLIPTokenizer
+
+    return tuple(CLIPTokenizer.from_pretrained(os.path.join(spec, sub),
+                                               local_files_only=True)
+                 for sub in ("tokenizer", "tokenizer_2"))
 
 
 def _act(name: str):

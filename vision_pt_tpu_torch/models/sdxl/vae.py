@@ -200,12 +200,15 @@ class DiagonalGaussian(NamedTuple):
     mean: torch.Tensor
     logvar: torch.Tensor
 
-    def sample(self, generator: torch.Generator | None = None) -> torch.Tensor:
-        """mean + std * noise, the noise drawn from ``generator``."""
+    def sample(self, generator: torch.Generator | None = None,
+               noise: torch.Tensor | None = None) -> torch.Tensor:
+        """mean + std * noise, the standard-normal noise given or drawn from
+        ``generator``."""
         std = torch.exp(0.5 * torch.clamp(self.logvar, -30.0, 20.0))
-        noise = torch.randn(self.mean.shape, generator=generator,
-                            device=self.mean.device, dtype=self.mean.dtype)
-        return self.mean + std * noise
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator,
+                                device=self.mean.device, dtype=self.mean.dtype)
+        return self.mean + std * noise.to(self.mean.device, self.mean.dtype)
 
     @property
     def mode(self) -> torch.Tensor:

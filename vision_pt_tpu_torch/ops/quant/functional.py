@@ -22,7 +22,7 @@ from torch import nn
 from ...utils.state_dict import get_target_keys
 from ..linear import Linear
 from .layers import QuantLinear4bit, QuantLinearFP8, QuantLinearInt8
-from .nf4 import quantize_4bit, state_to_bnb_dict
+from .nf4 import quantize_4bit, quantize_4bit_device, state_to_bnb_dict
 
 QUANT_TYPE = Literal[
     "fp8_e4m3fn",
@@ -141,9 +141,12 @@ def quantize_state_dict(
     quant_type: QUANT_TYPE,
     include_keys: list[str],
     exclude_keys: list[str] = (),
+    device: str | torch.device | None = None,
 ) -> dict:
     """Offline checkpoint quantization: torch-layout (out, in) weights in,
-    bnb-format packed tensors out (fp8 as a torch float8_e4m3fn tensor)."""
+    bnb-format packed tensors out (fp8 as a torch float8_e4m3fn tensor).
+    With ``device``, each 4-bit weight is quantized there
+    (:func:`quantize_4bit_device`, the same codes) and fetched once."""
     if quant_type not in ("bnb_nf4", "bnb_fp4", "fp8_e4m3fn"):
         raise NotImplementedError(
             "Only bnb 4-bit and fp8_e4m3fn offline quantization is supported"
@@ -155,8 +158,16 @@ def quantize_state_dict(
         if key not in targets or not key.endswith(".weight"):
             continue
         if quant_type in ("bnb_nf4", "bnb_fp4"):
-            packed, state = quantize_4bit(np.asarray(out[key], dtype=np.float32),
-                                          quant_type=quant_type[len("bnb_"):])
+            four_bit = quant_type[len("bnb_"):]
+            if device is not None:
+                weight = out[key]
+                if not isinstance(weight, torch.Tensor):
+                    weight = torch.as_tensor(np.asarray(weight, dtype=np.float32))
+                packed, state = quantize_4bit_device(
+                    weight.to(device, torch.float32), quant_type=four_bit)
+            else:
+                packed, state = quantize_4bit(np.asarray(out[key], dtype=np.float32),
+                                              quant_type=four_bit)
             out[key] = packed
             for sk, sv in state_to_bnb_dict(state).items():
                 out[f"{key}.{sk}"] = sv

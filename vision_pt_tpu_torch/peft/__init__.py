@@ -1,0 +1,40 @@
+"""Parameter-efficient fine-tuning: LoRA adapters (port of
+``vision_pt_tpu/peft``; LoHa is not ported yet)."""
+
+from .config import LoHaConfig, LoRAConfig, PeftConfigMixin, PeftTargetConfig, RegexMatch
+from .functional import (
+    PeftLayer,
+    adapter_parameters,
+    calculate_trainable_parameters,
+    detect_peft_method,
+    freeze_all_but_adapters,
+    get_adapter_parameters,
+    load_peft_weight,
+    print_trainable_parameters,
+    replace_to_peft_layer,
+    set_peft_layer_enabled,
+    while_peft_disabled,
+    while_peft_enabled,
+)
+from .lora import LoRALinear
+
+__all__ = [
+    "LoRAConfig",
+    "LoHaConfig",
+    "LoRALinear",
+    "PeftConfigMixin",
+    "PeftLayer",
+    "PeftTargetConfig",
+    "RegexMatch",
+    "adapter_parameters",
+    "calculate_trainable_parameters",
+    "detect_peft_method",
+    "freeze_all_but_adapters",
+    "get_adapter_parameters",
+    "load_peft_weight",
+    "print_trainable_parameters",
+    "replace_to_peft_layer",
+    "set_peft_layer_enabled",
+    "while_peft_disabled",
+    "while_peft_enabled",
+]

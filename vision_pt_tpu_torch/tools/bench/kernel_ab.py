@@ -1,13 +1,15 @@
 """Device times of the redesigned kernels in two or more trees of the port,
 in one run on one card: kernel #9 (``dequant_matmul_4bit``) at the JAX
-package's bench shape (M 64, K = N = 8192) and at the SDXL sampler's
-cross-attention shapes (M 154, K 2048, N 1280 and 640), bf16, nf4; kernels
+package's bench shape (M 64, K = N = 8192), at the SDXL sampler's
+cross-attention shapes (M 154, K 2048, N 1280 and 640) and at the QLoRA
+trainer's (M 454: batch 2 x 227 context rows), bf16, nf4; kernels
 #2, #4, #6 (the short-attention backward: packed bounded, BSHD, BHSD) and
 the forwards #1, #3, #5 at JiT-B/16's training shape (B 64, S 298, 12 x 64,
 bf16), #1 also at the sampler's (B 16, S 266); the flash forward #7 at the
 latent trainer's shape (B 16, S 4106, 12 x 64, as a training step runs it,
 writing the lse) and at the SDXL sampler's two self-attentions (B 2, S 4096,
-10 heads; B 2, S 1024, 20 heads), the flash backward #8 at the latent shape;
+10 heads; B 2, S 1024, 20 heads), the flash backward #8 at the latent shape
+and at those two (the SDXL LoRA trainer's, batch 2);
 each beside its library call (the flash rows beside SDPA under its
 FLASH_ATTENTION backend); the probe kernels #10 (``run_variant``) and #11
 (``dots_variant``) at the probes' shape (B 64, S 304, 12 x 64, bf16), each
@@ -40,7 +42,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ["nf4_matmul", "short_attention", "short_attention_bwd",
            "flash_attention", "flash_attention_bwd", "attention_probe"]
 NF4_SHAPES = (("bench", 64, 8192, 8192), ("path", 154, 2048, 1280),
-              ("path_n640", 154, 2048, 640))
+              ("path_n640", 154, 2048, 640), ("qlora", 454, 2048, 1280),
+              ("qlora_n640", 454, 2048, 640))
 TRAIN, SAMPLER = (64, 298), (16, 266)
 HEADS, DIM = 12, 64
 FLASH_SHAPES = (("latent", 16, 4106, 12), ("sdxl_s4096", 2, 4096, 10),
@@ -179,14 +182,14 @@ def measure() -> dict:
         q, k, v, do = (torch.randn(batch, s, heads, DIM, generator=gen,
                                    device="cuda").to(bf16) for _ in range(4))
         bhsd = [x.transpose(1, 2) for x in (q, k, v, do)]
-        if label != "latent":  # the sampler's call: no lse, no autograd
+        forward, backward = _autograd(fa.flash_attention, (q, k, v))
+        sdpa_forward, sdpa_backward = _autograd(sdpa, bhsd[:3])
+        if label == "latent":  # as a training step runs it: with the lse
+            rows[f"flash_attention/{label}"] = _row(timing, forward, sdpa_forward, 20)
+        else:  # the sampler's call: no lse, no autograd
             rows[f"flash_attention/{label}"] = _row(
                 timing, lambda: fa.flash_attention(q, k, v),
                 lambda: sdpa(*bhsd[:3]), 20)
-            continue
-        forward, backward = _autograd(fa.flash_attention, (q, k, v))
-        sdpa_forward, sdpa_backward = _autograd(sdpa, bhsd[:3])
-        rows[f"flash_attention/{label}"] = _row(timing, forward, sdpa_forward, 20)
         rows[f"flash_attention_bwd/{label}"] = _row(
             timing, lambda: backward(do),
             _flash_sdpa(lambda: sdpa_backward(bhsd[3])), 10)

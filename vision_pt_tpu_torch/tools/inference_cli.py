@@ -18,11 +18,11 @@ caller can drive it on a model it built itself.
 from __future__ import annotations
 
 import argparse
-import os
 
 import torch
 
-from ..models.sdxl import SDXLConfig, SDXLModel, WordHashTokenizer
+from ..models.sdxl import SDXLConfig, SDXLModel
+from ..models.sdxl.text_encoder import load_tokenizers
 from ..ops.quant import quantize_inplace
 from ..utils.tensor import tensor_to_images
 
@@ -31,18 +31,6 @@ QUANT_TYPES = ("bnb_nf4", "bnb_fp4", "bnb_int8", "quanto_int8", "fp8_e4m3fn")
 # transformer projections, not the embedders or the output head
 INCLUDE_KEYS = ["attn", "ff", "proj_in", "proj_out"]
 EXCLUDE_KEYS = ["time_embed", "label_emb", "out_"]
-
-
-def load_tokenizers(spec: str):
-    """(tokenizer_1, tokenizer_2) from a local directory, or the word-hash
-    stand-in."""
-    if spec == "word-hash":
-        return WordHashTokenizer(), WordHashTokenizer()
-    from transformers import CLIPTokenizer
-
-    return tuple(CLIPTokenizer.from_pretrained(os.path.join(spec, sub),
-                                               local_files_only=True)
-                 for sub in ("tokenizer", "tokenizer_2"))
 
 
 def run(model: SDXLModel, prompt: str = "photo of a cat",

@@ -122,6 +122,21 @@ class ModelForTraining(ABC):
     def get_metadata_to_save(self) -> dict[str, str]:
         return {}
 
+    def peft_keys_to_paths(self, state_dict: dict) -> dict:
+        """An adapter file's keys -> module paths of the trainable (the
+        saved layout may rename them)."""
+        return state_dict
+
+    # ------------------------------------------------------------- resume
+
+    def get_host_rng_state(self) -> dict:
+        """The state of the workload's host-side generators, JSON-able, for
+        train-state checkpoints."""
+        return {}
+
+    def set_host_rng_state(self, state: dict) -> None:
+        pass
+
     # ------------------------------------------------------------- logging
 
     def print(self, *args, **kwargs):

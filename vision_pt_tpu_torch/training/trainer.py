@@ -14,13 +14,20 @@ The update matches the JAX package's optax chain step for step:
 - ``grad_norm`` is the global norm of the micro-step gradient, before
   clipping.
 Each step's random draws come from a ``torch.Generator`` seeded from
-(``seed``, step counter). Multi-device runs, PEFT, train-state
-checkpointing and profiling are not ported yet and raise.
+(``seed``, step counter), so a resumed run draws what an unbroken one does.
+Under PEFT the optimizer takes the adapters only, every other parameter
+frozen. Schedule-free optimizers train on y; previews and saves see the x
+parameters (``eval_params``), swapped in and back. Train-state checkpoints
+(``trainer.checkpointing``) hold the trainable, the optimizer, the EMA, the
+accumulation window, the step, epoch and generator counters and the
+workload's host generators; SIGTERM finishes the current step, saves and
+stops. Multi-device runs and profiling are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import itertools
+import signal
 import time
 from typing import Callable
 
@@ -35,11 +42,10 @@ from ..saving import ModelSavingStrategy, get_saving_callback
 from ..utils import resolve_device
 from ..utils.logging import get_trackers
 from . import ema as ema_lib
+from .checkpoint import TrainStateCheckpointer
 from .model import ModelForTraining
-from .optimizer import get_optimizer
+from .optimizer import get_optimizer, is_schedule_free
 from .scheduler import get_lr_schedule
-
-_NOT_PORTED = "ROADMAP Queue 1, slice 2 leftovers"
 
 
 def _global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
@@ -56,15 +62,14 @@ class Trainer:
         self.device = resolve_device(device)
         tcfg = config.trainer
         for unported, what in (
-            (tcfg.mesh is not None, "trainer.mesh (multi-GPU, slice 4)"),
-            (tcfg.distributed_init, "trainer.distributed_init (multi-GPU, slice 4)"),
-            (config.peft is not None, "peft (PEFT, slice 5)"),
-            (tcfg.checkpointing.save_dir is not None,
-             "trainer.checkpointing.save_dir (train-state checkpointing)"),
-            (tcfg.profile_dir is not None, "trainer.profile_dir (profiling)"),
+            (tcfg.mesh is not None, "trainer.mesh (multi-GPU): ROADMAP Queue 1 item 5"),
+            (tcfg.distributed_init,
+             "trainer.distributed_init (multi-GPU): ROADMAP Queue 1 item 5"),
+            (tcfg.profile_dir is not None,
+             "trainer.profile_dir (profiling): ROADMAP Queue 1 item 1"),
         ):
             if unported:
-                raise NotImplementedError(f"{what} is not ported yet: {_NOT_PORTED}")
+                raise NotImplementedError(f"{what} is not ported yet")
         self._configure_precision()
 
         self.model: ModelForTraining | None = None
@@ -89,6 +94,9 @@ class Trainer:
         self._updates = 0  # optimizer updates applied: the schedule's count
         self._mini_step = 0
         self._acc: list[torch.Tensor] | None = None
+        self._schedule_free = False
+        self.checkpointer: TrainStateCheckpointer | None = None
+        self._preempted = False
 
     # ------------------------------------------------------------ setup
 
@@ -126,7 +134,43 @@ class Trainer:
             raise RuntimeError("register_model_class first")
         self.model.before_setup_model()
         self.model.setup_model()
+        self.setup_peft_if_needed()
         self.model.after_setup_model()
+
+    def setup_peft_if_needed(self):
+        """Adapter surgery on the trainable, optional adapter weights to
+        resume from, and every other parameter frozen."""
+        if self.config.peft is None:
+            return
+        from safetensors.torch import load_file
+
+        from ..peft import (
+            PeftTargetConfig,
+            freeze_all_but_adapters,
+            load_peft_weight,
+            print_trainable_parameters,
+            replace_to_peft_layer,
+        )
+
+        raw = self.config.peft
+        targets = [PeftTargetConfig.model_validate(t)
+                   for t in (raw if isinstance(raw, list) else [raw])]
+        trainable = self.model.trainable()
+        for target in targets:
+            replaced = replace_to_peft_layer(trainable, target.include_keys,
+                                             target.exclude_keys, target.config,
+                                             seed=self.config.seed)
+            print(f"[peft] replaced {len(replaced)} layers ({target.config.type})")
+            if target.resume_weight_path:
+                sd = load_file(target.resume_weight_path)
+                for old, new in target.resume_rename_key_map.items():
+                    sd = {k.replace(old, new): v for k, v in sd.items()}
+                loaded = load_peft_weight(trainable, self.model.peft_keys_to_paths(sd))
+                print(f"[peft] resumed {len(loaded)} layers from "
+                      f"{target.resume_weight_path}")
+        freeze_all_but_adapters(trainable)
+        self.model._is_peft = True
+        print_trainable_parameters(trainable)
 
     def prepare_optimizer(self):
         cfg = self.config
@@ -141,8 +185,11 @@ class Trainer:
         trainable = self.model.trainable()
         self._params = [p for p in trainable.parameters() if p.requires_grad]
         opt_args = {k: v for k, v in args.items() if k not in ("lr", "learning_rate")}
-        self.optimizer = get_optimizer(cfg.optimizer.name, self._params, opt_args,
-                                       lr=self.lr_schedule(0))
+        # schedule-free takes the schedule itself (optax's two counts)
+        self._schedule_free = is_schedule_free(cfg.optimizer.name)
+        self.optimizer = get_optimizer(
+            cfg.optimizer.name, self._params, opt_args, lr=self.lr_schedule(0),
+            lr_schedule=self.lr_schedule if self._schedule_free else None)
         if cfg.trainer.use_ema:
             self.ema_state = ema_lib.init_ema(trainable)
 
@@ -178,6 +225,77 @@ class Trainer:
         self.prepare_saving_strategy()
         self.prepare_preview_strategy()
         self.prepare_optimizer()
+        self.prepare_checkpointing()
+
+    # ------------------------------------------------------------ train state
+
+    def prepare_checkpointing(self):
+        """Open the checkpoint directory and, with ``resume``, continue from
+        its latest step."""
+        ckpt_cfg = self.config.trainer.checkpointing
+        if ckpt_cfg.save_dir is None:
+            return
+        self.checkpointer = TrainStateCheckpointer(ckpt_cfg.save_dir, keep=ckpt_cfg.keep)
+        if not ckpt_cfg.resume or self.checkpointer.latest_step() is None:
+            return
+        meta = self.checkpointer.restore(self.model.trainable(), self.optimizer)
+        if meta["_ema"] is not None:
+            self.ema_state = meta["_ema"]
+        self._acc = meta["_extra"].get("accumulation")
+        self.global_step = int(meta["global_step"])
+        self.current_epoch = int(meta["epoch"])
+        self._key_counter = int(meta["key_counter"])
+        self._updates = int(meta["updates"])
+        self._mini_step = int(meta["mini_step"])
+        self.model.set_host_rng_state(meta["host_rng"])
+        if hasattr(self.train_dataset, "set_epoch"):
+            self.train_dataset.set_epoch(self.current_epoch)
+        print(f"[checkpoint] resumed from step {self.global_step}")
+
+    def save_train_state(self):
+        """Checkpoint the whole train state at the current step (nothing if
+        that step is saved already)."""
+        if self.checkpointer is None:
+            return
+        path = self.checkpointer.save(
+            self.global_step, self.model.trainable(), self.optimizer, self.ema_state,
+            metadata={"global_step": self.global_step, "epoch": self.current_epoch,
+                      "key_counter": self._key_counter, "updates": self._updates,
+                      "mini_step": self._mini_step,
+                      "host_rng": self.model.get_host_rng_state()},
+            extra={"accumulation": self._acc},
+        )
+        if path is not None:
+            print(f"[checkpoint] wrote {path}")
+
+    def _install_preemption_handler(self) -> Callable[[], None]:
+        """SIGTERM -> finish the current step, save the train state, leave
+        the loop. Returns the function that puts the previous handler back."""
+        try:
+            prev = signal.getsignal(signal.SIGTERM)
+
+            def handler(signum, frame):
+                self._preempted = True
+                print("[preemption] SIGTERM received: will checkpoint and stop "
+                      "after the current step", flush=True)
+
+            signal.signal(signal.SIGTERM, handler)
+            return lambda: signal.signal(signal.SIGTERM, prev)
+        except ValueError:  # not the main thread
+            return lambda: None
+
+    def _handle_preemption(self) -> bool:
+        """Save and stop if a SIGTERM arrived; True means stop."""
+        if not self._preempted:
+            return False
+        if self.checkpointer is not None:
+            self.save_train_state()
+            print(f"[preemption] train state saved at step {self.global_step}; "
+                  "resume with trainer.checkpointing.resume=true", flush=True)
+        else:
+            print("[preemption] no checkpointer configured: stopping without "
+                  "saving train state", flush=True)
+        return True
 
     # ------------------------------------------------------------ step
 
@@ -201,9 +319,10 @@ class Trainer:
             grads = [g * scale.to(g.dtype) for g in grads]
         for p, g in zip(self._params, grads):
             p.grad = g
-        lr = float(self.lr_schedule(self._updates))
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
+        if not self._schedule_free:
+            lr = float(self.lr_schedule(self._updates))
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
         self.optimizer.step()
         self._updates += 1
 
@@ -260,10 +379,19 @@ class Trainer:
             skip_steps = self.global_step - start_epoch * self.steps_per_epoch
         total = self.steps_per_epoch * (cfg.num_train_epochs - start_epoch)
         pbar = tqdm(total=total, desc="train", initial=skip_steps)
-        completed = self._training_epochs(cfg, debug, start_epoch, skip_steps, pbar)
+        self._preempted = False
+        restore_sigterm = self._install_preemption_handler()
+        try:
+            completed = self._training_epochs(cfg, debug, start_epoch, skip_steps,
+                                              pbar)
+            if completed:  # a SIGTERM after the last step's check
+                self._handle_preemption()
+        finally:
+            restore_sigterm()
         if not completed:
             return
         pbar.close()
+        self.save_train_state()  # the last step, so the run can be extended
         if self.saving_strategy is not None and self.saving_strategy.save_last:
             self._save_model(self.current_epoch + 1, self.global_step)
 
@@ -306,8 +434,13 @@ class Trainer:
 
                 self.call_saving_callbacks()
                 self.call_preview_callbacks()
+                per_steps = cfg.trainer.checkpointing.per_steps
+                if per_steps and self.global_step % per_steps == 0:
+                    self.save_train_state()
                 if debug == "1step":
                     print("debug_mode=1step: stopping after one step")
+                    return False
+                if self._handle_preemption():
                     return False
             self.model.after_train_epoch()
         return True
@@ -326,10 +459,32 @@ class Trainer:
             state_dict = {k.replace(old, new): v for k, v in state_dict.items()}
         return state_dict
 
+    def _swap_in_schedule_free_eval_params(self) -> dict | None:
+        """Put the schedule-free x parameters in place of y; returns y to
+        restore, or None for other optimizers."""
+        if not self._schedule_free:
+            return None
+        original = {}
+        with torch.no_grad():
+            for p, x in self.optimizer.eval_params().items():
+                original[p] = p.detach().clone()
+                p.copy_(x)
+        return original
+
+    @staticmethod
+    @torch.no_grad()
+    def _restore_params(original: dict | None):
+        for p, value in (original or {}).items():
+            p.copy_(value)
+
     def _save_model(self, epoch: int, steps: int):
         self.model.before_save_model()
         metadata = self.model.get_metadata_to_save() or None
-        state_dict = self._state_dict_to_save()
+        original = self._swap_in_schedule_free_eval_params()
+        try:
+            state_dict = self._state_dict_to_save()
+        finally:
+            self._restore_params(original)
         for cb in self.saving_callbacks:
             path = cb.save(state_dict, epoch, steps, metadata=metadata)
             print(f"[saving] wrote {path}")
@@ -353,13 +508,17 @@ class Trainer:
                                                     self.global_step):
             return
         self.model.before_preview()
-        for i, args in enumerate(self.preview_args):
-            images = self.model.preview_step(args, i)
-            for cb in self.preview_callbacks:
-                cb.preview(images, self.current_epoch + 1, self.global_step, i)
-            for tracker in self.trackers:
-                for j, img in enumerate(images):
-                    tracker.log_image(f"preview/{i}_{j}", img, self.global_step)
+        original = self._swap_in_schedule_free_eval_params()
+        try:
+            for i, args in enumerate(self.preview_args):
+                images = self.model.preview_step(args, i)
+                for cb in self.preview_callbacks:
+                    cb.preview(images, self.current_epoch + 1, self.global_step, i)
+                for tracker in self.trackers:
+                    for j, img in enumerate(images):
+                        tracker.log_image(f"preview/{i}_{j}", img, self.global_step)
+        finally:
+            self._restore_params(original)
         self.model.after_preview()
 
     # ------------------------------------------------------------ entry

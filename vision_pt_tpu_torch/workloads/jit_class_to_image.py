@@ -64,6 +64,12 @@ class JiTForClassToImageTraining(ModelForTraining):
         self._trainable = JiTTrainable(self.model.denoiser, self.model.class_encoder)
         self._drop_rng = np.random.default_rng(self.config.seed + 1)
 
+    def get_host_rng_state(self) -> dict:
+        return {"drop_rng": self._drop_rng.bit_generator.state}
+
+    def set_host_rng_state(self, state: dict) -> None:
+        self._drop_rng.bit_generator.state = state["drop_rng"]
+
     def enable_gradient_checkpointing(self):
         self.model.denoiser.set_gradient_checkpointing(True)
 
