@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's JiT-B/16 class-to-image sampler and training step,
-its latent JiT 1024^2 trainer, its SDXL 1024^2 text-to-image sampler (bf16
-and NF4) and LoRA / QLoRA trainers, its ``short`` attention backend and its
-two attention probes, on one CUDA card.
+its JiT variant trainers (U-JiT, Cross-JiT, IG, LoIG, TREAD) and the x-loss
+config, its latent JiT 1024^2 trainer, its SDXL 1024^2 text-to-image sampler
+(bf16 and NF4) and LoRA / QLoRA trainers, its ``short`` attention backend and
+its two attention probes, on one CUDA card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 (with nf4_kernel,
-                                           # short_kernel, nf4_timing and
-                                           # short_timing) alone, no result line
+                                           # short_kernel, nf4_timing,
+                                           # short_timing and tread_timing)
+                                           # alone, no result line
 
 Phases, one JSON line each; any failure raises and the script exits non-zero
 without a result line:
@@ -120,7 +122,31 @@ without a result line:
    witness's error (the card's plain versions against the CPU) where bf16
    alone puts it further (SDXL_LORA_PARITY_FLOOR); 3 + 3 flash launches, and
    54 of #9 under NF4; the floors must fail the same step with #7 / #8
-   dropping the last key tile, and with #9's scale row 3 25% off.
+   dropping the last key tile, and with #9's scale row 3 25% off;
+18. jit_variants_trainer (after latent_parity): U-JiT, ARB U-JiT, Cross, IG,
+   LoIG and TREAD through their entry points (``train.jit.*.run``, the
+   card by default) at JiT-B/16 width and depth (U-JiT: depth 5 with 12
+   blocks), 256^2, batch 16, bf16 compute, fp32 parameters, 3 steps and a
+   2-step CFG preview each (ARB U-JiT on synthetic tagged 256^2 images
+   through the x-loss config's dataset and optimizer); s/step, peak memory;
+   exactly (#1, #2) launches a step of (0, 0) U-JiT, (11, 11) Cross, (4, 4)
+   IG and LoIG, (6, 6) TREAD (blocks 0-1 and 8-11 at S 330 with suffix
+   kv_lens), and #1 per preview denoiser call 0, 11, 4, 4 and 12; TREAD's
+   last step runs under the profiler;
+19. x_loss_trainer: ``configs/jit/x_loss/config.yml`` as shipped through
+   ``train.jit.arb_class_to_image`` (depth 24, context from block 0, so
+   every block masked and no kernel launch; gradient checkpointing,
+   RAdamScheduleFree), cut to 16 synthetic 256^2 ``.webp`` images with
+   ``.tags.json`` metadata, 4 steps, a 2-step preview of its prompts and
+   temporary output paths, each cut listed; s/step, peak memory, a save;
+20. jit_variants_parity: one bf16 training step of each variant at
+   JiT-B/16 width and 4 blocks (context from block 2; U-JiT depth 1 with 4
+   blocks), batch 2, the same seeded weights, batch and draws (TREAD's
+   permutation among them) on the card (kernels) and on the CPU (plain
+   versions), held to the bf16 train_parity floors, with 3 (Cross), 2 (IG,
+   LoIG, TREAD) and 0 (U-JiT) launches of #1 and #2; then a 2-step
+   IG-guided (ig_scale 2) CFG sample of the IG model, at least 30 dB PSNR
+   card against CPU, 4 launches of #1.
 
 After phase 2, short_kernel holds kernels #3-#6 (the short backend's BSHD
 and BHSD entries, forward and backward) against their plain versions at the
@@ -141,7 +167,9 @@ phase 2's limits (fp16's tol 2e-3), which must fail a plain version with one abs
 64-row chunk left out, and on both sides of each block-shape boundary (M 1,
 64, 65, 128, 129, 154, 256, 257, 1024 at K 2048, N 1280, which K splits);
 two calls at M 64 and 154 must give the same bits; the QLoRA trainer's M 454
-is held too. Phase 3 also times kernels #7 and #8 at SDXL's two
+is held too. tread_timing times #1 (with its lse) and #2 at TREAD's
+unrouted blocks (B 16, S 330, suffix kv_lens of 267-270), beside SDPA with
+the equivalent boolean key mask, bounded by the valid key rows. Phase 3 also times kernels #7 and #8 at SDXL's two
 self-attention shapes, and nf4_timing times kernel #9 at the sampler's and
 the QLoRA trainer's shapes and at the JAX package's bench shape (M 64, K =
 N = 8192), beside F.linear on the weight dequantized beforehand.
@@ -2331,6 +2359,462 @@ def phase_attention_probes() -> tuple[int, ...]:
     return tuple(a + b for a, b in zip(pair_counts, roof_counts))
 
 
+# ------------------------------------------------------------ JiT variants
+
+# the variant trainers: JiT-B/16 width and depth (a U-JiT of depth 5 and
+# 12 blocks), 256^2, batch 16, bf16 compute, fp32 parameters, 3 steps and a
+# 2-step CFG preview each, through their entry points
+VARIANT_BATCH, VARIANT_STEPS = 16, 3
+VARIANTS = {  # name -> (entry point, denoiser fields over JiT-B/16)
+    "ujit": ("class_to_image_ujit", {"depth": 5, "num_blocks": 12}),
+    "arb_ujit": ("arb_class_to_image_ujit", {"depth": 5, "num_blocks": 12}),
+    "cross": ("class_to_image_cross", {}),
+    "ig": ("class_to_image_ig", {}),
+    "loig": ("class_to_image_loig", {}),
+    "tread": ("class_to_image_tread", {}),
+}
+# (#1, #2) launches per training step and #1 per CFG denoiser call of the
+# preview: Cross's 11 self-attention blocks (S 266, no mask); IG's and
+# LoIG's blocks 0-3 (before context_start_block 4); TREAD's blocks 0-1 and
+# 8-11 at S 330 with suffix kv_lens (blocks 2-7 route to S 202, below
+# MIN_PACKED_SEQ) and all 12 when sampling; every U-JiT block is masked
+VARIANT_LAUNCHES = {"ujit": (0, 0, 0), "arb_ujit": (0, 0, 0),
+                    "cross": (11, 11, 11), "ig": (4, 4, 4), "loig": (4, 4, 4),
+                    "tread": (6, 6, 12)}
+PREVIEW_STEPS = 2
+# the class vocabulary of the synthetic tagged images (the preview prompts
+# of configs/jit/x_loss/preview.yml among them)
+TAGS = ["1girl", "solo", "blue_hair", "blonde_hair", "smile", "long_hair",
+        "short_hair", "red_eyes", "hat", "outdoors"]
+X_LOSS_STEPS, X_LOSS_BATCH = 4, 4  # the shipped batch
+
+
+def _write_tagged_images(folder: str, count: int, label2id: str) -> None:
+    """``count`` 256^2 ``.webp`` images with ``.tags.json`` metadata of 3
+    tags each, and the label2id of the tags: the data the x-loss config
+    names (``data/animeface``) is not in the repository."""
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:256, 0:256] / 256.0
+    for i in range(count):
+        base = np.stack([np.sin(5 * xx + i), np.cos(4 * yy - i), xx * yy], -1)
+        pixels = 127.5 * (base + 1) + rng.normal(0, 12, size=base.shape)
+        Image.fromarray(np.clip(pixels, 0, 255).astype(np.uint8)).save(
+            os.path.join(folder, f"img{i}.webp"))
+        with open(os.path.join(folder, f"img{i}.tags.json"), "w") as f:
+            json.dump({"tags": " ".join(rng.choice(TAGS, 3, replace=False))}, f)
+    with open(label2id, "w") as f:
+        json.dump({tag: i for i, tag in enumerate(TAGS)}, f)
+
+
+def _x_loss_config(tmp: str, name: str, images: str, label2id: str) -> dict:
+    """``configs/jit/x_loss/config.yml`` with its data, label2id and output
+    paths in ``tmp``, one epoch, and a preview of its prompts in
+    PREVIEW_STEPS steps at the epoch's end (its per_steps 100 lies past the
+    run)."""
+    import yaml
+
+    with open(os.path.join(ROOT, "configs/jit/x_loss/config.yml")) as f:
+        cfg = yaml.safe_load(f)
+    with open(os.path.join(ROOT, cfg["preview"]["data"]["path"])) as f:
+        preview = yaml.safe_load(f)
+    work = os.path.join(tmp, name)
+    os.makedirs(work, exist_ok=True)
+    for job in preview:
+        job["num_steps"] = PREVIEW_STEPS
+    with open(os.path.join(work, "preview.yml"), "w") as f:
+        yaml.safe_dump(preview, f)
+    cfg["model"]["context_encoder"]["label2id_map_path"] = label2id
+    cfg["dataset"]["folder"] = images
+    cfg["num_train_epochs"] = 1
+    cfg["tracker"]["log_dir"] = os.path.join(work, "logs")
+    cfg["saving"]["callbacks"][0]["save_dir"] = os.path.join(work, "out")
+    cfg["preview"]["strategy"]["per_steps"] = None
+    cfg["preview"]["callbacks"][0]["save_dir"] = os.path.join(work, "preview")
+    cfg["preview"]["data"]["path"] = os.path.join(work, "preview.yml")
+    return cfg
+
+
+def _variant_config(tmp: str, name: str, tagged: tuple[str, str]) -> str:
+    """The trainer config of variant ``name``: the synthetic class-image
+    config (the ARB U-JiT: the x-loss config's data) at JiT-B/16 width."""
+    import yaml
+
+    from vision_pt_tpu_torch.models.jit import JiT_B_16_Config
+
+    denoiser = {**JiT_B_16_Config().model_dump(), **VARIANTS[name][1]}
+    work = os.path.join(tmp, name)
+    if name == "arb_ujit":
+        cfg = _x_loss_config(tmp, name, *tagged)
+        cfg["dataset"]["batch_size"] = VARIANT_BATCH
+        cfg["trainer"]["gradient_checkpointing"] = False
+    else:
+        with open(os.path.join(ROOT, "configs/jit/synthetic_class_to_image.yml")) as f:
+            cfg = yaml.safe_load(f)
+        os.makedirs(work, exist_ok=True)
+        cfg["model"]["context_encoder"]["label2id_map_path"] = os.path.join(
+            tmp, "trainer_label2id.json")
+        cfg["model"]["max_token_length"] = 64
+        cfg["dataset"].update(num_items=VARIANT_BATCH * VARIANT_STEPS,
+                              image_size=256, batch_size=VARIANT_BATCH)
+        cfg["scheduler"]["args"]["num_warmup_steps"] = 1
+        cfg["num_train_epochs"] = 1
+        cfg["preview"]["strategy"] = {"per_epochs": 1}
+        cfg["preview"]["callbacks"][0]["save_dir"] = os.path.join(work, "preview")
+        cfg["preview"]["data"]["data"][0].update(width=256, height=256,
+                                                 num_steps=PREVIEW_STEPS)
+    cfg["model"].update(denoiser=denoiser, dtype="bfloat16")
+    cfg.update(saving=None, tracker=None)
+    path = os.path.join(work, "config.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def _run_counted(run, path: str, profile_step: str | None = None):
+    """``run(path)`` on the card, each training step timed and its kernel
+    launches counted; returns (trainer, per-step launches, step seconds,
+    losses, launches of the whole run, run seconds, peak memory)."""
+    from vision_pt_tpu_torch.training.trainer import Trainer
+
+    per_step, step_seconds, losses = [], [], []
+    inner = Trainer.train_step
+
+    def counting(self, *args, **kwargs):
+        before = _counts()
+        t0 = time.perf_counter()
+        if profile_step is not None and len(per_step) == VARIANT_STEPS - 1:
+            out = profile(profile_step, lambda: inner(self, *args, **kwargs))
+        else:
+            out = inner(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        step_seconds.append(time.perf_counter() - t0)
+        per_step.append(_diff(_counts(), before))
+        losses.append(float(out[0]))
+        return out
+
+    Trainer.train_step = counting
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer = run(path)
+    finally:
+        Trainer.train_step = inner
+    torch.cuda.synchronize()
+    return (trainer, per_step, step_seconds, losses, _counts(),
+            time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+
+
+def phase_jit_variants_trainer(tmp: str) -> dict[str, tuple[int, ...]]:
+    """U-JiT, ARB U-JiT, Cross, IG, LoIG and TREAD through their entry
+    points (``device=None``: the card) at JiT-B/16 width; returns each
+    run's kernel launches. TREAD's last step runs under the profiler."""
+    import importlib
+
+    tagged = (os.path.join(tmp, "tagged_images"), os.path.join(tmp, "tag_label2id.json"))
+    _write_tagged_images(tagged[0], VARIANT_BATCH * VARIANT_STEPS, tagged[1])
+    with open(os.path.join(tmp, "trainer_label2id.json"), "w") as f:
+        json.dump({f"c{i}": i for i in range(4)}, f)
+    launches = {}
+    for name, (module, _) in VARIANTS.items():
+        run = importlib.import_module(f"vision_pt_tpu_torch.train.jit.{module}").run
+        path = _variant_config(tmp, name, tagged)
+        profiled = name == "tread"
+        (trainer, per_step, step_seconds, losses, counts, seconds,
+         peak) = _run_counted(run, path, "tread_trainer" if profiled else None)
+        fwd, bwd, per_call = VARIANT_LAUNCHES[name]
+        preview = _diff(counts, tuple(map(sum, zip(*per_step))))
+        previews = len(os.listdir(os.path.join(tmp, name, "preview")))
+        # after the first step; the profiled step's time holds the
+        # profiler's own processing
+        steady = step_seconds[1:-1] if profiled else step_seconds[1:]
+        denoiser = trainer.model.model.denoiser
+        emit("jit_variants_trainer", variant=name, entry_point=module,
+             denoiser=type(denoiser).__module__.rsplit(".", 1)[-1],
+             blocks=sum(1 for m in denoiser.modules()
+                        if m.__class__.__name__.endswith("Block")),
+             hidden=denoiser.config.hidden_size, resolution=256,
+             batch=VARIANT_BATCH, compute="bfloat16", params="float32",
+             steps=trainer.global_step, step_seconds=step_seconds,
+             profiled_step=VARIANT_STEPS if profiled else None,
+             seconds_per_step=sum(steady) / len(steady),
+             images_per_second=VARIANT_BATCH * len(steady) / sum(steady),
+             peak_memory_bytes=peak, losses=losses, run_seconds=seconds,
+             fwd_launches_per_step=[c[0] for c in per_step],
+             bwd_launches_per_step=[c[1] for c in per_step],
+             preview_launches=preview, previews=previews, card=nvidia_smi())
+        check(trainer.global_step == VARIANT_STEPS and all(np.isfinite(losses)),
+              f"{name}: steps {trainer.global_step}, losses {losses}")
+        check(per_step == [_expect({1: fwd, 2: bwd})] * VARIANT_STEPS,
+              f"{name}: launches per step {per_step}, expected {fwd} + {bwd}")
+        calls = PREVIEW_STEPS * previews
+        check(previews >= 1 and preview == _expect({1: per_call * calls}),
+              f"{name}: preview launches {preview}, expected {per_call} "
+              f"in each of {calls} CFG denoiser calls")
+        launches[f"{name}_trainer"] = counts
+        del trainer, denoiser
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_x_loss_trainer(tmp: str) -> tuple[int, ...]:
+    """``configs/jit/x_loss/config.yml`` as shipped (JiT-B width at depth 24
+    with the class context from block 0, bf16, RAdamScheduleFree, gradient
+    checkpointing, caption shuffle) through ``train.jit.arb_class_to_image``,
+    its cuts listed in the phase line; every block is masked, so no kernel
+    launches, as in the JAX package."""
+    import yaml
+
+    from vision_pt_tpu_torch.train.jit.arb_class_to_image import run
+
+    images, label2id = os.path.join(tmp, "x_loss_images"), os.path.join(tmp, "x_loss_label2id.json")
+    _write_tagged_images(images, X_LOSS_STEPS * X_LOSS_BATCH, label2id)
+    cfg = _x_loss_config(tmp, "x_loss", images, label2id)
+    path = os.path.join(tmp, "x_loss", "config.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    (trainer, per_step, step_seconds, losses, counts, seconds,
+     peak) = _run_counted(run, path)
+    denoiser = trainer.model.model.denoiser
+    saved = os.listdir(os.path.join(tmp, "x_loss", "out"))
+    previews = os.listdir(os.path.join(tmp, "x_loss", "preview"))
+    steady = step_seconds[1:]
+    emit("x_loss_trainer", config="configs/jit/x_loss/config.yml",
+         depth=denoiser.config.depth,
+         context_start_block=denoiser.config.context_start_block,
+         hidden=denoiser.config.hidden_size, resolution=256, batch=X_LOSS_BATCH,
+         gradient_checkpointing=denoiser.gradient_checkpointing,
+         cuts=[f"{X_LOSS_STEPS * X_LOSS_BATCH} synthetic 256^2 .webp images "
+               "with .tags.json metadata (data/animeface is not in the "
+               "repository), a label2id of their tags",
+               f"1 epoch ({X_LOSS_STEPS} steps) of the shipped 100",
+               f"preview: the shipped prompts in {PREVIEW_STEPS} steps at "
+               "the epoch's end (per_steps 100 lies past the run)",
+               "output paths in a temporary directory"],
+         steps=trainer.global_step, step_seconds=step_seconds,
+         seconds_per_step=sum(steady) / len(steady),
+         images_per_second=X_LOSS_BATCH * len(steady) / sum(steady),
+         peak_memory_bytes=peak, losses=losses, run_seconds=seconds,
+         launches_per_step=per_step, run_launches=counts, saved=saved,
+         previews=len(previews), card=nvidia_smi())
+    check(denoiser.config.depth == 24 and denoiser.config.context_start_block == 0
+          and denoiser.gradient_checkpointing,
+          "the x-loss config: depth 24, context from block 0, checkpointing")
+    check(trainer.global_step == X_LOSS_STEPS and all(np.isfinite(losses)),
+          f"x-loss trainer: steps {trainer.global_step}, losses {losses}")
+    check(counts == _expect({}), f"x-loss run launched {counts}: its blocks are masked")
+    check(len(saved) == 1 and len(previews) == 2, f"saved {saved}, previews {previews}")
+    del trainer, denoiser
+    torch.cuda.empty_cache()
+    return counts
+
+
+# the variant parity steps: JiT-B/16 width at 4 blocks (context from block
+# 2; U-JiT depth 1 with 4 blocks), 256^2, batch 2, bf16, against the
+# bf16 train_parity floors; launches of #1/#2 on the card
+PARITY_VARIANTS = {  # name -> (workload, denoiser fields, #1/#2 launches)
+    "ujit": ("JiTForUJiTTraining", {"depth": 1, "num_blocks": 4}, 0),
+    "arb_ujit": ("JiTForArbUJiTTraining", {"depth": 1, "num_blocks": 4}, 0),
+    "cross": ("JiTForCrossTraining", {}, 3),
+    "ig": ("JiTForIGTraining", {"intermediate_output_idx": 2}, 2),
+    "loig": ("JiTForLoIGTraining", {}, 2),
+    "tread": ("JiTForTreadTraining", {"tread_start_block": 1, "tread_end_block": 3}, 2),
+}
+IG_SAMPLE_LAUNCHES = 2 * 2  # 2 steps, blocks 0-1 before the context
+
+
+def _variant_workload(name: str, device: str, label2id: str):
+    from vision_pt_tpu_torch.config import TrainConfig
+    from vision_pt_tpu_torch.models.jit import JiT_B_16_Config
+    from vision_pt_tpu_torch.workloads import jit_variants
+
+    workload_name, fields, _ = PARITY_VARIANTS[name]
+    denoiser = {**JiT_B_16_Config().model_dump(), "depth": 4,
+                "context_start_block": 2, **fields}
+    config = TrainConfig.model_validate({
+        "model": {"context_encoder": {"type": "class", "label2id_map_path": label2id},
+                  "denoiser": denoiser, "dtype": "bfloat16",
+                  "drop_context_rate": 0.0},
+        "dataset": {}, "seed": 0,
+    })
+    workload = getattr(jit_variants, workload_name)(config, torch.device(device))
+    workload.setup_model()
+    return workload
+
+
+def _variant_step(name: str, device: str, label2id: str):
+    """One bf16 step of variant ``name`` on ``device``, the packed gate open
+    on the CPU too (so it runs the kernels' plain versions); the same
+    weights (the seeded init), batch and draws on either device."""
+    import vision_pt_tpu_torch.models.jit.denoiser as gate
+    from vision_pt_tpu_torch.ops.attention import attention_dtype
+    from vision_pt_tpu_torch.tools.bench.step_parity import Step
+
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.uniform(-1, 1, size=(2, 256, 256, 3)).astype(np.float32),
+             "caption": ["c1", "c2 c3"]}
+    if name == "arb_ujit":
+        batch.update(original_size=np.array([[384, 256], [256, 320]], np.int32),
+                     target_size=np.full((2, 2), 256, np.int32),
+                     crop_coords_top_left=np.array([[64, 0], [0, 32]], np.int32))
+    draws = {"timesteps": torch.sigmoid(torch.from_numpy(
+                 rng.normal(size=(2,)).astype(np.float32)) * 0.8 - 0.8),
+             "noise": torch.from_numpy(rng.normal(size=(2, 256, 256, 3)).astype(np.float32)),
+             "route_perm": torch.from_numpy(rng.permutation(256))}
+    workload = _variant_workload(name, device, label2id)
+    trainable = workload.trainable()
+    batch = workload.prepare_batch(batch)
+    draws = {k: v.to(device) for k, v in draws.items()}
+    opened = gate._on_cuda
+    gate._on_cuda = lambda x: True
+    t0 = time.perf_counter()
+    try:
+        with attention_dtype(torch.bfloat16):
+            loss, _ = workload.compute_loss(trainable, batch, draws)
+            loss.backward()
+    finally:
+        gate._on_cuda = opened
+    seconds = time.perf_counter() - t0
+    grads = {n: p.grad.detach().float().cpu() for n, p in trainable.named_parameters()}
+    return Step(float(loss.detach()), grads, seconds), workload
+
+
+def phase_jit_variants_parity(label2id: str) -> dict[str, tuple[int, ...]]:
+    """Each variant's training step on the card (kernels) and on the CPU
+    (plain versions), then a 2-step IG-guided CFG sample; returns the card
+    runs' launches."""
+    import vision_pt_tpu_torch.models.jit.denoiser as gate
+    from vision_pt_tpu_torch.ops.attention import attention_dtype
+    from vision_pt_tpu_torch.tools.bench.step_parity import grad_errors, summary
+
+    floor = TRAIN_PARITY_FLOOR["bfloat16"]
+    launches, models = {}, {}
+    for name, (_, _, n) in PARITY_VARIANTS.items():
+        results = {}
+        for device in ("cuda", "cpu"):
+            _reset_counts()
+            step, workload = _variant_step(name, device, label2id)
+            results[device] = (step, _counts())
+            if name == "ig":
+                models[device] = workload.model
+            del workload
+        (card, counts_c), (host, counts_h) = results["cuda"], results["cpu"]
+        loss_err = abs(card.loss - host.loss) / abs(host.loss)
+        errors = summary(grad_errors(card.grads, host.grads))
+        emit("jit_variants_parity", variant=name, dtype="bfloat16", batch=2,
+             blocks=4, loss_cuda=card.loss, loss_cpu=host.loss,
+             loss_rel_err=loss_err, grad_rel_l2_max=errors["max"],
+             grad_rel_l2_median=errors["median"], worst_params=errors["worst"],
+             floor=floor, launches_cuda=counts_c, launches_cpu=counts_h,
+             seconds_cuda=card.seconds, seconds_cpu=host.seconds)
+        check(all(bool(torch.isfinite(g).all()) for g in card.grads.values()),
+              f"{name}: non-finite grads")
+        check(counts_c == _expect({1: n, 2: n}) and counts_h == _expect({}),
+              f"{name}: the card step must launch {n} + {n} ({counts_c}), the "
+              f"CPU step none ({counts_h})")
+        check(loss_err <= floor["loss"] and errors["max"] <= floor["grad"],
+              f"{name} parity: loss {loss_err:.2e}, grad {errors['worst'][0]}")
+        launches[f"{name}_parity"] = counts_c
+        del results, card, host
+        torch.cuda.empty_cache()
+
+    init = np.random.default_rng(4).normal(size=(1, 256, 256, 3)).astype(np.float32)
+    outputs, sample_counts = {}, {}
+    for device, model in models.items():
+        opened = gate._on_cuda
+        gate._on_cuda = lambda x: True
+        _reset_counts()
+        try:
+            with attention_dtype(torch.bfloat16):
+                out = model.generate(prompt=["c1"], width=256, height=256,
+                                     num_inference_steps=2, cfg_scale=2.0,
+                                     ig_scale=2.0, execution_dtype=torch.bfloat16,
+                                     initial_noise=init, return_arrays=True)
+        finally:
+            gate._on_cuda = opened
+        outputs[device] = out.float().cpu().numpy()
+        sample_counts[device] = _counts()
+    value = psnr(outputs["cuda"], outputs["cpu"])
+    emit("jit_variants_parity", variant="ig_sample", dtype="bfloat16", batch=1,
+         cfg=2.0, ig_scale=2.0, steps=2, psnr_db=value,
+         floor_db=PSNR_FLOOR_DB["bfloat16"], launches_cuda=sample_counts["cuda"],
+         launches_cpu=sample_counts["cpu"])
+    check(np.isfinite(outputs["cuda"]).all(), "non-finite IG sample")
+    check(sample_counts["cuda"] == _expect({1: IG_SAMPLE_LAUNCHES})
+          and sample_counts["cpu"] == _expect({}),
+          f"IG sample launches {sample_counts}, expected {IG_SAMPLE_LAUNCHES} on the card")
+    check(value >= PSNR_FLOOR_DB["bfloat16"],
+          f"IG sample card-vs-CPU PSNR {value:.2f} dB < {PSNR_FLOOR_DB['bfloat16']}")
+    launches["ig_sample"] = sample_counts["cuda"]
+    del models
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tread_timing() -> dict:
+    """Kernels #1 (with its lse, as training runs it) and #2 at TREAD's
+    unrouted blocks: B 16, S 330, suffix kv_lens (266 image, size and time
+    tokens, then 1-4 valid of 64 class tokens), beside SDPA with the
+    equivalent boolean key mask. The bound counts the key and value rows
+    these kv_lens make valid, and the products over them."""
+    import torch.nn.functional as F
+
+    from vision_pt_tpu_torch.ops.short_attention import (
+        short_attention_packed_bwd,
+        short_attention_packed_bwd_reference,
+        short_attention_packed_reference,
+        short_attention_packed_with_lse,
+    )
+
+    heads, dim, dtype, batch, s = 12, 64, torch.bfloat16, VARIANT_BATCH, 330
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = _attention_inputs(gen, batch, s, s, heads, dim, dtype)
+    lens = torch.from_numpy(266 + np.random.default_rng(5).integers(1, 5, size=batch))
+    lens = lens.to("cuda", torch.int32)
+    key_mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    qh, kh, vh = (x.view(batch, s, heads, dim).transpose(1, 2) for x in (q, k, v))
+    row = heads * dim * q.element_size()  # bytes of one token's heads
+    valid = int(lens.sum())
+    lse_bytes = 4 * batch * heads * s
+    product = 2 * heads * s * valid * dim  # one product over the valid keys
+    shape = ["tread", batch, s, s, heads, dim, "kv_lens", lens.tolist()]
+    rows = {"tread": _time_kernel(
+        "short_attention_packed_with_lse",
+        lambda: short_attention_packed_with_lse(q, k, v, heads, lens, bounded=True),
+        lambda: short_attention_packed_reference(q, k, v, heads, lens, bounded=True,
+                                                 return_lse=True),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=key_mask),
+        2 * batch * s * row + 2 * valid * row + lse_bytes, 2 * product, dtype,
+        "vision_pt_tpu/ops/short_attention.py:462",
+        "vision_pt_tpu_torch/csrc/short_attention.cu", shape,
+        "F.scaled_dot_product_attention with a boolean key mask",
+        phase="tread_timing")}
+    do = torch.randn(batch, s, heads * dim, generator=gen, device="cuda").to(dtype)
+    out, lse = short_attention_packed_with_lse(q, k, v, heads, lens, bounded=True)
+    leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=key_mask)
+    doh = do.view(batch, s, heads, dim).transpose(1, 2)
+    # q and do read, dq, dk and dv written in full; the valid k and v rows
+    rows["tread_bwd"] = _time_kernel(
+        "short_attention_packed_bwd",
+        lambda: short_attention_packed_bwd(q, k, v, lse, do, heads, lens, bounded=True),
+        lambda: short_attention_packed_bwd_reference(q, k, v, lse, do, heads, lens,
+                                                     bounded=True),
+        lambda: torch.autograd.grad(sdpa_out, leaves, doh, retain_graph=True),
+        5 * batch * s * row + 2 * valid * row + lse_bytes, 5 * product, dtype,
+        "vision_pt_tpu/ops/short_attention.py:493",
+        "vision_pt_tpu_torch/csrc/short_attention_bwd.cu", shape,
+        "torch.autograd.grad of F.scaled_dot_product_attention with a boolean "
+        "key mask", phase="tread_timing")
+    del q, k, v, do, out, lse, leaves, sdpa_out
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(args: list[str]) -> int:
     if args not in ([], ["--kernels-only"]):
         print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
@@ -2346,6 +2830,7 @@ def main(args: list[str]) -> int:
     rows.update(phase_flash_timing())
     nf4_rows = phase_nf4_timing()
     short_rows = phase_short_timing()
+    tread_rows = phase_tread_timing()
     if args:  # no path was driven: no kernels line and no result line
         emit("done", seconds=time.perf_counter() - started)
         return 0
@@ -2363,6 +2848,9 @@ def main(args: list[str]) -> int:
         phase_parity(label2id)
         launches["latent_trainer"] = phase_latent_trainer(tmp)
         phase_latent_parity(tmp)
+        launches.update(phase_jit_variants_trainer(tmp))
+        launches["x_loss_trainer"] = phase_x_loss_trainer(tmp)
+        launches.update(phase_jit_variants_parity(label2id))
     launches.update(phase_sdxl_sampler())
     phase_sdxl_parity()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2371,7 +2859,8 @@ def main(args: list[str]) -> int:
     phase_sdxl_lora_parity()
     kernels = []
     # each kernel's launches are those of its main path: the training step
-    # for the packed kernels, the short backend's path for #3-#6, the latent
+    # for the packed kernels (the JiT variants' trainers, parity steps and
+    # IG sample beside it), the short backend's path for #3-#6, the latent
     # trainer for the flash kernels (the SDXL requests and trainers beside
     # them), the NF4 SDXL request for kernel #9 (the QLoRA trainer beside
     # it), the probe tools for #10 and #11
@@ -2395,6 +2884,8 @@ def main(args: list[str]) -> int:
                         "max_abs_err": errors[kernel]})
         check(launches[path][number - 1] > 0, f"{kernel} never launched on {path}")
     kernels[0]["with_lse"] = rows["train_lse"]  # as the training step runs it
+    kernels[0]["tread_timing"] = tread_rows["tread"]
+    kernels[1]["tread_timing"] = tread_rows["tread_bwd"]
     kernels[1]["retimed_ms"] = short_rows["packed_bwd"]["ms"]  # short_timing
     kernels[6]["sdxl_timing"] = [{**rows[label], "max_abs_err": errors[label]}
                                  for label in ("sdxl_s4096", "sdxl_s1024")]

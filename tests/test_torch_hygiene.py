@@ -46,7 +46,17 @@ def test_importing_the_whole_port_loads_no_jax():
                  "models.sdxl.convert", "models.sdxl.pipeline",
                  "tools.inference_cli", "tools.bench",
                  "tools.bench.attention_pairing_probe",
-                 "tools.bench.attention_roofline", "benchmarks"):
+                 "tools.bench.attention_roofline", "benchmarks",
+                 "models.jit.extension.pope", "models.jit.extension.uvit",
+                 "models.jit.extension.cross", "models.jit.extension.ig",
+                 "models.jit.extension.loig", "models.jit.extension.tread",
+                 "train.jit.arb_class_to_image",
+                 "train.jit.arb_class_to_image_ujit",
+                 "train.jit.class_to_image_ujit",
+                 "train.jit.class_to_image_cross",
+                 "train.jit.class_to_image_ig",
+                 "train.jit.class_to_image_loig",
+                 "train.jit.class_to_image_tread"):
         assert f"vision_pt_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["modules"] if FORBIDDEN.match(m)]
     assert leaked == []

@@ -146,8 +146,3 @@ def test_packed_branch_parity(packed_on_cpu, dtype, with_mask):
     # with a context mask only block 0 (before the context) is packed
     assert packed_on_cpu == [True] * (1 if with_mask else TINY["depth"])
     assert psnr(ours, theirs) >= FLOOR_DB[dtype]
-
-
-def test_pope_is_not_ported():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tden.JiT(DenoiserConfig(**TINY, positional_encoding="pope"), device="cpu")

@@ -12,7 +12,12 @@ torch's tensor layout:
   reference's ``mlp.0/.2``.
 - RoPE runs rotate-half on a DEINTERLEAVED head dim, so the q/k projections
   and qk-norm gains hold the reference's rows permuted within each head;
-  attention scores are unchanged (q and k permute alike).
+  attention scores are unchanged (q and k permute alike). PoPE's full-dim
+  phases take no permutation (``rope_head_dim=None``), so its q/k rows and
+  ``pope_bias`` (H, D) keep the reference's order.
+- The variants' parameters (``skip_merge``, the sandwich norms, the U-JiT
+  block lists, the IG and LoIG heads, ``pope_bias``) carry the same names in
+  all three layouts and take the general rules above.
 """
 
 from __future__ import annotations

@@ -10,6 +10,9 @@ so the JAX package's parameters map onto these modules by transposes alone
 through the packed short-attention CUDA kernels (forward and backward) on a
 CUDA device. ``set_gradient_checkpointing`` recomputes each block in the
 backward (``torch.utils.checkpoint``, the JAX package's ``nnx.remat``).
+``positional_encoding: pope / n-pope`` selects the PoPE attention and
+embedders of ``extension/pope.py``; the variants of ``extension/`` replace
+the block stack through ``_build_blocks``.
 """
 
 from __future__ import annotations
@@ -283,6 +286,15 @@ class BottleneckFinalLayer(nn.Module):
         return self.proj_2(self.proj_1(self.norm_final(x)))
 
 
+def attention_class_for(positional_encoding: str) -> type[Attention]:
+    """RoPE attention, or PoPE's for ``pope`` / ``n-pope``."""
+    if positional_encoding in ("pope", "n-pope"):
+        from .extension.pope import PopeAttention
+
+        return PopeAttention
+    return Attention
+
+
 class JiTBlock(nn.Module):
     """Pre-norm attention + SwiGLU block."""
 
@@ -292,15 +304,10 @@ class JiTBlock(nn.Module):
                  proj_dropout=0.0, *, dtype=None, param_dtype=torch.float32,
                  generator=None):
         super().__init__()
-        if positional_encoding != "rope":
-            raise NotImplementedError(
-                f"positional_encoding={positional_encoding!r} (PopeAttention) "
-                "is not ported yet: ROADMAP Queue 1, slice 3"
-            )
         kw = dict(dtype=dtype, param_dtype=param_dtype, generator=generator)
         self.norm1 = get_norm_layer(norm_type, hidden_dim, eps=eps,
                                     param_dtype=param_dtype)
-        self.attn = Attention(
+        self.attn = attention_class_for(positional_encoding)(
             dim=hidden_dim, num_heads=num_heads, qkv_bias=qkv_bias,
             qk_norm=qk_norm, attn_dropout=attn_dropout,
             proj_dropout=proj_dropout, eps=eps, norm_type=norm_type, **kw,
@@ -329,11 +336,6 @@ class JiT(nn.Module):
         super().__init__()
         if config.hidden_size // config.num_heads != sum(config.rope_axes_dims):
             raise ValueError("sum(rope_axes_dims) must equal head_dim")
-        if config.positional_encoding != "rope":
-            raise NotImplementedError(
-                f"positional_encoding={config.positional_encoding!r} is not "
-                "ported yet: ROADMAP Queue 1, slice 3"
-            )
         self.config = config
         kw = dict(dtype=dtype, param_dtype=param_dtype, generator=generator)
         self.patch_embedder = BottleneckPatchEmbed(
@@ -349,24 +351,29 @@ class JiT(nn.Module):
         with torch.no_grad():
             self.time_position_embeds.normal_(0.0, 0.02, generator=generator)
         self.image_size_embedder = TimestepEmbedder(config.hidden_size, 256, **kw)
-        self.rope_embedder = RopeEmbedder(
-            rope_theta=config.rope_theta,
-            axes_dims=tuple(config.rope_axes_dims),
-            axes_lens=tuple(config.rope_axes_lens),
-            zero_centered=tuple(config.rope_zero_centered),
-        )
-        self.context_embedder = Linear(config.context_dim, config.hidden_size, **kw)
-        self.blocks = nn.ModuleList([
-            JiTBlock(
-                hidden_dim=config.hidden_size, num_heads=config.num_heads,
-                mlp_ratio=config.mlp_ratio, attn_dropout=config.attn_dropout,
-                proj_dropout=config.proj_dropout, qkv_bias=True, qk_norm=True,
-                use_bias=True, eps=1e-6,
-                positional_encoding=config.positional_encoding,
-                norm_type=config.norm_type, **kw,
+        if config.positional_encoding == "rope":
+            self.rope_embedder = RopeEmbedder(
+                rope_theta=config.rope_theta,
+                axes_dims=tuple(config.rope_axes_dims),
+                axes_lens=tuple(config.rope_axes_lens),
+                zero_centered=tuple(config.rope_zero_centered),
             )
-            for _ in range(config.depth)
-        ])
+        else:  # "pope" or "n-pope"
+            from .extension.pope import NormalizedPopeEmbedder, PopeEmbedder
+
+            embedder_class = (NormalizedPopeEmbedder
+                              if config.positional_encoding == "n-pope"
+                              else PopeEmbedder)
+            self.rope_embedder = embedder_class(
+                pope_theta=config.rope_theta,
+                axes_dims=tuple(config.rope_axes_dims),
+                axes_lens=tuple(config.rope_axes_lens),
+                zero_centered=tuple(config.rope_zero_centered),
+                do_normalize=tuple(config.rope_do_normalize),
+                normalize_by=config.rope_normalize_by,
+            )
+        self.context_embedder = Linear(config.context_dim, config.hidden_size, **kw)
+        self._build_blocks(config, **kw)
         if config.use_output_bottleneck:
             self.final_layer = BottleneckFinalLayer(
                 config.hidden_size, config.bottleneck_dim, config.patch_size,
@@ -381,23 +388,42 @@ class JiT(nn.Module):
         self.gradient_checkpointing = False
         self.to(device)
 
+    def _build_blocks(self, config: DenoiserConfig, **kw):
+        """The block stack; the variants of ``extension/`` override it."""
+        self.blocks = nn.ModuleList([
+            JiTBlock(
+                hidden_dim=config.hidden_size, num_heads=config.num_heads,
+                mlp_ratio=config.mlp_ratio, attn_dropout=config.attn_dropout,
+                proj_dropout=config.proj_dropout, qkv_bias=True, qk_norm=True,
+                use_bias=True, eps=1e-6,
+                positional_encoding=config.positional_encoding,
+                norm_type=config.norm_type, **kw,
+            )
+            for _ in range(config.depth)
+        ])
+
     def set_gradient_checkpointing(self, enable: bool = True):
         """Recompute each block's forward in the backward instead of keeping
         its activations."""
         self.gradient_checkpointing = enable
 
     def qk_logit_bound(self) -> torch.Tensor | None:
-        """Max over blocks of ``Attention.qk_logit_bound``: the observable of
-        the bounded-softmax assumption, logged during training."""
-        bounds = [b for b in (blk.attn.qk_logit_bound() for blk in self.blocks)
+        """Max over every attention module of ``Attention.qk_logit_bound``:
+        the observable of the bounded-softmax assumption, logged during
+        training."""
+        bounds = [b for b in (m.qk_logit_bound() for m in self.modules()
+                              if isinstance(m, Attention))
                   if b is not None]
         return torch.stack(bounds).max() if bounds else None
 
     def _freqs_for(self, height: int, width: int, context_len: int,
                    device: torch.device) -> torch.Tensor:
-        """Rotary table for the full token sequence (patches, imagesize,
-        time, context), cached per shape and device."""
-        key = (height, width, context_len, device)
+        """Rotary (or PoPE) table for the full token sequence (patches,
+        imagesize, time, context), each segment embedded on its own (the
+        normalized PoPE rescales by a segment's own span), cached per
+        embedder kind, shape and device."""
+        key = (type(self.rope_embedder).__name__, height, width, context_len,
+               device)
         if key not in self._freqs_cache:
             cfg, rope = self.config, self.rope_embedder
             table = np.concatenate([
@@ -463,14 +489,24 @@ class JiT(nn.Module):
                 crop_coords, context_mask=None):
         """image (B, H, W, C) NHWC, timestep (B,), context (B, L, context_dim),
         sizes (B, 2), context_mask (B, L) right-padded -> (B, H, W, C)."""
+        patches, _ = self._trunk(image, timestep, context, original_size,
+                                 target_size, crop_coords, context_mask)
+        return self.unpatchify(self.final_layer(patches), image.shape[1],
+                               image.shape[2])
+
+    def _trunk(self, image, timestep, context, original_size, target_size,
+               crop_coords, context_mask, taps: tuple[int, ...] = ()):
+        """The block stack: the patch tokens after the last block, and
+        {i: the patch tokens after block i (context stripped)} for each i of
+        ``taps`` (IG's intermediate head reads one)."""
         cfg = self.config
-        height, width = image.shape[1], image.shape[2]
         (tokens, context_embed, freqs, kv_lens_full, key_mask_full,
          patches_len, prefix_len) = self._prepare_inputs(
             image, timestep, context, original_size, target_size, crop_coords,
             context_mask,
         )
         context_len = context_embed.shape[1]
+        tapped = {}
         for i, block in enumerate(self.blocks):
             if i == cfg.context_start_block or (
                 not cfg.do_context_fuse and i >= cfg.context_start_block
@@ -483,17 +519,20 @@ class JiT(nn.Module):
                 key_mask_full[:, :seq_len]
                 if has_context and key_mask_full is not None else None
             )
-            if self.gradient_checkpointing and torch.is_grad_enabled():
-                tokens = checkpoint(block, tokens, freqs[:seq_len],
-                                    kv_lens=kv_lens, key_mask=key_mask,
-                                    use_reentrant=False)
-            else:
-                tokens = block(tokens, freqs[:seq_len], kv_lens=kv_lens,
-                               key_mask=key_mask)
+            tokens = self._run_block(block, tokens, freqs[:seq_len],
+                                     kv_lens=kv_lens, key_mask=key_mask)
             if not cfg.do_context_fuse and i >= cfg.context_start_block:
                 tokens = tokens[:, :-context_len, :]
-        patches = self.final_layer(tokens[:, :patches_len, :])
-        return self.unpatchify(patches, height, width)
+            if i in taps:
+                tapped[i] = tokens[:, :patches_len, :]
+        return tokens[:, :patches_len, :], tapped
+
+    def _run_block(self, block, *args, **kwargs):
+        """One block, recomputed in the backward under gradient
+        checkpointing."""
+        if self.gradient_checkpointing and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False, **kwargs)
+        return block(*args, **kwargs)
 
 
 class Denoiser(JiT):

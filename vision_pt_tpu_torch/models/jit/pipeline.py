@@ -22,7 +22,10 @@ from .denoiser import Denoiser
 
 
 class JiTModel:
-    """The denoiser and its class encoder, on one device."""
+    """The denoiser and its class encoder, on one device. The variants of
+    ``extension/`` set ``denoiser_class``."""
+
+    denoiser_class: type[torch.nn.Module] = Denoiser
 
     def __init__(self, config: JiTConfig, *, dtype: torch.dtype | None = None,
                  param_dtype: torch.dtype = torch.float32,
@@ -36,10 +39,10 @@ class JiTModel:
             generator = torch.Generator().manual_seed(0)
         if not isinstance(config.context_encoder, ClassContextConfig):
             raise NotImplementedError(
-                "text context encoder is not ported yet: ROADMAP Queue 1, "
-                "slice 3 (models/jit/text_encoder.py)"
+                "text context encoder is not ported yet: ROADMAP Queue 1 "
+                "item 6 (models/jit/text_encoder.py)"
             )
-        self.denoiser = Denoiser(
+        self.denoiser = self.denoiser_class(
             config.denoiser, dtype=dtype, param_dtype=param_dtype,
             generator=generator, device=self.device,
         ).eval()
@@ -56,8 +59,12 @@ class JiTModel:
     def _submodules(self) -> dict[str, torch.nn.Module]:
         return {"denoiser": self.denoiser, "class_encoder": self.class_encoder}
 
-    def _rope_head_dim(self) -> int:
+    def _rope_head_dim(self) -> int | None:
+        """Head dim of the RoPE deinterleave permutation (``convert.py``);
+        None for PoPE, whose q/k channels keep the reference's order."""
         cfg = self.config.denoiser
+        if cfg.positional_encoding != "rope":
+            return None
         return cfg.hidden_size // cfg.num_heads
 
     def state_dict(self) -> dict[str, torch.Tensor]:

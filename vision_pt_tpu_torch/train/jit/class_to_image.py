@@ -16,6 +16,7 @@ from ...data.square_class_image import (
     SquareClassImageDatasetConfig,
     SyntheticClassImageDatasetConfig,
 )
+from ...training.model import ModelForTraining
 from ...training.trainer import Trainer
 from ...workloads.jit_class_to_image import JiTForClassToImageTraining
 
@@ -26,8 +27,11 @@ def _dataset_class(dataset_cfg: dict):
     return SquareClassImageDatasetConfig
 
 
-def run(config_path: str, device: str | None = None) -> Trainer:
-    """Train from a YAML config; returns the finished Trainer."""
+def train(config_path: str, device: str | None,
+          workload: type[ModelForTraining]) -> Trainer:
+    """Train ``workload`` on the square (or, with ``dataset.type:
+    synthetic``, synthetic) class-image dataset of a YAML config; returns the
+    finished Trainer. The JiT variants' entry points call it too."""
     config = TrainConfig.from_config_file(config_path)
     trainer = Trainer(config, device=device)
     dataset_cfg = dict(config.dataset)
@@ -36,9 +40,14 @@ def run(config_path: str, device: str | None = None) -> Trainer:
     config.dataset = dataset_cfg
     trainer.register_train_dataset_class(ds_class)
     trainer.register_preview_dataset_class(TextToImagePreviewConfig)
-    trainer.register_model_class(JiTForClassToImageTraining)
+    trainer.register_model_class(workload)
     trainer.train()
     return trainer
+
+
+def run(config_path: str, device: str | None = None) -> Trainer:
+    """Train from a YAML config; returns the finished Trainer."""
+    return train(config_path, device, JiTForClassToImageTraining)
 
 
 @click.command()

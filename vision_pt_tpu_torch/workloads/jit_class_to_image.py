@@ -150,10 +150,11 @@ class JiTForClassToImageTraining(ModelForTraining):
             )
         raise NotImplementedError(f"model_pred={cfg.model_pred}")
 
-    def compute_loss(self, trainable: JiTTrainable, batch: dict, draws: dict):
+    def _step_inputs(self, trainable: JiTTrainable, batch: dict, draws: dict):
+        """The class context, timesteps, noised images, noise and square
+        size conditioning of one step (the variants share them)."""
         cfg = self.model_config
         images = batch["image"]
-        batch_size = images.shape[0]
         context = trainable.class_encoder(batch["class_ids"])
         if not cfg.train_class_encoder:
             context = context.detach()
@@ -164,7 +165,12 @@ class JiTForClassToImageTraining(ModelForTraining):
         )
         size = torch.tensor([[images.shape[1], images.shape[2]]],
                             dtype=torch.float32, device=images.device)
-        size = size.repeat(batch_size, 1)
+        return context, timesteps, noisy, noise, size.repeat(images.shape[0], 1)
+
+    def compute_loss(self, trainable: JiTTrainable, batch: dict, draws: dict):
+        images = batch["image"]
+        context, timesteps, noisy, noise, size = self._step_inputs(
+            trainable, batch, draws)
         model_pred = trainable.denoiser(
             noisy, timesteps, context, size, size, torch.zeros_like(size),
             context_mask=batch["context_mask"],

@@ -1,10 +1,12 @@
-"""JiT variant training workloads (port of the ARB workload of
+"""JiT variant training workloads (port of
 ``vision_pt_tpu/workloads/jit_variants.py``).
 
 ``JiTForArbClassToImageTraining`` takes the per-sample size conditioning from
 the batch (aspect-ratio buckets, cached latents) and adds the optional
-multi-resolution ``lowres_loss`` terms. The U-JiT, Cross, IG, LoIG and TREAD
-variants are not ported yet (ROADMAP Queue 1, slice 3, item 6).
+multi-resolution ``lowres_loss`` terms. The U-JiT (square and ARB), Cross,
+IG, LoIG and TREAD workloads swap the model class and, where the JAX package
+does, add their loss terms. TREAD's route permutation is one of the step's
+draws (``route_perm``), so a test can hand in the JAX package's.
 """
 
 from __future__ import annotations
@@ -12,7 +14,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.loss.flow_match import prepare_scaled_noised_latents
+from ..models.jit.extension.cross import CrossJiTDenoiserConfig, CrossJiTModel
+from ..models.jit.extension.ig import IGJiTDenoiserConfig, IGJiTModel
+from ..models.jit.extension.loig import LoIGJiTDenoiserConfig, LoIGJiTModel
+from ..models.jit.extension.tread import (
+    JiTWithTreadDenoiserConfig,
+    JiTWithTreadModel,
+)
+from ..models.jit.extension.uvit import UJiTDenoiserConfig, UJiTModel
 from .jit_class_to_image import JiTConfigForTraining, JiTForClassToImageTraining
 
 _SIZE_FIELDS = ("original_size", "target_size", "crop_coords_top_left")
@@ -48,17 +57,8 @@ class JiTForArbClassToImageTraining(JiTForClassToImageTraining):
         cfg = self.model_config
         images = batch["image"]
         batch_size = images.shape[0]
-        context = trainable.class_encoder(batch["class_ids"])
-        if not cfg.train_class_encoder:
-            context = context.detach()
-        timesteps = draws["timesteps"]
-        noisy, noise = prepare_scaled_noised_latents(
-            None, images, timesteps, noise_scale=cfg.noise_scale,
-            draw=draws["noise"],
-        )
-        default_size = torch.tensor([[images.shape[1], images.shape[2]]],
-                                    dtype=torch.float32, device=images.device)
-        default_size = default_size.repeat(batch_size, 1)
+        context, timesteps, noisy, noise, default_size = self._step_inputs(
+            trainable, batch, draws)
         original_size = batch.get("original_size", default_size)
         target_size = batch.get("target_size", default_size)
         crop_coords = batch.get("crop_coords_top_left",
@@ -91,3 +91,137 @@ class JiTForArbClassToImageTraining(JiTForClassToImageTraining):
             metrics[f"lowres_loss_{idx}"] = lowres_l2.detach()
             total = total + lowres_l2
         return total, metrics
+
+
+
+# ------------------------------------------------------------------- U-JiT
+
+
+class UJiTConfigForTraining(JiTConfigForTraining):
+    denoiser: UJiTDenoiserConfig = UJiTDenoiserConfig()
+
+
+class JiTForUJiTTraining(JiTForClassToImageTraining):
+    model_class = UJiTModel
+    model_config_class = UJiTConfigForTraining
+
+
+class ArbUJiTConfigForTraining(JiTConfigForArbTraining):
+    denoiser: UJiTDenoiserConfig = UJiTDenoiserConfig()
+
+
+class JiTForArbUJiTTraining(JiTForArbClassToImageTraining):
+    model_class = UJiTModel
+    model_config_class = ArbUJiTConfigForTraining
+
+
+# ------------------------------------------------------------------- cross
+
+
+class CrossJiTConfigForTraining(JiTConfigForTraining):
+    denoiser: CrossJiTDenoiserConfig = CrossJiTDenoiserConfig()
+
+
+class JiTForCrossTraining(JiTForClassToImageTraining):
+    model_class = CrossJiTModel
+    model_config_class = CrossJiTConfigForTraining
+
+
+# ------------------------------------------------------------------- IG
+
+
+class IGJiTConfigForTraining(JiTConfigForTraining):
+    denoiser: IGJiTDenoiserConfig = IGJiTDenoiserConfig()
+    ig_scale: float = 1.0
+    intermediate_loss_weight: float = 0.5
+
+
+class JiTForIGTraining(JiTForClassToImageTraining):
+    """Internal-guidance training: the main head's target is the image plus
+    ``ig_scale`` times the detached gap between the two heads; the
+    intermediate head is trained toward the clean image."""
+
+    model_class = IGJiTModel
+    model_config_class = IGJiTConfigForTraining
+
+    def compute_loss(self, trainable, batch: dict, draws: dict):
+        cfg = self.model_config
+        images = batch["image"]
+        context, timesteps, noisy, noise, size = self._step_inputs(
+            trainable, batch, draws)
+        model_pred, intermediate_pred = trainable.denoiser(
+            noisy, timesteps, context, size, size, torch.zeros_like(size),
+            context_mask=batch["context_mask"],
+        )
+        guided_clean = images + cfg.ig_scale * (model_pred - intermediate_pred).detach()
+        l2_loss = self._treat_loss(model_pred, noisy, guided_clean, noise, timesteps)
+        inter_loss = self._treat_loss(intermediate_pred, noisy, images, noise,
+                                      timesteps)
+        total = l2_loss + cfg.intermediate_loss_weight * inter_loss
+        return total, {"l2_loss": l2_loss.detach(),
+                       "intermediate_l2_loss": inter_loss.detach()}
+
+
+# ------------------------------------------------------------------- LoIG
+
+
+class LoIGJiTConfigForTraining(JiTConfigForTraining):
+    denoiser: LoIGJiTDenoiserConfig = LoIGJiTDenoiserConfig()
+    loig_loss_weight: float = 1.0
+
+
+class JiTForLoIGTraining(JiTForClassToImageTraining):
+    """Low-rank internal guidance: both heads are trained toward the clean
+    image."""
+
+    model_class = LoIGJiTModel
+    model_config_class = LoIGJiTConfigForTraining
+
+    def compute_loss(self, trainable, batch: dict, draws: dict):
+        cfg = self.model_config
+        images = batch["image"]
+        context, timesteps, noisy, noise, size = self._step_inputs(
+            trainable, batch, draws)
+        model_pred, weak_pred = trainable.denoiser(
+            noisy, timesteps, context, size, size, torch.zeros_like(size),
+            context_mask=batch["context_mask"],
+        )
+        l2_loss = self._treat_loss(model_pred, noisy, images, noise, timesteps)
+        loig_loss = self._treat_loss(weak_pred, noisy, images, noise, timesteps)
+        total = l2_loss + cfg.loig_loss_weight * loig_loss
+        return total, {"l2_loss": l2_loss.detach(),
+                       "loig_l2_loss": loig_loss.detach()}
+
+
+# ------------------------------------------------------------------- TREAD
+
+
+class TreadJiTConfigForTraining(JiTConfigForTraining):
+    denoiser: JiTWithTreadDenoiserConfig = JiTWithTreadDenoiserConfig()
+
+
+class JiTForTreadTraining(JiTForClassToImageTraining):
+    """TREAD token-routing training; the routing runs only in the training
+    step, with the permutation drawn beside the timesteps and noise."""
+
+    model_class = JiTWithTreadModel
+    model_config_class = TreadJiTConfigForTraining
+
+    def draw_randoms(self, batch: dict, generator: torch.Generator) -> dict:
+        draws = super().draw_randoms(batch, generator)
+        images = batch["image"]
+        n = self.model.denoiser.num_patches(images.shape[1], images.shape[2])
+        draws["route_perm"] = torch.randperm(n, generator=generator,
+                                             device=images.device)
+        return draws
+
+    def compute_loss(self, trainable, batch: dict, draws: dict):
+        images = batch["image"]
+        context, timesteps, noisy, noise, size = self._step_inputs(
+            trainable, batch, draws)
+        model_pred = trainable.denoiser(
+            noisy, timesteps, context, size, size, torch.zeros_like(size),
+            context_mask=batch["context_mask"], route_perm=draws["route_perm"],
+        )
+        l2_loss = self._treat_loss(model_pred, noisy, images, noise, timesteps)
+        return l2_loss, {"l2_loss": l2_loss.detach()}
