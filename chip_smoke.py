@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's JiT-B/16 class-to-image sampler and training step,
 its JiT variant trainers (U-JiT, Cross-JiT, IG, LoIG, TREAD) and the x-loss
-config, its latent JiT 1024^2 trainer, its SDXL 1024^2 text-to-image sampler
-(bf16 and NF4) and LoRA / QLoRA trainers, its ``short`` attention backend and
-its two attention probes, on one CUDA card.
+config, its latent-cache tool and latent JiT 1024^2 trainer, its SDXL 1024^2
+text-to-image sampler (bf16 and NF4), LoRA / QLoRA and flow-match trainers,
+its optax optimizers and int8 training linears, its ``short`` attention
+backend and its two attention probes, on one CUDA card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 (with nf4_kernel,
@@ -60,25 +61,33 @@ without a result line:
 7. train_parity: one training step's loss and gradients, same weights, batch
    and injected draws, on the card (kernels) and on the CPU (plain versions
    of the same path), batch 2, in fp32, bf16 and fp16 (the fp16 loss scaled
-   by 2^12 before the backward: see LOSS_SCALE), through
-   ``tools.bench.step_parity``;
+   by 2^12 before the backward: see LOSS_SCALE; fp16 at depth 6, see
+   FP16_PARITY_DEPTH), through ``tools.bench.step_parity``;
 8. parity: the same weights and injected noise through the sampler on the
    card (kernel) and on the CPU (plain versions), batch 1, CFG, 2 steps;
    PSNR at least 50 dB in fp32 (under ``attention_dtype(None)``) and 30 dB
    in bf16;
-9. latent_trainer: the port's latent entry point
+9. cache_latents: the port's caching tool (``tools.data.cache_latents.run``)
+   on the card over 64 synthetic 1024^2 images with captions of 1-4 of four
+   classes, batch 2, the SDXL VAE at full width with random weights from a
+   seed, fp32 inputs, an fp16 store, the convolutions' TF32 flag as the run
+   leaves it (phase 8 turns it off; the phase line states it);
+   the first batch's cached mean and std within 1e-2 relative L2 of the
+   same images encoded on the CPU in fp32, a limit that must fail the
+   first image flipped left-right; no kernel launches (the VAE's attention
+   is a plain product);
+9b. latent_trainer: the port's latent entry point
    (``train.jit.latent_class_to_image.run``) on
    ``configs/jit/latent_arb_1024.yml`` with every model and dataset field as
    shipped (depth 24, 768 wide, patch 2 over a 128 x 128 x 4 latent, so
    S = 4170 in every block; batch 16, bf16, gradient checkpointing, AdamW
-   1e-4) and only its paths rewritten: a synthetic cache of 64 latents in the
-   JAX package's layout, one epoch = 4 steps; exactly 48 flash forward, 24
-   flash backward and no packed launches per step; the last step runs under
-   the profiler;
+   1e-4) and only its paths rewritten: the 64 latents cache_latents wrote,
+   one epoch = 4 steps; exactly 48 flash forward, 24 flash backward and no
+   packed launches per step; the last step runs under the profiler;
 10. latent_parity: one training step of the latent workload at full width,
-   depth cut to 6, a 64 x 64 latent (S = 1098, still the flash path), batch
-   2, on the card (kernels) and on the CPU (plain versions), fp32, bf16 and
-   fp16, against the train_parity floors;
+   depth cut to 6 (fp16: 2), a 64 x 64 latent (S = 1098, still the flash
+   path), batch 2, on the card (kernels) and on the CPU (plain versions),
+   fp32, bf16 and fp16, against the train_parity floors;
 11. sdxl_sampler: SDXL-base at full width (UNet 320/640/1280, context 2048,
    CLIP-L + bigG, the VAE), random weights from a seed, built on the card,
    bf16 compute with fp32 parameters, through the CLI's ``run``
@@ -115,6 +124,12 @@ without a result line:
    on a random-weight checkpoint whose UNet linears ``quantize_state_dict``
    NF4-prequantized on the card; 280 launches of #9 a step besides; then one
    more step under the profiler;
+16b. sdxl_flow_match_trainer: the flow-match entry point
+   (``train.sdxl.flow_match.run``) on ``configs/sdxl/flow_match/config.yml``
+   at full width and depth, 1024^2, batch 2, velocity prediction, LoRA rank
+   8, RAdamScheduleFree and recompute as shipped, its 16-step CFG-4 preview
+   as shipped; cut as sdxl_lora_trainer; 140 launches of #7 and 70 of #8 a
+   step, 16 x 70 of #7 in the preview, a LoRA file of 2,100 tensors;
 17. sdxl_lora_parity: one LoRA training step (nonzero lora_up, cached latents,
    injected draws) of sdxl_parity's model at 512^2, card (kernels) against
    CPU (plain versions), bf16, then with the UNet NF4: the loss within 2e-2
@@ -122,7 +137,22 @@ without a result line:
    witness's error (the card's plain versions against the CPU) where bf16
    alone puts it further (SDXL_LORA_PARITY_FLOOR); 3 + 3 flash launches, and
    54 of #9 under NF4; the floors must fail the same step with #7 / #8
-   dropping the last key tile, and with #9's scale row 3 25% off;
+   dropping the last key tile, and with #9's scale row 3 25% off; then the
+   bf16 step's fp32 witness: the same weights and adapters in fp32 on the
+   card (kernels) and the CPU, attention in fp32, TF32 off, every gradient
+   within 1e-3 (SDXL_FP32_WITNESS_FLOOR), its relative L2 printed;
+17b. sdxl_flow_match_parity: sdxl_lora_parity's model with the flow-match
+   config's LoRA, from images with injected VAE noise, timesteps and noise:
+   the LoRA step under sdxl_lora_parity's floors and wrong kernels, a 2-step
+   CFG ``SDXLFlowMatch.generate`` from injected latents within 7.5e-2
+   relative L2 (6 launches of #7), the step's fp32 witness, and the step
+   with LoHa adapters over the UNet NF4 (54 launches of #9);
+17c. optimizers: prodigy, lion, adafactor, rmsprop and adagrad 20 steps on
+   the same numpy-made parameters (a linear, a conv, a bias, two weights
+   adafactor factors) and gradients, card against CPU within 1e-5 relative
+   L2; ``Int8TrainLinear`` forward and backward at an SDXL shape and a
+   padded one, the int32 product equal, the output within one bf16
+   rounding;
 18. jit_variants_trainer (after latent_parity): U-JiT, ARB U-JiT, Cross, IG,
    LoIG and TREAD through their entry points (``train.jit.*.run``, the
    card by default) at JiT-B/16 width and depth (U-JiT: depth 5 with 12
@@ -1202,36 +1232,119 @@ def phase_parity(label2id: str) -> None:
               f"{dtype} card-vs-CPU PSNR {value:.2f} dB < {PSNR_FLOOR_DB[dtype]}")
 
 
-def _write_latent_cache(cache_dir: str, label2id: str) -> None:
-    """A cache in the JAX package's layout (``vision_pt_tpu/data/
-    latent_cache.py``): LATENT_ITEMS latents of 128 x 128 x 4 fp16
-    mean/std, SDXL sizes of 1024, captions of 1-4 of four classes, so the
-    context (and kv_lens) differ per row."""
+def _write_latent_images(folder: str, label2id: str) -> None:
+    """LATENT_ITEMS 1024^2 images (smooth colour fields with noise) whose
+    captions name 1-4 of four classes, so the context (and kv_lens) differ
+    per row, and the label2id of those classes."""
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
     rng = np.random.default_rng(0)
-    os.makedirs(cache_dir, exist_ok=True)
-    rows = []
-    side, size = LATENT_SIDE, 8 * LATENT_SIDE
+    side = 8 * LATENT_SIDE
+    yy, xx = np.mgrid[0:side, 0:side] / side
     for i in range(LATENT_ITEMS):
-        name = f"{i:040x}.npz"
-        np.savez(os.path.join(cache_dir, name),
-                 mean=rng.normal(size=(side, side, 4)).astype(np.float16),
-                 std=rng.uniform(0.05, 0.3, size=(side, side, 4)).astype(np.float16))
-        rows.append({"caption": " ".join(f"c{(i + j) % 4}" for j in range(1 + i % 4)),
-                     "height": size, "width": size,
-                     "original_size": [size, size], "target_size": [size, size],
-                     "crop_coords_top_left": [0, 0], "scaling_factor": 0.13025,
-                     "dtype": "float16", "file": name, "latent_height": side,
-                     "latent_width": side})
-    with open(os.path.join(cache_dir, "manifest.jsonl"), "w") as f:
-        f.writelines(json.dumps(r) + "\n" for r in rows)
+        base = np.stack([np.sin((3 + i % 5) * xx + i), np.cos(2 * yy - i), xx * yy], -1)
+        pixels = 127.5 * (base + 1) + rng.integers(-20, 21, size=base.shape)
+        Image.fromarray(np.clip(pixels, 0, 255).astype(np.uint8)).save(
+            os.path.join(folder, f"img{i:03d}.png"), compress_level=0)
+        with open(os.path.join(folder, f"img{i:03d}.txt"), "w") as f:
+            f.write(" ".join(f"c{(i + j) % 4}" for j in range(1 + i % 4)))
     with open(label2id, "w") as f:
         json.dump({f"c{i}": i for i in range(4)}, f)
 
 
+# cache_latents: the tool's batch, and the floor of one batch's cached mean
+# and std against the same images encoded on the CPU in fp32 (relative L2;
+# the store is fp16, 2^-11 relative, and the card's convolutions run TF32,
+# PyTorch's default for cuDNN that the tool keeps, 2^-11 relative per
+# product: 1.6e-3 measured with it on, 2.8e-4 off, NVIDIA H100 80GB HBM3
+# 700 W)
+CACHE_BATCH, CACHE_FLOOR = 2, 1e-2
+
+
+def phase_cache_latents(tmp: str) -> tuple[int, ...]:
+    """The port's caching tool (``tools.data.cache_latents.run``) on the card
+    over LATENT_ITEMS synthetic 1024^2 images with a random-weight SDXL VAE
+    at full width; its first batch held against the same images encoded on
+    the CPU, which must fail with one image flipped left-right. The card
+    runs with PyTorch's default TF32 settings (cuDNN convolutions on,
+    matmuls off), whatever an earlier phase left, and they are restored
+    after. Returns the kernel launches of the run (none: the VAE's attention
+    is a plain product)."""
+    from vision_pt_tpu_torch.data.text_to_image import TextToImageDatasetConfig
+    from vision_pt_tpu_torch.tools.data.cache_latents import build_vae, run
+
+    folder, cache = os.path.join(tmp, "latent_images"), os.path.join(tmp, "latent_cache")
+    t0 = time.perf_counter()
+    _write_latent_images(folder, os.path.join(tmp, "latent_label2id.json"))
+    write_seconds = time.perf_counter() - t0
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        manifest = run(folder, cache, bucket_base_size=8 * LATENT_SIDE,
+                       batch_size=CACHE_BATCH, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        card_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    peak = torch.cuda.max_memory_allocated()
+    with open(manifest) as f:
+        rows = [json.loads(line) for line in f]
+    # the same VAE (the tool's seed) on the CPU, and the tool's first batch
+    vae = build_vae(device="cuda")
+    host = build_vae(device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in vae.state_dict().items()})
+    del vae
+    batch = next(iter(TextToImageDatasetConfig(
+        folder=folder, batch_size=CACHE_BATCH, bucket_base_size=8 * LATENT_SIDE,
+        shuffle=False, num_repeats=1).get_dataset()))
+    images = batch["image"]
+    torch.set_num_threads(os.cpu_count() or 1)
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        dist = host.encode(torch.from_numpy(np.concatenate([images, images[:1, :, ::-1]])))
+    cpu_seconds = time.perf_counter() - t1
+    mean = dist.mean.numpy()
+    std = torch.exp(0.5 * torch.clamp(dist.logvar, -30.0, 20.0)).numpy()
+    errors, flipped = [], None
+    for i, row in enumerate(rows[:CACHE_BATCH]):
+        with np.load(os.path.join(cache, row["file"])) as z:
+            cached = z["mean"].astype(np.float32), z["std"].astype(np.float32)
+        check(row["caption"] == batch["caption"][i], "cache rows out of batch order")
+        errors.append((_rel_l2(cached[0], mean[i]), _rel_l2(cached[1], std[i])))
+        if i == 0:
+            flipped = (_rel_l2(cached[0], mean[-1]), _rel_l2(cached[1], std[-1]))
+    emit("cache_latents", tool="vision_pt_tpu_torch.tools.data.cache_latents",
+         images=LATENT_ITEMS, resolution=8 * LATENT_SIDE, batch=CACHE_BATCH,
+         vae="SDXL VAE at full width, random weights from seed 0", store="float16",
+         matmul_allow_tf32=card_tf32[0], cudnn_allow_tf32=card_tf32[1],
+         write_images_seconds=write_seconds, run_seconds=seconds,
+         images_per_second=LATENT_ITEMS / seconds, peak_memory_bytes=peak,
+         rows=len(rows), latent=[rows[0]["latent_height"], rows[0]["latent_width"], 4],
+         cpu_encode_seconds=cpu_seconds, mean_std_rel_l2=errors,
+         flipped_image_rel_l2=flipped, floor=CACHE_FLOOR, launches=counts)
+    check(len(rows) == LATENT_ITEMS and {(r["latent_height"], r["latent_width"])
+                                         for r in rows} == {(LATENT_SIDE, LATENT_SIDE)},
+          f"cache of {len(rows)} rows")
+    check(all(max(e) <= CACHE_FLOOR for e in errors),
+          f"cached latents against the CPU's: {errors}")
+    check(flipped[0] > CACHE_FLOOR, f"the floor passes a flipped image: {flipped}")
+    check(counts == _expect({}), f"cache_latents launched {counts}")
+    del host, dist
+    return counts
+
+
 def phase_latent_trainer(tmp: str) -> tuple[int, ...]:
     """The port's latent entry point on ``configs/jit/latent_arb_1024.yml`` as
-    shipped, paths rewritten; returns the kernel launches of the whole run
-    (the sanity check and 4 steps)."""
+    shipped, paths rewritten, over the cache phase_cache_latents wrote;
+    returns the kernel launches of the whole run (the sanity check and 4
+    steps)."""
     import yaml
 
     from vision_pt_tpu_torch.train.jit.latent_class_to_image import run
@@ -1240,7 +1353,7 @@ def phase_latent_trainer(tmp: str) -> tuple[int, ...]:
     with open(os.path.join(ROOT, "configs/jit/latent_arb_1024.yml")) as f:
         cfg = yaml.safe_load(f)
     label2id = os.path.join(tmp, "latent_label2id.json")
-    _write_latent_cache(os.path.join(tmp, "latent_cache"), label2id)
+    # the cache phase_cache_latents wrote with the port's tool
     cfg["model"]["context_encoder"]["label2id_map_path"] = label2id
     cfg["dataset"]["cache_dir"] = os.path.join(tmp, "latent_cache")
     cfg["saving"]["callbacks"][0]["save_dir"] = os.path.join(tmp, "latent_out")
@@ -1651,16 +1764,29 @@ def phase_sdxl_parity() -> None:
 
 # ---------------------------------- SDXL LoRA / QLoRA training
 
-SDXL_TRAIN_CONFIGS = {"lora": "configs/sdxl/text_to_image_lora.yml",
-                      "qlora": "configs/sdxl/text_to_image_qlora_nf4.yml"}
 SDXL_TRAIN_IMAGES, SDXL_TRAIN_STEPS = 2, 4  # num_repeats 4, batch 2: 4 steps
-# per training step at 1024^2, batch 2, per-layer recompute: the 70
-# self-attentions (10 at S 4096, 60 at S 1024) take #7 in the forward and
-# again in the recompute and #8 once; under QLoRA the to_k / to_v of the 70
-# cross-attentions over the 2 x 227 context rows take #9 in the forward and
-# the recompute (every other NF4 product has more than 1024 rows)
-SDXL_TRAIN_LAUNCHES = {"lora": _expect({7: 140, 8: 70}),
-                       "qlora": _expect({7: 140, 8: 70, 9: 280})}
+# each SDXL training config: its file, its entry module under
+# ``vision_pt_tpu_torch.train.sdxl``, its preview's steps (None: as shipped),
+# and the launches of a training step and of the preview. A step at 1024^2,
+# batch 2, per-layer recompute: the 70 self-attentions (10 at S 4096, 60 at
+# S 1024) take #7 in the forward and again in the recompute and #8 once;
+# under QLoRA the to_k / to_v of the 70 cross-attentions over the 2 x 227
+# context rows take #9 in the forward and the recompute (every other NF4
+# product has more than 1024 rows). A preview's UNet call (CFG, batch 2)
+# takes #7 70 times, and #9 140 times under QLoRA; the flow-match preview
+# (configs/sdxl/flow_match/preview.yml) runs 16 steps, the others are cut
+# to 2.
+SDXL_TRAIN_CONFIGS = {
+    "lora": dict(path="configs/sdxl/text_to_image_lora.yml", entry="text_to_image",
+                 preview_steps=2, launches=_expect({7: 140, 8: 70}),
+                 preview_launches=_expect({7: 2 * 70})),
+    "qlora": dict(path="configs/sdxl/text_to_image_qlora_nf4.yml", entry="text_to_image",
+                  preview_steps=2, launches=_expect({7: 140, 8: 70, 9: 280}),
+                  preview_launches=_expect({7: 2 * 70, 9: 2 * 140})),
+    "flow_match": dict(path="configs/sdxl/flow_match/config.yml", entry="flow_match",
+                       preview_steps=None, launches=_expect({7: 140, 8: 70}),
+                       preview_launches=_expect({7: 16 * 70})),
+}
 # the QLoRA checkpoint's NF4 linears, by their sgm keys: the CLI's set (the
 # transformers' attention and feed-forward linears and their projections)
 QLORA_QUANT_KEYS = ["attn1.", "attn2.", "ff.net.", "proj_in.", "proj_out."]
@@ -1732,13 +1858,15 @@ def _sdxl_train_config(tmp: str, label: str, checkpoint: str | None) -> tuple[st
     cuts, listed."""
     import yaml
 
-    with open(os.path.join(ROOT, SDXL_TRAIN_CONFIGS[label])) as f:
+    spec = SDXL_TRAIN_CONFIGS[label]
+    with open(os.path.join(ROOT, spec["path"])) as f:
         cfg = yaml.safe_load(f)
     with open(os.path.join(ROOT, cfg["preview"]["data"]["path"])) as f:
         preview = yaml.safe_load(f)[:1]
     work = os.path.join(tmp, label)
     os.makedirs(work, exist_ok=True)
-    preview[0]["num_steps"] = 2
+    if spec["preview_steps"] is not None:
+        preview[0]["num_steps"] = spec["preview_steps"]
     with open(os.path.join(work, "preview.yml"), "w") as f:
         yaml.safe_dump(preview, f)
     cfg["model"].update(checkpoint_path=checkpoint, tokenizer="word-hash")
@@ -1758,17 +1886,26 @@ def _sdxl_train_config(tmp: str, label: str, checkpoint: str | None) -> tuple[st
             f"{SDXL_TRAIN_IMAGES} synthetic 1024^2 images with captions, "
             f"num_repeats 4, batch 2: 1 epoch of {SDXL_TRAIN_STEPS} steps",
             "output paths in a temporary directory",
-            "preview: the first prompt of configs/sdxl/preview.yml, 2 steps"]
+            f"preview: the first prompt of {cfg['preview']['data']['path']}, "
+            + (f"{spec['preview_steps']} steps" if spec["preview_steps"] is not None
+               else f"as shipped ({preview[0]['num_steps']} steps)")]
     return path, cuts
 
 
 def phase_sdxl_trainer(tmp: str, label: str) -> tuple[int, ...]:
-    """The port's SDXL entry point (``train.sdxl.text_to_image.run``) on the
-    shipped LoRA or QLoRA config at full width and depth, 1024^2, its cuts
-    listed in the phase line; returns the kernel launches of the run."""
-    from vision_pt_tpu_torch.train.sdxl.text_to_image import run
-    from vision_pt_tpu_torch.training.trainer import Trainer
+    """The port's SDXL entry point (``train.sdxl.text_to_image.run``, or
+    ``train.sdxl.flow_match.run`` for the flow-match config) on the shipped
+    LoRA, QLoRA or flow-match config at full width and depth, 1024^2, its
+    cuts listed in the phase line; returns the kernel launches of the run."""
+    import importlib
 
+    from vision_pt_tpu_torch.training.trainer import Trainer
+    from vision_pt_tpu_torch.workloads.sdxl_text_to_image import (
+        SDXLForTextToImageTraining as Workload,
+    )
+
+    spec = SDXL_TRAIN_CONFIGS[label]
+    run = importlib.import_module(f"vision_pt_tpu_torch.train.sdxl.{spec['entry']}").run
     phase = f"sdxl_{label}_trainer"
     if not os.path.isdir(os.path.join(tmp, "images")):
         _write_sdxl_images(os.path.join(tmp, "images"))
@@ -1778,6 +1915,7 @@ def phase_sdxl_trainer(tmp: str, label: str) -> tuple[int, ...]:
         written = _write_nf4_checkpoint(checkpoint)
     path, cuts = _sdxl_train_config(tmp, label, checkpoint)
     per_step, step_seconds, peaks, inner = [], [], [], Trainer.train_step
+    previews, inner_preview = [], Workload.preview_step
 
     def counting(self, *args, **kwargs):
         if not per_step:
@@ -1792,13 +1930,24 @@ def phase_sdxl_trainer(tmp: str, label: str) -> tuple[int, ...]:
         peaks.append(torch.cuda.max_memory_allocated())
         return out
 
+    def previewing(self, *args, **kwargs):
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner_preview(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        previews.append((time.perf_counter() - t0, _diff(_counts(), before)))
+        return out
+
     Trainer.train_step = counting
+    Workload.preview_step = previewing
     _reset_counts()
     t0 = time.perf_counter()
     try:
         trainer = run(path)
     finally:
         Trainer.train_step = inner
+        Workload.preview_step = inner_preview
     seconds = time.perf_counter() - t0
     counts = _counts()
     work = os.path.join(tmp, label)
@@ -1812,24 +1961,28 @@ def phase_sdxl_trainer(tmp: str, label: str) -> tuple[int, ...]:
     tree = trainer.model.trainable()
     adapters = sum(p.numel() for p in tree.parameters() if p.requires_grad)
     timed = step_seconds[1:]
-    emit(phase, config=SDXL_TRAIN_CONFIGS[label], cuts=cuts, resolution=1024,
+    emit(phase, config=spec["path"], cuts=cuts, resolution=1024,
          batch=2, optimizer=trainer.config.optimizer.name,
          gradient_checkpointing=trainer.config.trainer.gradient_checkpointing,
          checkpoint=written, steps=trainer.global_step, run_seconds=seconds,
          step_seconds=step_seconds,
          seconds_per_step_2_to_4=sum(timed) / max(len(timed), 1),
          peak_memory_bytes=max(peaks) if peaks else None, losses=losses,
-         launches_per_step=per_step, expected_per_step=SDXL_TRAIN_LAUNCHES[label],
+         launches_per_step=per_step, expected_per_step=spec["launches"],
          run_launches=counts, adapter_params=adapters, lora_file_keys=len(lora),
-         previews=len(os.listdir(os.path.join(work, "preview"))))
+         previews=len(os.listdir(os.path.join(work, "preview"))),
+         preview_seconds=[p[0] for p in previews],
+         preview_launches=[p[1] for p in previews])
     check(trainer.global_step == SDXL_TRAIN_STEPS and len(losses) == SDXL_TRAIN_STEPS
           and all(np.isfinite(losses)), f"{phase} losses {losses}")
-    check(per_step == [SDXL_TRAIN_LAUNCHES[label]] * SDXL_TRAIN_STEPS,
-          f"{phase} launches per step {per_step}, expected "
-          f"{SDXL_TRAIN_LAUNCHES[label]}")
+    check(per_step == [spec["launches"]] * SDXL_TRAIN_STEPS,
+          f"{phase} launches per step {per_step}, expected {spec['launches']}")
     # 700 adapted linears (attn1, attn2, .ff.), 3 tensors each
     check(len(lora) == 3 * 700 and all(k.startswith("diffusion_model.") for k in lora),
           f"{phase} LoRA file with {len(lora)} tensors")
+    check([p[1] for p in previews] == [spec["preview_launches"]],
+          f"{phase} preview launches {[p[1] for p in previews]}, expected "
+          f"{spec['preview_launches']}")
     if label == "qlora":
         # where a QLoRA step's time goes (the dense NF4 dequantization of the
         # products over 1024 rows among it): one more step, profiled
@@ -1843,82 +1996,255 @@ def phase_sdxl_trainer(tmp: str, label: str) -> tuple[int, ...]:
     return counts
 
 
-def phase_sdxl_lora_parity() -> None:
-    """One LoRA training step, card against CPU: sdxl_parity's model at
-    512^2, random weights, nonzero lora_up, cached latents, injected draws,
-    bf16; then with the UNet NF4. Held to SDXL_LORA_PARITY_FLOOR, with the
-    card's plain versions as the witness."""
+# the fp32 witness of a parity step: the same step in fp32 on the card
+# (kernels) and on the CPU, attention in fp32 and TF32 off for matmuls and
+# cuDNN convolutions on both sides; every adapter gradient within 1e-3
+# relative L2 says the bf16 steps' gap is rounding, not a fault
+SDXL_FP32_WITNESS_FLOOR = 1e-3
+
+
+PARITY_SIDE = 512  # the SDXL parity phases' resolution
+
+
+def _parity_config(dtype: str, peft: dict, **model) -> dict:
+    """sdxl_parity's model (full widths, one layer and one transformer per
+    stage) with ``peft``, as a TrainConfig dict."""
+    return {"model": {"checkpoint_path": None, "dtype": dtype, "tokenizer": "word-hash",
+                      "max_token_length": 75,
+                      "denoiser": {"layers_per_block": 1,
+                                   "num_transformers_per_block": [1, 1, 1]}, **model},
+            "dataset": {}, "peft": peft, "seed": 1}
+
+
+def _parity_step(workload, batch: dict, draws: dict, kernels: bool = True):
+    """Loss, adapter gradients, launches and seconds of one step; with
+    ``kernels`` the gates are open (the CPU runs the same path through the
+    plain versions), without, the card takes the plain versions."""
+    import vision_pt_tpu_torch.ops.attention as attention
+    from vision_pt_tpu_torch.ops.quant import layers as qlayers
+
+    arrays = workload.prepare_batch(batch)
+    trainable = workload.trainable()
+    trainable.zero_grad(set_to_none=True)
+    _reset_counts()
+    gates = attention._on_cuda, qlayers._on_cuda
+    attention._on_cuda = qlayers._on_cuda = lambda x: kernels
+    t0 = time.perf_counter()
+    try:
+        loss, _ = workload.compute_loss(
+            trainable, arrays, {k: v.to(workload.device) for k, v in draws.items()})
+        loss.backward()
+    finally:
+        attention._on_cuda, qlayers._on_cuda = gates
+    grads = {n: p.grad.float().cpu().numpy() for n, p in trainable.named_parameters()
+             if p.requires_grad}
+    return float(loss.detach()), grads, _counts(), time.perf_counter() - t0
+
+
+def _parity_errors(ours, theirs):
+    return (abs(ours[0] - theirs[0]) / abs(theirs[0]),
+            {n: _rel_l2(ours[1][n], theirs[1][n]) for n in theirs[1]})
+
+
+def _parity_verdict(run, host, witness):
+    """The names of the gradients over SDXL_LORA_PARITY_FLOOR (the loss as
+    "loss")."""
+    loss_err, grad_err = _parity_errors(run, host)
+    floor = SDXL_LORA_PARITY_FLOOR
+    over = [n for n, e in grad_err.items()
+            if e > max(floor["grad"], floor["witness"] * witness[n])]
+    return over + (["loss"] if loss_err > floor["loss"] else [])
+
+
+def _host_twin(workload_cls, config, card):
+    """The card workload's model and training tree, copied to the CPU."""
     import copy
 
-    import yaml
+    host = workload_cls(config, torch.device("cpu"))
+    host.model, host._full_trainable = copy.deepcopy((card.model, card._full_trainable))
+    host.model.to("cpu")
+    host._is_peft = True
+    return host
 
-    import vision_pt_tpu_torch.ops.attention as attention
-    from vision_pt_tpu_torch.config import TrainConfig
-    from vision_pt_tpu_torch.ops.quant import layers as qlayers
-    from vision_pt_tpu_torch.ops.quant import quantize_inplace
+
+def _perturb_adapters(tree, names: tuple[str, ...], seed: int, scale: float) -> None:
+    """Draw the adapter factors that start at 0 (``lora_up``, ``hada_w2_a``)
+    so every factor has a gradient."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in tree.named_parameters():
+            if name.endswith(names):
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * scale)
+
+
+def _attach(card, peft: dict, seed: int = 1) -> None:
+    """Adapters from ``peft`` on the card workload's tree, the zero factors
+    drawn, the base frozen."""
     from vision_pt_tpu_torch.peft import (
-        LoRAConfig,
-        adapter_parameters,
+        PeftTargetConfig,
         freeze_all_but_adapters,
         replace_to_peft_layer,
     )
+
+    tree = card._full_trainable
+    replace_to_peft_layer(tree, peft["include_keys"], peft["exclude_keys"],
+                          PeftTargetConfig.model_validate(peft).config, seed=seed)
+    _perturb_adapters(tree, ("lora_up.weight", "hada_w2_a"), seed + 1, 0.05)
+    freeze_all_but_adapters(tree)
+    card._is_peft = True
+
+
+def _fp32_witness(phase: str, workload_cls, config: dict, card, batch: dict,
+                  draws: dict) -> float:
+    """The bf16 card workload's step in fp32 on the card (kernels) and on the
+    CPU, from the same weights and adapters; emits every gradient's relative
+    L2 and returns the largest."""
+    from vision_pt_tpu_torch.config import TrainConfig
+    from vision_pt_tpu_torch.ops.attention import attention_dtype
+
+    peft = {**config["peft"], "config": {**config["peft"]["config"], "dtype": "float32"}}
+    config = TrainConfig.model_validate(
+        {**config, "model": {**config["model"], "dtype": "float32"}, "peft": peft})
+    twin = workload_cls(config, torch.device("cuda"))
+    twin.setup_model()
+    _attach(twin, peft)
+    # the card tree's weights and adapters (parameters fp32, adapters bf16)
+    twin._full_trainable.load_state_dict(
+        {k: v.float() for k, v in card._full_trainable.state_dict().items()}, strict=True)
+    host = _host_twin(workload_cls, config, twin)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with attention_dtype(None):
+            run, cpu = _parity_step(twin, batch, draws), _parity_step(host, batch, draws)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32[:2]
+        torch.set_float32_matmul_precision(tf32[2])
+    loss_err, grad_err = _parity_errors(run, cpu)
+    worst = max(grad_err.values())
+    short = {n.removeprefix("denoiser.").replace(".weight", ""): float(f"{e:.3g}")
+             for n, e in grad_err.items()}
+    emit(phase, case="fp32_witness", dtype="float32", attention_dtype=None,
+         tf32=False, loss_cuda=run[0], loss_cpu=cpu[0], loss_rel_err=loss_err,
+         grad_rel_l2_max=worst, grad_rel_l2_median=float(np.median(list(grad_err.values()))),
+         floor=SDXL_FP32_WITNESS_FLOOR, launches_cuda=run[2], grad_rel_l2=short,
+         seconds_cuda=run[3], seconds_cpu=cpu[3])
+    check(np.isfinite(run[0]) and len(grad_err) > 0, f"{phase}: fp32 witness step")
+    check(worst <= SDXL_FP32_WITNESS_FLOOR and loss_err <= SDXL_FP32_WITNESS_FLOOR,
+          f"{phase}: the fp32 step's card-vs-CPU gap {worst:.3g} (loss {loss_err:.3g}) "
+          f"is over {SDXL_FP32_WITNESS_FLOOR}: a fault, not bf16 rounding")
+    del twin, host
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _wrong_kernel_verdicts(step, cpu, witness, nf4: bool) -> dict:
+    """The verdicts of one card step with #7 / #8 dropping the last key tile
+    (64 keys) and, under NF4, with #9's scale row 3 25% off."""
+    import vision_pt_tpu_torch.ops.attention as attention
+    from vision_pt_tpu_torch.ops.quant import layers as qlayers
+
+    kernel, flash = qlayers.dequant_matmul_4bit, attention.flash_attention
+
+    def short_flash(q, k, v, kv_lens=None, **kw):
+        lens = torch.full((q.shape[0],), k.shape[1] - 64, dtype=torch.int32,
+                          device=q.device)
+        return flash(q, k, v, lens, **kw)
+
+    def wrong_nf4(x, packed, absmax, quant_type="nf4"):
+        absmax = absmax.clone()
+        absmax[3 % absmax.shape[0]] *= 1.25
+        return kernel(x, packed, absmax, quant_type)
+
+    wrong = {}
+    for label, module, name, fn in (
+            ("flash_last_tile_dropped", attention, "flash_attention", short_flash),
+            ("nf4_absmax_row_perturbed", qlayers, "dequant_matmul_4bit", wrong_nf4)):
+        if module is qlayers and not nf4:
+            continue
+        real = getattr(module, name)
+        setattr(module, name, fn)
+        try:
+            wrong[label] = _parity_verdict(step(), cpu, witness)
+        finally:
+            setattr(module, name, real)
+    return wrong
+
+
+def _parity_case(phase: str, label: str, workload_cls, config, card, batch, draws,
+                 expected, n_grads, **fields) -> tuple[int, ...]:
+    """One adapter step, card (kernels) against CPU with the card's plain
+    versions as the witness, held to SDXL_LORA_PARITY_FLOOR, which must fail
+    the wrong kernels; emits the phase line and returns the card step's
+    launches."""
+    host = _host_twin(workload_cls, config, card)
+    run = _parity_step(card, batch, draws)
+    plain = _parity_step(card, batch, draws, kernels=False)
+    cpu = _parity_step(host, batch, draws)
+    loss_err, grad_err = _parity_errors(run, cpu)
+    witness = _parity_errors(plain, cpu)[1]
+    worst = max(grad_err, key=grad_err.get)
+    over = _parity_verdict(run, cpu, witness)
+    wrong = _wrong_kernel_verdicts(lambda: _parity_step(card, batch, draws), cpu, witness,
+                                   nf4=expected[8] > 0)
+    emit(phase, case=label, resolution=PARITY_SIDE, batch=2,
+         depth="layers_per_block 1, one transformer per stage", **fields,
+         adapters=len(grad_err), loss_cuda=run[0], loss_cpu=cpu[0],
+         loss_cuda_plain=plain[0], loss_rel_err=loss_err,
+         grad_rel_l2_max=grad_err[worst], worst_param=worst, worst_witness=witness[worst],
+         grad_rel_l2_median=float(np.median(list(grad_err.values()))),
+         witness_max=max(witness.values()),
+         witness_median=float(np.median(list(witness.values()))),
+         card_vs_plain_max=max(_parity_errors(run, plain)[1].values()),
+         over_floor=over, wrong_kernel_over_floor=wrong, floor=SDXL_LORA_PARITY_FLOOR,
+         launches_cuda=run[2], launches_cuda_plain=plain[2], launches_cpu=cpu[2],
+         expected_cuda=expected, seconds_cuda=run[3], seconds_cpu=cpu[3])
+    check(np.isfinite(run[0]) and all(np.isfinite(g).all() for g in run[1].values()),
+          f"non-finite {phase} {label} step")
+    check(run[1].keys() == cpu[1].keys() and len(run[1]) == n_grads,
+          f"{phase} {label}: {len(run[1])} adapter gradients, expected {n_grads}")
+    check(all(np.abs(g).max() > 0 for g in cpu[1].values()),
+          f"{phase} {label}: an adapter gradient is 0")
+    check(run[2] == expected and plain[2] == _expect({}) and cpu[2] == _expect({}),
+          f"{phase} {label} launches: card {run[2]}, expected {expected}; plain "
+          f"{plain[2]} and CPU {cpu[2]}, expected none")
+    check(not over, f"{phase} {label} over its floors: {over[:4]}")
+    check(all(wrong.values()), f"a {phase} floor passes a wrong kernel: {wrong}")
+    del host
+    return run[2]
+
+
+def phase_sdxl_lora_parity() -> None:
+    """One LoRA training step, card against CPU: sdxl_parity's model at
+    512^2, random weights, nonzero lora_up, cached latents, injected draws,
+    bf16; its fp32 witness; then with the UNet NF4. Held to
+    SDXL_LORA_PARITY_FLOOR, with the card's plain versions as the witness."""
+    import yaml
+
+    from vision_pt_tpu_torch.config import TrainConfig
+    from vision_pt_tpu_torch.ops.quant import quantize_inplace
     from vision_pt_tpu_torch.tools import inference_cli as cli
     from vision_pt_tpu_torch.workloads.sdxl_text_to_image import (
         SDXLForTextToImageTraining,
     )
 
     torch.set_num_threads(os.cpu_count() or 1)
-    with open(os.path.join(ROOT, SDXL_TRAIN_CONFIGS["lora"])) as f:
+    with open(os.path.join(ROOT, SDXL_TRAIN_CONFIGS["lora"]["path"])) as f:
         peft = yaml.safe_load(f)["peft"]
-    config = TrainConfig.model_validate({
-        "model": {"checkpoint_path": None, "dtype": "bfloat16", "tokenizer": "word-hash",
-                  "max_token_length": 75,
-                  "denoiser": {"layers_per_block": 1,
-                               "num_transformers_per_block": [1, 1, 1]}},
-        "dataset": {}, "peft": peft, "seed": 1})
+    raw = _parity_config("bfloat16", peft)
+    config = TrainConfig.model_validate(raw)
     rng = np.random.default_rng(6)
-    batch = {"latents": rng.normal(size=(2, 64, 64, 4)).astype(np.float32),
+    latent = (2, PARITY_SIDE // 8, PARITY_SIDE // 8, 4)
+    batch = {"latents": rng.normal(size=latent).astype(np.float32),
              "caption": ["1girl, solo, red hair, looking at viewer",
                          "a red fox in the snow, detailed fur"],
-             "original_size": np.full((2, 2), 512, np.int32),
-             "target_size": np.full((2, 2), 512, np.int32),
+             "original_size": np.full((2, 2), PARITY_SIDE, np.int32),
+             "target_size": np.full((2, 2), PARITY_SIDE, np.int32),
              "crop_coords_top_left": np.zeros((2, 2), np.int32)}
     draws = {"timesteps": torch.tensor([150, 700], dtype=torch.int32),
-             "noise": torch.from_numpy(rng.normal(size=(2, 64, 64, 4)).astype(np.float32))}
-
-    def step(workload, kernels=True):
-        """Loss, LoRA gradients, launches and seconds of one step; with
-        ``kernels`` the gates are open (the CPU runs the same path through
-        the plain versions), without, the card takes the plain versions."""
-        arrays = workload.prepare_batch(batch)
-        trainable = workload.trainable()
-        trainable.zero_grad(set_to_none=True)
-        _reset_counts()
-        gates = attention._on_cuda, qlayers._on_cuda
-        attention._on_cuda = qlayers._on_cuda = lambda x: kernels
-        t0 = time.perf_counter()
-        try:
-            loss, _ = workload.compute_loss(
-                trainable, arrays, {k: v.to(workload.device) for k, v in draws.items()})
-            loss.backward()
-        finally:
-            attention._on_cuda, qlayers._on_cuda = gates
-        grads = {n: p.grad.float().cpu().numpy() for n, p in trainable.named_parameters()
-                 if p.requires_grad}
-        return float(loss.detach()), grads, _counts(), time.perf_counter() - t0
-
-    def errors(ours, theirs):
-        return (abs(ours[0] - theirs[0]) / abs(theirs[0]),
-                {n: _rel_l2(ours[1][n], theirs[1][n]) for n in theirs[1]})
-
-    def verdict(run, host, witness):
-        """The names of the gradients over their floor (loss as "loss")."""
-        loss_err, grad_err = errors(run, host)
-        floor = SDXL_LORA_PARITY_FLOOR
-        over = [n for n, e in grad_err.items()
-                if e > max(floor["grad"], floor["witness"] * witness[n])]
-        return over + (["loss"] if loss_err > floor["loss"] else [])
-
+             "noise": torch.from_numpy(rng.normal(size=latent).astype(np.float32))}
     card = SDXLForTextToImageTraining(config, torch.device("cuda"))
     card.setup_model()
     for label in ("bf16", "nf4"):
@@ -1926,86 +2252,231 @@ def phase_sdxl_lora_parity() -> None:
             card.setup_model()
             quantize_inplace(card.model.denoiser, "bnb_nf4", cli.INCLUDE_KEYS,
                              cli.EXCLUDE_KEYS)
-        tree = card._full_trainable
-        replace_to_peft_layer(tree, peft["include_keys"], peft["exclude_keys"],
-                              LoRAConfig.model_validate(peft["config"]), seed=1)
-        gen = torch.Generator(device="cuda").manual_seed(2)
-        with torch.no_grad():
-            for name, p in tree.named_parameters():
-                if name.endswith("lora_up.weight"):
-                    p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.05)
-        freeze_all_but_adapters(tree)
-        card._is_peft = True
-        host = SDXLForTextToImageTraining(config, torch.device("cpu"))
-        host.model, host._full_trainable = copy.deepcopy((card.model, tree))
-        host.model.to("cpu")
-        host._is_peft = True
-        run = step(card)
-        plain = step(card, kernels=False)
-        cpu = step(host)
-        loss_err, grad_err = errors(run, cpu)
-        witness = errors(plain, cpu)[1]
-        worst = max(grad_err, key=grad_err.get)
-        over = verdict(run, cpu, witness)
-        # the floors must fail a kernel that is wrong in every launch: #7 / #8
-        # with the last key tile (64 keys) left out, and #9 with one scale
-        # row 25% off
-        kernel, flash = qlayers.dequant_matmul_4bit, attention.flash_attention
-
-        def short_flash(q, k, v, kv_lens=None, **kw):
-            lens = torch.full((q.shape[0],), k.shape[1] - 64, dtype=torch.int32,
-                              device=q.device)
-            return flash(q, k, v, lens, **kw)
-
-        def wrong_nf4(x, packed, absmax, quant_type="nf4"):
-            absmax = absmax.clone()
-            absmax[3] *= 1.25
-            return kernel(x, packed, absmax, quant_type)
-
-        wrong = {}
-        for wrong_label, module, name, fn in (
-                ("flash_last_tile_dropped", attention, "flash_attention", short_flash),
-                ("nf4_absmax_row_perturbed", qlayers, "dequant_matmul_4bit", wrong_nf4)):
-            if label == "bf16" and module is qlayers:
-                continue
-            real = getattr(module, name)
-            setattr(module, name, fn)
-            try:
-                wrong[wrong_label] = verdict(step(card), cpu, witness)
-            finally:
-                setattr(module, name, real)
-        emit("sdxl_lora_parity", unet=label, resolution=512, batch=2,
-             depth="layers_per_block 1, one transformer per stage",
-             inputs="cached latents, 75 tokens, injected draws, lora_up nonzero",
-             adapters=len(grad_err), loss_cuda=run[0], loss_cpu=cpu[0],
-             loss_cuda_plain=plain[0], loss_rel_err=loss_err,
-             grad_rel_l2_max=grad_err[worst], worst_param=worst,
-             worst_witness=witness[worst],
-             grad_rel_l2_median=float(np.median(list(grad_err.values()))),
-             witness_max=max(witness.values()),
-             witness_median=float(np.median(list(witness.values()))),
-             card_vs_plain_max=max(errors(run, plain)[1].values()),
-             over_floor=over, wrong_kernel_over_floor=wrong,
-             floor=SDXL_LORA_PARITY_FLOOR, launches_cuda=run[2],
-             launches_cuda_plain=plain[2], launches_cpu=cpu[2],
-             expected_cuda=SDXL_LORA_PARITY_LAUNCHES[label], seconds_cuda=run[3],
-             seconds_cpu=cpu[3])
-        check(np.isfinite(run[0]) and all(np.isfinite(g).all() for g in run[1].values()),
-              "non-finite SDXL LoRA parity step")
-        check(run[1].keys() == cpu[1].keys() and len(run[1]) == 2 * 70
-              and len(list(adapter_parameters(tree))) == 2 * 70,
-              f"{len(run[1])} LoRA gradients, expected {2 * 70}")
-        check(run[2] == SDXL_LORA_PARITY_LAUNCHES[label] and plain[2] == _expect({})
-              and cpu[2] == _expect({}),
-              f"SDXL LoRA parity launches: card {run[2]}, expected "
-              f"{SDXL_LORA_PARITY_LAUNCHES[label]}; plain {plain[2]} and CPU "
-              f"{cpu[2]}, expected none")
-        check(not over, f"SDXL LoRA {label} parity over its floors: {over[:4]}")
-        check(all(wrong.values()),
-              f"an SDXL LoRA parity floor passes a wrong kernel: {wrong}")
-        del host, cpu, plain, run
+        _attach(card, peft)
+        _parity_case("sdxl_lora_parity", label, SDXLForTextToImageTraining, config, card,
+                     batch, draws, SDXL_LORA_PARITY_LAUNCHES[label], 2 * 70, unet=label,
+                     inputs="cached latents, 75 tokens, injected draws, lora_up nonzero")
+        if label == "bf16":
+            _fp32_witness("sdxl_lora_parity", SDXLForTextToImageTraining, raw, card,
+                          batch, draws)
     del card
     torch.cuda.empty_cache()
+
+
+# sdxl_flow_match_parity: sdxl_lora_parity's model, built once, with the
+# flow-match config's LoRA (rank 8 on attn1 / attn2 / .ff.), from images: the
+# LoRA step (#7 / #8 3 + 3, as sdxl_lora_parity), a 2-step CFG generate from
+# injected latents (#7 3 a UNet call), the fp32 witness of the step, and the
+# step with LoHa over the UNet NF4 (#9 54: the 7 cross-attentions' to_k /
+# to_v over 2 x 77 rows and the 40 other NF4 products of the transformers
+# at 2 x 256 rows; the LoHa product itself is dense)
+FLOW_MATCH_PARITY_LAUNCHES = {"lora": _expect({7: 3, 8: 3}),
+                              "loha_nf4": _expect({7: 3, 8: 3, 9: 54}),
+                              "generate": _expect({7: 6})}
+FLOW_MATCH_PARITY_LATENTS_FLOOR = SDXL_PARITY_FLOOR["latents"]
+
+
+def _unwrap_adapters(tree) -> None:
+    """Put each adapter's base linear back in its place."""
+    from vision_pt_tpu_torch.peft.functional import peft_layers
+
+    for path, layer in list(peft_layers(tree)):
+        parent, _, name = path.rpartition(".")
+        setattr(tree.get_submodule(parent) if parent else tree, name, layer.linear)
+
+
+def phase_sdxl_flow_match_parity() -> dict[str, tuple[int, ...]]:
+    """The flow-match workload card against CPU at 512^2 on one model: (a) a
+    LoRA step from images with injected VAE noise, timesteps and noise, (c)
+    ``SDXLFlowMatch.generate`` 2 steps with CFG from injected latents, (d)
+    the fp32 witness of (a), (b) the step with LoHa over the UNet NF4.
+    Returns the card runs' launches."""
+    import yaml
+
+    from vision_pt_tpu_torch.config import TrainConfig
+    from vision_pt_tpu_torch.ops.quant import quantize_inplace
+    from vision_pt_tpu_torch.tools import inference_cli as cli
+    from vision_pt_tpu_torch.workloads.sdxl_flow_match import (
+        SDXLForFlowMatchingTraining,
+    )
+
+    phase = "sdxl_flow_match_parity"
+    torch.set_num_threads(os.cpu_count() or 1)
+    with open(os.path.join(ROOT, SDXL_TRAIN_CONFIGS["flow_match"]["path"])) as f:
+        shipped = yaml.safe_load(f)
+    peft = shipped["peft"]
+    fields = {k: shipped["model"][k] for k in ("model_prediction", "noise_scale",
+                                                "clean_at_zero")}
+    raw = _parity_config("bfloat16", peft, **fields)
+    config = TrainConfig.model_validate(raw)
+    rng = np.random.default_rng(7)
+    side = PARITY_SIDE
+    yy, xx = np.mgrid[0:side, 0:side] / side
+    images = np.stack([np.stack([np.sin(3 * xx + i), np.cos(2 * yy - i), xx * yy - 0.5], -1)
+                       for i in range(2)]) + rng.normal(0, 0.05, size=(2, side, side, 3))
+    batch = {"image": np.clip(images, -1, 1).astype(np.float32),
+             "caption": ["1girl, solo, red hair, looking at viewer",
+                         "a red fox in the snow, detailed fur"],
+             "original_size": np.full((2, 2), side, np.int32),
+             "target_size": np.full((2, 2), side, np.int32),
+             "crop_coords_top_left": np.zeros((2, 2), np.int32)}
+    latent = (2, side // 8, side // 8, 4)
+    draws = {"vae_noise": torch.from_numpy(rng.normal(size=latent).astype(np.float32)),
+             "timesteps": torch.tensor([310.0, 870.0]),
+             "noise": torch.from_numpy(rng.normal(size=latent).astype(np.float32))}
+    card = SDXLForFlowMatchingTraining(config, torch.device("cuda"))
+    card.setup_model()
+    _attach(card, peft)
+    common = dict(inputs="images, 75 tokens, injected VAE noise, timesteps and noise",
+                  model_prediction=fields["model_prediction"])
+    launches = {"sdxl_flow_match_lora": _parity_case(
+        phase, "lora", SDXLForFlowMatchingTraining, config, card, batch, draws,
+        FLOW_MATCH_PARITY_LAUNCHES["lora"], 2 * 70, adapters_type="lora", **common)}
+
+    # (c) the sampler, 2 Euler steps with CFG 4 from the same latents
+    host = _host_twin(SDXLForFlowMatchingTraining, config, card)
+    init = rng.normal(size=(1, side // 8, side // 8, 4)).astype(np.float32)
+    outputs, counts = {}, {}
+    for device, model in (("cuda", card.model), ("cpu", host.model)):
+        import vision_pt_tpu_torch.ops.attention as attention
+
+        opened = attention._on_cuda
+        attention._on_cuda = lambda x: True
+        _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            out = model.generate(prompt=[SDXL_PROMPT[0]], negative_prompt=[SDXL_PROMPT[1]],
+                                 width=side, height=side, num_inference_steps=2,
+                                 cfg_scale=4.0, latents=init, return_latents=True)
+        finally:
+            attention._on_cuda = opened
+        outputs[device] = (out.float().cpu().numpy(), time.perf_counter() - t0)
+        counts[device] = _counts()
+    err = _rel_l2(outputs["cuda"][0], outputs["cpu"][0])
+    emit(phase, case="generate", resolution=side, steps=2, cfg=4.0,
+         latents_rel_l2=err, floor=FLOW_MATCH_PARITY_LATENTS_FLOOR,
+         launches_cuda=counts["cuda"], launches_cpu=counts["cpu"],
+         seconds_cuda=outputs["cuda"][1], seconds_cpu=outputs["cpu"][1])
+    check(np.isfinite(outputs["cuda"][0]).all(), "non-finite flow-match latents")
+    check(counts["cuda"] == FLOW_MATCH_PARITY_LAUNCHES["generate"]
+          and counts["cpu"] == _expect({}), f"flow-match generate launches {counts}")
+    check(err <= FLOW_MATCH_PARITY_LATENTS_FLOOR,
+          f"flow-match generate card-vs-CPU latents {err:.3g}")
+    launches["sdxl_flow_match_generate"] = counts["cuda"]
+    del host
+
+    # (d) the fp32 witness of (a)
+    _fp32_witness(phase, SDXLForFlowMatchingTraining, raw, card, batch, draws)
+
+    # (b) LoHa over the UNet NF4, on the same base weights
+    _unwrap_adapters(card._full_trainable)
+    quantize_inplace(card.model.denoiser, "bnb_nf4", cli.INCLUDE_KEYS, cli.EXCLUDE_KEYS)
+    loha = {**peft, "config": {"type": "loha", "rank": 8, "alpha": 1.0,
+                               "dtype": "bfloat16"}}
+    _attach(card, loha)
+    loha_config = TrainConfig.model_validate({**raw, "peft": loha})
+    launches["sdxl_flow_match_loha_nf4"] = _parity_case(
+        phase, "loha_nf4", SDXLForFlowMatchingTraining, loha_config, card, batch, draws,
+        FLOW_MATCH_PARITY_LAUNCHES["loha_nf4"], 4 * 70, adapters_type="loha", unet="nf4",
+        **common)
+    del card
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------- the optax optimizers and int8 training
+
+# (name, args) of the optax rules the port ports (training/optax_optimizers.py)
+OPTIMIZER_CASES = (("prodigy", {"lr": 1.0, "weight_decay": 1e-2}), ("lion", {"lr": 1e-3}),
+                   ("adafactor", {"lr": 1e-2}), ("rmsprop", {"lr": 1e-3}),
+                   ("adagrad", {"lr": 1e-2}))
+# the port's layouts: a linear (out, in), a conv OIHW, a bias, and two
+# weights adafactor factors (largest dims differing, and tied)
+OPTIMIZER_SHAPES = ((7, 5), (6, 4, 3, 3), (300,), (160, 256), (128, 128))
+OPTIMIZER_STEPS, OPTIMIZER_FLOOR = 20, 1e-5
+# Int8TrainLinear at an SDXL feed-forward's shape (B 2, S 1024, 1280 -> 640)
+# and at one that pads every operand of torch._int_mm (M 5, K 36, N 20)
+INT8_SHAPES = ((2, 1024, 1280, 640), (1, 5, 36, 20))
+
+
+def phase_optimizers() -> tuple[int, ...]:
+    """Each optax rule 20 steps on the same numpy-made parameters and
+    gradients, card against CPU, every parameter within OPTIMIZER_FLOOR
+    relative L2; then ``Int8TrainLinear`` forward and backward, card against
+    CPU: the int32 product equal bit for bit, the bf16 output within one bf16
+    rounding and the gradients within 1e-2 relative L2 (bf16 products
+    summed in another order)."""
+    from vision_pt_tpu_torch.ops.linear import Linear
+    from vision_pt_tpu_torch.ops.quant.int8_training import (
+        Int8TrainLinear,
+        _rowwise_quant,
+        int8_product,
+    )
+    from vision_pt_tpu_torch.training.optimizer import get_optimizer
+
+    rng = np.random.default_rng(9)
+    init = [rng.normal(size=s).astype(np.float32) * 0.5 for s in OPTIMIZER_SHAPES]
+    steady = [rng.normal(size=s).astype(np.float32) for s in OPTIMIZER_SHAPES]
+    grads = [[(d + 0.5 * rng.normal(size=d.shape)).astype(np.float32) for d in steady]
+             for _ in range(OPTIMIZER_STEPS)]
+    t_phase = time.perf_counter()
+    _reset_counts()
+    for name, args in OPTIMIZER_CASES:
+        results, seconds = {}, {}
+        for device in ("cuda", "cpu"):
+            params = [torch.nn.Parameter(torch.from_numpy(p.copy()).to(device))
+                      for p in init]
+            opt = get_optimizer(name, params, dict(args))
+            steps = [[torch.from_numpy(g).to(device) for g in step] for step in grads]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for step in steps:
+                for p, g in zip(params, step):
+                    p.grad = g
+                opt.step()
+            torch.cuda.synchronize()
+            seconds[device] = time.perf_counter() - t0
+            results[device] = [p.detach().cpu().numpy() for p in params]
+        errors = [_rel_l2(a, b) for a, b in zip(results["cuda"], results["cpu"])]
+        moved = [_rel_l2(a, b) for a, b in zip(results["cpu"], init)]
+        emit("optimizers", optimizer=name, optimizer_class=type(opt).__name__,
+             args=args, steps=OPTIMIZER_STEPS, shapes=OPTIMIZER_SHAPES,
+             rel_l2_card_vs_cpu=errors, moved_rel_l2=moved, floor=OPTIMIZER_FLOOR,
+             seconds_cuda=seconds["cuda"], seconds_cpu=seconds["cpu"])
+        check(max(errors) <= OPTIMIZER_FLOOR, f"{name} card vs CPU {errors}")
+        check(min(moved) > 1e-6, f"{name} left a parameter where it was: {moved}")
+
+    for batch, rows, din, dout in INT8_SHAPES:
+        x = rng.normal(size=(batch, rows, din)).astype(np.float32)
+        g = rng.normal(size=(batch, rows, dout)).astype(np.float32)
+        out = {}
+        base = Linear(din, dout, dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(3), std=None)
+        for device in ("cuda", "cpu"):
+            lin = Linear(din, dout, dtype=torch.bfloat16).to(device)
+            lin.load_state_dict(base.state_dict())
+            lin.__class__ = Int8TrainLinear
+            tx = torch.from_numpy(x).to(device, torch.bfloat16).requires_grad_()
+            y = lin(tx)
+            (y.float() * torch.from_numpy(g).to(device)).sum().backward()
+            xq, _ = _rowwise_quant(tx.detach().reshape(-1, din))
+            wq, _ = _rowwise_quant(lin.weight.detach().to(torch.bfloat16))
+            out[device] = [t.detach().float().cpu().numpy() for t in
+                           (int8_product(xq, wq), y, tx.grad, lin.weight.grad, lin.bias.grad)]
+        card, host = out["cuda"], out["cpu"]
+        product_equal = bool(np.array_equal(card[0], host[0]))
+        errors = {k: _rel_l2(a, b) for k, a, b in
+                  zip(("output", "dx", "dweight", "dbias"), card[1:], host[1:])}
+        emit("optimizers", case="int8_train_linear", shape=[batch, rows, din, dout],
+             dtype="bfloat16", int32_product_equal=product_equal, rel_l2=errors)
+        check(product_equal, f"int8 product {batch}x{rows}x{din}x{dout} differs")
+        check(errors["output"] <= 2**-8, f"int8 output card vs CPU {errors}")
+        check(max(errors.values()) <= 1e-2, f"int8 gradients card vs CPU {errors}")
+    counts = _counts()
+    emit("optimizers", case="done", seconds=time.perf_counter() - t_phase,
+         launches=counts)
+    check(counts == _expect({}), f"the optimizers launched {counts}")
+    return counts
 
 
 # ---------------------------------- the short backend (#3-#6) and the probes
@@ -2846,6 +3317,7 @@ def main(args: list[str]) -> int:
         launches["trainer"] = phase_trainer(tmp)
         phase_train_parity(label2id)
         phase_parity(label2id)
+        launches["cache_latents"] = phase_cache_latents(tmp)
         launches["latent_trainer"] = phase_latent_trainer(tmp)
         phase_latent_parity(tmp)
         launches.update(phase_jit_variants_trainer(tmp))
@@ -2854,9 +3326,11 @@ def main(args: list[str]) -> int:
     launches.update(phase_sdxl_sampler())
     phase_sdxl_parity()
     with tempfile.TemporaryDirectory() as tmp:
-        for label in ("lora", "qlora"):
+        for label in ("lora", "qlora", "flow_match"):
             launches[f"sdxl_{label}_trainer"] = phase_sdxl_trainer(tmp, label)
     phase_sdxl_lora_parity()
+    launches.update(phase_sdxl_flow_match_parity())
+    launches["optimizers"] = phase_optimizers()
     kernels = []
     # each kernel's launches are those of its main path: the training step
     # for the packed kernels (the JiT variants' trainers, parity steps and

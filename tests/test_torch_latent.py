@@ -171,8 +171,10 @@ def test_datasets_read_one_cache_bit_equal(jax_caches, dtype):
 
 
 def test_cache_latents_waits_for_the_vae():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        cache_latents(None, None, "unused")
+    """The writer takes a VAE and stores fp16 or bf16 only (the writer
+    itself: tests/test_torch_cache_latents.py)."""
+    with pytest.raises(ValueError, match="float16 or bfloat16"):
+        cache_latents(None, None, "unused", dtype=torch.float32)
 
 
 def test_area_downsample_matches_jax():

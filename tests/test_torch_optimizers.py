@@ -11,7 +11,16 @@ optimizers, on the CPU, with numpy-made parameters and gradients.
   scales equal;
 - both through the port's ``Trainer`` on a tiny JiT trainer against the JAX
   ``Trainer`` (the lr schedule applied as each package applies it), and a
-  checkpoint round trip that keeps the states' dtypes.
+  checkpoint round trip that keeps the states' dtypes;
+- ``prodigy``, ``lion``, ``adafactor``, ``rmsprop`` and ``adagrad``
+  (``optax_optimizers``) against the optax transformations the JAX package's
+  ``get_optimizer`` returns, 20 steps over a linear weight, a 4-D conv
+  weight, a bias and two weights that adafactor factors (their two largest
+  dims differing, and tied), each in the JAX package's layout on the JAX side
+  and the port's on the port's: every parameter within 1e-5 relative L2
+  (fp32 elementwise ops, sqrt, pow and sums in another library), adafactor's
+  factored moments mapped across the layouts within the same; each through
+  both Trainers as above; ``came`` raises the JAX package's reason.
 """
 
 import jax.numpy as jnp
@@ -22,6 +31,7 @@ import torch
 
 from vision_pt_tpu.training import optim8bit as joptim8bit
 from vision_pt_tpu.training.optimizer import get_optimizer as jax_get_optimizer
+from vision_pt_tpu_torch.training import optax_optimizers
 from vision_pt_tpu_torch.training.optimizer import ScheduleFreeAdamW, get_optimizer
 
 STEPS = 20
@@ -158,7 +168,12 @@ def test_trainer_steps_match_jax(tmp_path):
     drops) from the same weights and batches with the JAX draws: the loss
     of every step and the final parameters and EMA within 1e-4 relative, as
     ``test_torch_training`` holds AdamW."""
-    name = "schedulefree.RAdamScheduleFree"
+    _trainers_match(tmp_path, "schedulefree.RAdamScheduleFree", {"lr": 2e-3})
+
+
+def _trainers_match(tmp_path, name, args):
+    """Five steps of both Trainers with optimizer ``name`` (``args``) on the
+    tiny JiT trainer, compared as ``test_trainer_steps_match_jax`` says."""
     from flax import nnx
 
     from tests import test_torch_training as tt
@@ -175,8 +190,7 @@ def test_trainer_steps_match_jax(tmp_path):
     label2id = tmp_path / "label2id.json"
     label2id.write_text(__import__("json").dumps({f"c{i}": i for i in range(4)}))
     cfg = tt._config_dict(str(label2id), 1)
-    cfg["optimizer"] = {"name": name, "args": {"lr": 2e-3}}
-
+    cfg["optimizer"] = {"name": name, "args": args}
     jtrainer = JaxTrainer(JaxTrainConfig.model_validate(cfg))
     jtrainer.register_train_dataset_class(tt.JaxSynthetic)
     jtrainer.register_model_class(JaxWorkload)
@@ -264,3 +278,191 @@ def test_trainer_applies_the_schedule_to_8bit_adam_as_optax(tmp_path):
                                       np.asarray(inner.m_q[i]))
         np.testing.assert_array_equal(trainer.optimizer.state[p]["v_q"].numpy(),
                                       np.asarray(inner.v_q[i]))
+
+
+# ------------------------------------------------------------------ optax rules
+
+# (shape in the JAX package's layout, axis map port -> JAX): a linear (in,
+# out) is (out, in) in the port, a conv HWIO is OIHW
+OPTAX_PARAMS = [((7, 5), (1, 0)), ((3, 3, 4, 6), (3, 2, 0, 1)), ((300,), (0,)),
+                ((256, 160), (1, 0)), ((128, 128), (1, 0))]
+OPTAX_CASES = {  # port name -> (the name the JAX package resolves to it, args)
+    "prodigy": ("prodigy", {"lr": 1.0, "weight_decay": 1e-2}),
+    "lion": ("bitsandbytes.optim.Lion8bit", {"lr": 1e-3}),
+    "adafactor": ("transformers.optimization.Adafactor", {"lr": 1e-2}),
+    "rmsprop": ("torch.optim.RMSprop", {"lr": 1e-3}),
+    "adagrad": ("torch.optim.Adagrad", {"lr": 1e-2}),
+}
+# the rules' other options, as optax takes them
+OPTAX_OPTIONS = {
+    "prodigy-safeguard": ("prodigy", {"lr": 0.5, "safeguard_warmup": True,
+                                      "betas": (0.9, 0.99)}),
+    "lion-decay": ("lion", {"lr": 1e-3, "weight_decay": 0.1}),
+    "adafactor-momentum": ("adafactor", {"lr": 1e-2, "momentum": 0.9,
+                                         "weight_decay_rate": 1e-3,
+                                         "clipping_threshold": 0.5}),
+    "adafactor-unfactored": ("adafactor", {"lr": 1e-2, "factored": False,
+                                           "multiply_by_parameter_scale": False}),
+    "rmsprop-centered": ("rmsprop", {"lr": 1e-3, "centered": True, "momentum": 0.9,
+                                     "nesterov": True, "bias_correction": True}),
+    "rmsprop-eps-outside": ("rmsprop", {"lr": 1e-3, "eps_in_sqrt": False,
+                                        "initial_scale": 0.5, "momentum": 0.5}),
+    "adagrad-zero-start": ("adagrad", {"lr": 1e-2, "initial_accumulator_value": 0.0}),
+}
+
+
+def _optax_arrays(seed):
+    """Parameters, and gradients with a steady direction under the noise (so
+    prodigy's distance estimate grows)."""
+    rng = np.random.default_rng(seed)
+    params = [rng.normal(size=s).astype(np.float32) * 0.5 for s, _ in OPTAX_PARAMS]
+    steady = [rng.normal(size=s).astype(np.float32) for s, _ in OPTAX_PARAMS]
+    grads = [[(d + 0.5 * rng.normal(size=d.shape)).astype(np.float32) for d in steady]
+             for _ in range(STEPS)]
+    return params, grads
+
+
+def _to_port(array, perm):
+    """A JAX-layout array in the port's layout, a copy."""
+    return np.transpose(array, perm).copy()
+
+
+def _rel_l2(a, b):
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _jax_moment(state, i, port_shape, axis, perm):
+    """The JAX adafactor moment that averaged over the JAX axis the port's
+    ``axis`` maps to, in the port's order."""
+    jax_axis = perm[axis]
+    jshape = OPTAX_PARAMS[i][0]
+    d1, d0 = optax_optimizers._factored_dims(jshape, True, 128)
+    moment = state.v_row[i] if d0 == jax_axis else state.v_col[i]
+    assert jax_axis in (d0, d1)
+    kept = [a for a in range(len(jshape)) if a != jax_axis]
+    order = [kept.index(perm[b]) for b in range(len(port_shape)) if b != axis]
+    return np.transpose(np.asarray(moment), order)
+
+
+@pytest.mark.parametrize("name", [*OPTAX_CASES, *OPTAX_OPTIONS])
+def test_optax_rules_match_jax(name):
+    alias, args = {**OPTAX_CASES, **OPTAX_OPTIONS}[name]
+    init, grads = _optax_arrays(8)
+    jax_args = {("learning_rate" if k == "lr" else k): v for k, v in args.items()}
+    if alias == "prodigy":  # the JAX factory would split betas into b1 / b2
+        tx = optax.contrib.prodigy(**jax_args)
+    else:
+        tx = jax_get_optimizer(alias, jax_args)
+    jparams, state = _run_optax(tx, init, grads)
+    params = [torch.nn.Parameter(torch.from_numpy(_to_port(p, perm)))
+              for p, (_, perm) in zip(init, OPTAX_PARAMS)]
+    opt = get_optimizer(alias, params, dict(args))
+    name = name.split("-")[0]
+    assert type(opt).__name__.lower() == name
+    port_grads = [[_to_port(g, perm) for g, (_, perm) in zip(step, OPTAX_PARAMS)]
+                  for step in grads]
+    _run_port(opt, params, port_grads)
+    for p, jp, p0, (_, perm) in zip(params, jparams, init, OPTAX_PARAMS):
+        want = _to_port(np.asarray(jp), perm)
+        assert _rel_l2(p.detach().numpy(), want) <= 1e-5
+        assert _rel_l2(want, _to_port(p0, perm)) > 1e-6  # the parameters moved
+    if name == "adafactor" and args.get("factored", True):
+        inner = state[0]
+        factored = 0
+        for i, (p, (_, perm)) in enumerate(zip(params, OPTAX_PARAMS)):
+            st = opt.state[p]
+            if "v" in st:
+                np.testing.assert_allclose(st["v"].numpy(),
+                                           _to_port(np.asarray(inner.v[i]), perm),
+                                           rtol=1e-5)
+                continue
+            factored += 1
+            d1, d0 = optax_optimizers._factored_dims(tuple(p.shape), True, 128)
+            for ours, axis in ((st["v_row"], d0), (st["v_col"], d1)):
+                theirs = _jax_moment(inner, i, tuple(p.shape), axis, perm)
+                assert _rel_l2(ours.numpy(), theirs) <= 1e-5
+        assert factored == 2
+    if name == "prodigy":
+        d = float(opt.state["prodigy"]["estim_lr"])
+        assert d == pytest.approx(float(state.estim_lr), rel=1e-5) and d > 1e-6
+
+
+@pytest.mark.parametrize("name", OPTAX_CASES)
+def test_optax_rules_through_both_trainers(name, tmp_path):
+    """Each optax rule in the Trainer: the schedule reaches it as optax
+    reads ``learning_rate(count)``. Adafactor, RMSprop and Adagrad run both
+    Trainers side by side. Lion and prodigy replay the port Trainer's
+    clipped gradients through the JAX package's optimizer under the JAX
+    schedule instead, parameters within 1e-5: Lion takes the sign of
+    moments that sit at 0 for some elements, so gradients 1e-7 apart flip
+    them, and the JAX Trainer cannot step prodigy at all (its state holds
+    the initial parameters, and the jitted step donates that buffer twice)."""
+    alias, _ = OPTAX_CASES[name]
+    lr = 1.0 if name == "prodigy" else 2e-3
+    if name not in ("lion", "prodigy"):
+        _trainers_match(tmp_path, alias, {"lr": lr})
+        return
+    from tests import test_torch_training as tt
+    from vision_pt_tpu.training import scheduler as jscheduler
+    from vision_pt_tpu_torch.config import TrainConfig
+
+    label2id = tmp_path / "label2id.json"
+    label2id.write_text(__import__("json").dumps({f"c{i}": i for i in range(4)}))
+    cfg = tt._config_dict(str(label2id), 1)
+    cfg["optimizer"] = {"name": alias, "args": {"lr": lr}}
+    trainer = tt.Trainer(TrainConfig.model_validate(cfg), device="cpu")
+    trainer.register_train_dataset_class(tt.SyntheticClassImageDatasetConfig)
+    trainer.register_model_class(tt.JiTForClassToImageTraining)
+    trainer.before_train()
+    params = trainer._params
+    init = [p.detach().numpy().copy() for p in params]
+    replay, step = [], trainer.optimizer.step
+
+    def recording():
+        replay.append([p.grad.numpy().copy() for p in params])
+        step()
+
+    trainer.optimizer.step = recording
+    trainer.training_loop()
+    assert len(replay) == tt.STEPS
+    schedule = jscheduler.get_lr_schedule(lr, "cosine", {"num_warmup_steps": 2},
+                                          total_steps=tt.STEPS)
+    jparams, _ = _run_optax(jax_get_optimizer(alias, {}, learning_rate_schedule=schedule),
+                            init, replay)
+    moved = 0
+    for p, jp, p0 in zip(params, jparams, init):
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp), rtol=0, atol=1e-5)
+        moved += not np.array_equal(np.asarray(jp), p0)
+    assert moved > len(params) // 2
+
+
+def test_optax_state_round_trip():
+    """Prodigy's shared d, count and numerator survive ``state_dict``."""
+    params = [torch.nn.Parameter(torch.from_numpy(p)) for p in _params(9)]
+    opt = get_optimizer("prodigy", params, {"lr": 1.0})
+    for step in _grads(10)[:3]:
+        for p, g in zip(params, step):
+            p.grad = torch.from_numpy(g)
+        opt.step()
+    twin = [torch.nn.Parameter(p.detach().clone()) for p in params]
+    other = get_optimizer("prodigy", twin, {"lr": 1.0})
+    other.load_state_dict(opt.state_dict())
+    assert other.state["prodigy"]["count"] == 3
+    assert torch.equal(other.state["prodigy"]["estim_lr"], opt.state["prodigy"]["estim_lr"])
+    for step in _grads(11)[:2]:
+        for group in (params, twin):
+            for p, g in zip(group, step):
+                p.grad = torch.from_numpy(g)
+        opt.step()
+        other.step()
+    for p, q in zip(params, twin):
+        assert torch.equal(p, q)
+
+
+def test_came_raises_as_jax_does():
+    with pytest.raises(ValueError, match="came not available") as theirs:
+        jax_get_optimizer("came", {})
+    p = torch.nn.Parameter(torch.zeros(3))
+    with pytest.raises(ValueError) as ours:
+        get_optimizer("came", [p])
+    assert str(ours.value) == str(theirs.value)

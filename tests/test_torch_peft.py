@@ -238,12 +238,17 @@ def test_loading_wraps_plain_linears_and_loha_waits():
         torch.testing.assert_close(fresh.to_q(x), net.to_q(x), rtol=0, atol=1e-6)
     assert detect_peft_method({"a.hada_w1_a": np.zeros(1)}) == "loha"
     assert detect_peft_method({"a.weight": np.zeros(1)}) == "none"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_peft_weight(fresh, {"to_k.hada_w1_a": np.zeros(1)})
+    # a LoHa file wraps its linears in LoHa adapters (tests/test_torch_loha.py)
+    rng = np.random.default_rng(2)
+    loha_sd = {f"to_k.{name}": rng.normal(size=shape).astype(np.float32)
+               for name, shape in (("hada_w1_a", (8, 2)), ("hada_w1_b", (2, 8)),
+                                   ("hada_w2_a", (8, 2)), ("hada_w2_b", (2, 8)))}
+    loha_sd["to_k.alpha"] = np.float32(1.0)
+    assert load_peft_weight(fresh, loha_sd) == ["to_k"]
+    assert type(fresh.to_k).__name__ == "LoHaLinear" and fresh.to_k.rank == 2
     loha = PeftTargetConfig(include_keys=["to_k"],
                             config={"type": "loha", "rank": 2}).config
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        replace_to_peft_layer(TinyNet(), ["to_k"], [], loha)
+    assert replace_to_peft_layer(TinyNet(), ["to_k"], [], loha) == ["to_k"]
     with pytest.raises(ValueError):
         load_peft_weight(fresh, {"a.weight": np.zeros(1)})
 

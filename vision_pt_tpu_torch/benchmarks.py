@@ -2,7 +2,7 @@
 the attention roofline probe and ``chip_smoke.py`` need): :func:`time_steps`
 and :func:`_jit_train_setup`, the headline training step. The bench sections
 themselves (``bench_headline`` and the rest) are not ported yet (ROADMAP
-Queue 1, slice 2 leftover 6).
+Queue 1 item 1, the bench cells).
 """
 
 from __future__ import annotations

@@ -34,7 +34,7 @@ AttentionImplementation = Literal[
 _DEFAULT_ATTENTION_DTYPE: torch.dtype | None = torch.bfloat16
 _SENTINEL = object()
 _NOT_PORTED = {
-    "ring": "ROADMAP Queue 1, slice 4 (ops/ring_attention.py)",
+    "ring": "ROADMAP Queue 1 item 5, multi-GPU (ops/ring_attention.py)",
 }
 
 # Gate of the flash kernels, kept at the JAX package's value. It was tuned on

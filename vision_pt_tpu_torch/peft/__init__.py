@@ -1,5 +1,5 @@
-"""Parameter-efficient fine-tuning: LoRA adapters (port of
-``vision_pt_tpu/peft``; LoHa is not ported yet)."""
+"""Parameter-efficient fine-tuning: LoRA and LoHa adapters (port of
+``vision_pt_tpu/peft``)."""
 
 from .config import LoHaConfig, LoRAConfig, PeftConfigMixin, PeftTargetConfig, RegexMatch
 from .functional import (
@@ -16,11 +16,13 @@ from .functional import (
     while_peft_disabled,
     while_peft_enabled,
 )
+from .loha import LoHaLinear
 from .lora import LoRALinear
 
 __all__ = [
     "LoRAConfig",
     "LoHaConfig",
+    "LoHaLinear",
     "LoRALinear",
     "PeftConfigMixin",
     "PeftLayer",

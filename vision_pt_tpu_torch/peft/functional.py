@@ -24,9 +24,6 @@ from ..ops.quant.layers import QuantLinear4bit, QuantLinearFP8, QuantLinearInt8
 from .config import PEFT_TYPE, PeftConfigMixin, get_target_keys
 
 _LINEARS = (Linear, nn.Linear, QuantLinear4bit, QuantLinearInt8, QuantLinearFP8)
-# LoHa (``vision_pt_tpu/peft/loha.py``) is not on the LoRA / QLoRA path
-_LOHA_NOT_PORTED = ("LoHa adapters are not ported yet: ROADMAP Queue 1 item 3 "
-                    "(peft/loha.py)")
 
 
 class PeftLayer(nn.Module):
@@ -56,14 +53,16 @@ def linear_features(linear: nn.Module) -> tuple[int, int, torch.device]:
 
 def _make_peft_layer(module: nn.Module, config: PeftConfigMixin,
                      generator: torch.Generator | None) -> PeftLayer:
-    from .config import LoRAConfig
+    from .config import LoHaConfig, LoRAConfig
+    from .loha import LoHaLinear
     from .lora import LoRALinear
 
     if config.type == "lora":
         return LoRALinear(LoRAConfig.model_validate(config.model_dump()), module,
                           generator=generator)
     if config.type == "loha":
-        raise NotImplementedError(_LOHA_NOT_PORTED)
+        return LoHaLinear(LoHaConfig.model_validate(config.model_dump()), module,
+                          generator=generator)
     raise ValueError(f"Unknown peft type: {config.type}")
 
 
@@ -143,21 +142,21 @@ def detect_peft_method(state_dict: dict) -> PEFT_TYPE:
 def load_peft_weight(model: nn.Module, state_dict: dict) -> list[str]:
     """Load adapters from a state dict keyed by module path: an adapter
     layer takes its weights, a linear with weights in the file is wrapped
-    in a new adapter. Returns the affected paths."""
+    in a new adapter of the file's type. Returns the affected paths."""
+    from .loha import LoHaLinear
     from .lora import LoRALinear
 
     peft_type = detect_peft_method(state_dict)
     if peft_type == "none":
         raise ValueError("Failed to detect peft method from state_dict")
-    if peft_type == "loha":
-        raise NotImplementedError(_LOHA_NOT_PORTED)
+    peft_class = LoRALinear if peft_type == "lora" else LoHaLinear
     affected: list[str] = []
 
     def visit(module: nn.Module, prefix: str):
         for name, child in list(module.named_children()):
             full = f"{prefix}{name}"
             adapter_sd = {wn: state_dict.get(f"{full}.{wn}")
-                          for wn in LoRALinear.adapter_weight_names}
+                          for wn in peft_class.adapter_weight_names}
             complete = all(v is not None for k, v in adapter_sd.items()
                            if "bias" not in k)
             if isinstance(child, PeftLayer):
@@ -167,7 +166,7 @@ def load_peft_weight(model: nn.Module, state_dict: dict) -> list[str]:
                 continue
             if isinstance(child, _LINEARS):
                 if complete:
-                    setattr(module, name, LoRALinear.from_weights(adapter_sd, child))
+                    setattr(module, name, peft_class.from_weights(adapter_sd, child))
                     affected.append(full)
                 continue
             visit(child, f"{full}.")

@@ -66,7 +66,7 @@ def get_preview_callback(config: PreviewCallbackConfig) -> PreviewCallback:
         return LocalPreviewCallback(**kwargs)
     if kind == "discord":
         raise NotImplementedError(
-            "the discord preview callback needs the network and is not "
-            "ported: ROADMAP Queue 1, slice 8"
+            "the discord preview callback needs the network and is out of "
+            "the port's scope"
         )
     raise ValueError(f"Unknown preview callback type: {kind}")

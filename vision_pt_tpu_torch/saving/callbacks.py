@@ -81,7 +81,7 @@ def get_saving_callback(config: ModelSavingCallbackConfig) -> ModelSavingCallbac
         return SafetensorsSavingCallback(**kwargs)
     if kind == "hf_hub":
         raise NotImplementedError(
-            "the hf_hub saving callback needs the network and is not ported: "
-            "ROADMAP Queue 1, slice 8"
+            "the hf_hub saving callback needs the network and is out of the "
+            "port's scope"
         )
     raise ValueError(f"Unknown saving callback type: {kind}")

@@ -5,8 +5,8 @@
     python -m vision_pt_tpu_torch.train.jit.latent_class_to_image --config CONFIG.yml
 
 It trains on the CUDA device; ``--device cpu`` runs it on the CPU. The cache
-is written by the JAX package's ``tools/data/cache_latents.py`` (the port's
-VAE comes with the SDXL stack).
+is written from an image folder by the port's
+``python -m vision_pt_tpu_torch.tools.data.cache_latents``.
 """
 
 from __future__ import annotations

@@ -12,7 +12,11 @@ The JAX package maps both ``schedulefree.AdamWScheduleFree`` and
 ``RAdamScheduleFree`` to ``optax.contrib.schedule_free_adamw``, so the port
 implements that update (:class:`ScheduleFreeAdamW`), not the
 ``schedulefree`` library's. ``bitsandbytes.optim.AdamW8bit`` /
-``Adam8bit`` are ``optim8bit``'s int8-moment Adam.
+``Adam8bit`` are ``optim8bit``'s int8-moment Adam. ``prodigy``, ``lion``
+(and the bitsandbytes Lion names), ``adafactor``, ``rmsprop`` and ``adagrad``
+are the optax rules the JAX package builds, in ``optax_optimizers``.
+``came`` maps onto ``optax.contrib.came``, which the optax the JAX package
+runs against (0.2.6) does not have, so it raises there and here.
 """
 
 from __future__ import annotations
@@ -43,14 +47,10 @@ _ALIASES: dict[str, str] = {
     "prodigy": "prodigy",
 }
 
-_NOT_PORTED = {
-    "prodigy": "prodigy",
-    "came": "came",
-    "lion": "lion",
-    "adafactor": "adafactor",
-    "rmsprop": "rmsprop",
-    "adagrad": "adagrad",
-}
+
+# the optax rules of ``optax_optimizers``, by the JAX package's name
+_OPTAX = {"prodigy": "Prodigy", "lion": "Lion", "adafactor": "Adafactor",
+          "rmsprop": "RMSprop", "adagrad": "Adagrad"}
 
 
 def _translate_args(args: dict) -> dict:
@@ -73,10 +73,12 @@ class StateKeepsDtype:
         super().load_state_dict(state_dict)
         params = [p for group in self.param_groups for p in group["params"]]
         for index, saved in state_dict["state"].items():
-            p = params[index]
-            self.state[p] = {k: v.to(p.device, copy=True)
-                             if isinstance(v, torch.Tensor) else v
-                             for k, v in saved.items()}
+            # state shared by every parameter sits under a name, on the
+            # first parameter's device
+            p = params[index] if isinstance(index, int) else params[0]
+            self.state[p if isinstance(index, int) else index] = {
+                k: v.to(p.device, copy=True) if isinstance(v, torch.Tensor) else v
+                for k, v in saved.items()}
 
 
 def warmup_constant(peak: float, warmup_steps: int) -> Callable[[int], float]:
@@ -202,9 +204,10 @@ def get_optimizer(name: str, params, args: dict | None = None,
         return torch.optim.Adam(params, **args)
     if key == "sgd":
         return torch.optim.SGD(params, **args)
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {name!r} ({_NOT_PORTED[key]}) is not ported yet: "
-            "ROADMAP Queue 1 item 4 (the other optimizers)"
-        )
+    if key in _OPTAX:
+        from . import optax_optimizers
+
+        return getattr(optax_optimizers, _OPTAX[key])(params, **args)
+    if key == "came":
+        raise ValueError("optax.contrib.came not available in this optax")
     raise ValueError(f"Unknown optimizer: {name}")

@@ -50,6 +50,7 @@ class SDXLForTextToImageTraining(ModelForTraining):
     model: SDXLModel
     model_config: SDXLForTextToImageTrainingConfig
     model_config_class = SDXLForTextToImageTrainingConfig
+    pipeline_class = SDXLModel
 
     def setup_model(self):
         cfg = self.model_config
@@ -57,10 +58,9 @@ class SDXLForTextToImageTraining(ModelForTraining):
             raise ValueError("model.tokenizer must name the CLIP tokenizers' "
                              "directory, or word-hash")
         tokenizer_1, tokenizer_2 = load_tokenizers(cfg.tokenizer)
-        self.model = SDXLModel.from_config(cfg, seed=self.config.seed,
-                                           device=self.device,
-                                           tokenizer_1=tokenizer_1,
-                                           tokenizer_2=tokenizer_2)
+        self.model = self.pipeline_class.from_config(
+            cfg, seed=self.config.seed, device=self.device,
+            tokenizer_1=tokenizer_1, tokenizer_2=tokenizer_2)
         if cfg.checkpoint_path:
             self.model._load_checkpoint(cfg.checkpoint_path)
         self._full_trainable = SDXLTrainable(
