@@ -3,7 +3,8 @@
 its JiT variant trainers (U-JiT, Cross-JiT, IG, LoIG, TREAD) and the x-loss
 config, its latent-cache tool and latent JiT 1024^2 trainer, its SDXL 1024^2
 text-to-image sampler (bf16 and NF4), LoRA / QLoRA and flow-match trainers,
-its optax optimizers and int8 training linears, its ``short`` attention
+its optax optimizers and int8 training linears, its CogView4-6B 1024^2
+sampler (bf16, NF4, int8, layer-group offload), its ``short`` attention
 backend and its two attention probes, on one CUDA card.
 
     python3 chip_smoke.py
@@ -61,7 +62,7 @@ without a result line:
 7. train_parity: one training step's loss and gradients, same weights, batch
    and injected draws, on the card (kernels) and on the CPU (plain versions
    of the same path), batch 2, in fp32, bf16 and fp16 (the fp16 loss scaled
-   by 2^12 before the backward: see LOSS_SCALE; fp16 at depth 6, see
+   by 2^12 before the backward: see LOSS_SCALE; fp16 at depth 5, see
    FP16_PARITY_DEPTH), through ``tools.bench.step_parity``;
 8. parity: the same weights and injected noise through the sampler on the
    card (kernel) and on the CPU (plain versions), batch 1, CFG, 2 steps;
@@ -85,7 +86,7 @@ without a result line:
    one epoch = 4 steps; exactly 48 flash forward, 24 flash backward and no
    packed launches per step; the last step runs under the profiler;
 10. latent_parity: one training step of the latent workload at full width,
-   depth cut to 6 (fp16: 2), a 64 x 64 latent (S = 1098, still the flash
+   depth cut to 6 (fp16: 1), a 64 x 64 latent (S = 1098, still the flash
    path), batch 2, on the card (kernels) and on the CPU (plain versions),
    fp32, bf16 and fp16, against the train_parity floors;
 11. sdxl_sampler: SDXL-base at full width (UNet 320/640/1280, context 2048,
@@ -147,6 +148,25 @@ without a result line:
    CFG ``SDXLFlowMatch.generate`` from injected latents within 7.5e-2
    relative L2 (6 launches of #7), the step's fp32 witness, and the step
    with LoHa adapters over the UNet NF4 (54 launches of #9);
+17d. cogview4_sampler: CogView4-6B at full width (the 28-layer DiT, 32 x
+   128 heads; the 40-layer GLM-4-9B text tower; the 16-channel VAE), random
+   weights from seed 0 drawn on the card, bf16 parameters and compute, the
+   GLM word-hash tokenizer, through the compare tool's ``compare``
+   (``tools.cogview4_quant_compare``) at 1024^2, batch 1, CFG 5, 20 steps,
+   over its settings bf16, NF4 and int8: per setting a fresh model, a
+   2-step warm request, the timed request and a profiled 2-step one;
+   exactly 560 launches of #7 a request (28 a denoiser call), 1,120 of #9
+   under NF4 (the shared feed-forward over the text stream's 2 x 16 rows),
+   none else; 168 quantized linears under NF4 and int8, 0 in the text
+   encoder; the image finite and not constant; then, on the bf16 model, a
+   2-step request with the DiT's blocks offloaded in 4 groups to pinned
+   host memory: the same latents bit for bit at a lower peak;
+17e. cogview4_parity: full widths, 2 DiT and 2 GLM layers, 512^2 (S 1040,
+   still #7), bf16: the text embeddings, one denoiser call and a 2-step CFG
+   generate from injected latents, card (kernels) against CPU (plain
+   versions), within 2e-2, 2e-2 and 7.5e-2 relative L2; the denoiser floor
+   must fail #7 with one head's output zeroed in every launch, and every
+   floor #7 writing nothing;
 17c. optimizers: prodigy, lion, adafactor, rmsprop and adagrad 20 steps on
    the same numpy-made parameters (a linear, a conv, a bias, two weights
    adafactor factors) and gradients, card against CPU within 1e-5 relative
@@ -197,11 +217,13 @@ phase 2's limits (fp16's tol 2e-3), which must fail a plain version with one abs
 64-row chunk left out, and on both sides of each block-shape boundary (M 1,
 64, 65, 128, 129, 154, 256, 257, 1024 at K 2048, N 1280, which K splits);
 two calls at M 64 and 154 must give the same bits; the QLoRA trainer's M 454
-is held too. tread_timing times #1 (with its lse) and #2 at TREAD's
+and the NF4 CogView4 sampler's (M 32; K 4096, N 16384 and K 16384, N 4096)
+are held too. tread_timing times #1 (with its lse) and #2 at TREAD's
 unrouted blocks (B 16, S 330, suffix kv_lens of 267-270), beside SDPA with
 the equivalent boolean key mask, bounded by the valid key rows. Phase 3 also times kernels #7 and #8 at SDXL's two
-self-attention shapes, and nf4_timing times kernel #9 at the sampler's and
-the QLoRA trainer's shapes and at the JAX package's bench shape (M 64, K =
+self-attention shapes and #7 at CogView4's (B 2, S 4112, 32 x 128), and
+nf4_timing times kernel #9 at the sampler's, the QLoRA trainer's and the
+CogView4 sampler's shapes and at the JAX package's bench shape (M 64, K =
 N = 8192), beside F.linear on the weight dequantized beforehand.
 
 Every kernel launch counter is set to 0 just before a path is driven and read
@@ -504,6 +526,9 @@ FLASH_CASES = [
     # the SDXL sampler's self-attentions at 1024^2 (B 2 with CFG)
     ("sdxl_s4096", 2, 4096, 4096, 10, 64, torch.bfloat16, False, None),
     ("sdxl_s1024", 2, 1024, 1024, 20, 64, torch.bfloat16, False, None),
+    # the CogView4 sampler's joint self-attention at 1024^2 (B 2 with CFG):
+    # 4096 image + 16 text tokens, a partial last key and query tile of 16
+    ("cogview4_s4112", 2, 4112, 4112, 32, 128, torch.bfloat16, False, None),
     ("s1000_kv", 2, 1000, 1000, 12, 64, torch.bfloat16, False, [1000, 0]),
     ("sq1000_sk1500", 2, 1000, 1500, 6, 64, torch.bfloat16, False, [1337, 0]),
     ("causal_s1000", 2, 1000, 1000, 12, 64, torch.bfloat16, True, [1000, 777]),
@@ -572,7 +597,7 @@ def _flash_limits_can_fail(q, k, v, do, out, lse, grads, lens, tol):
 def phase_flash_kernel() -> dict:
     """Kernels #7 and #8 against their plain versions; returns the largest
     error of each at the latent trainer's shape (S 4170 with kv_lens), and of
-    #7 at each SDXL shape (by case name)."""
+    #7 at each SDXL shape and the CogView4 shape (by case name)."""
     from vision_pt_tpu_torch.ops.flash_attention import (
         NEG_INF,
         flash_attention,
@@ -620,7 +645,7 @@ def phase_flash_kernel() -> dict:
                   f"{kernel} disagrees with its plain version at {name}")
             if name == "path_s4170_kv":
                 errors[kernel] = err
-            elif name.startswith("sdxl") and kernel == "flash_attention":
+            elif name.startswith(("sdxl", "cogview4")) and kernel == "flash_attention":
                 errors[name] = err
         if name == "path_s4170_kv":
             _flash_limits_can_fail(q, k, v, do, out, lse, grads, lens, tol)
@@ -762,11 +787,14 @@ def phase_timing() -> dict:
 # then dq; dv and dk (the function needs 5)
 FLASH_BWD_PRODUCTS = 7
 
-# kernels #7 and #8's timed shapes (D 64, bf16, no kv_lens): the latent
-# trainer's, and the SDXL sampler's and trainer's two self-attentions at
-# 1024^2 (B 2: CFG, or the training batch)
-FLASH_TIMING_SHAPES = (("latent", LATENT_BATCH, 4106, 12), ("sdxl_s4096", 2, 4096, 10),
-                       ("sdxl_s1024", 2, 1024, 20))
+# kernels #7 and #8's timed shapes (bf16, no kv_lens; label, B, S, H, D,
+# whether #8 is timed too): the latent trainer's, the SDXL sampler's and
+# trainer's two self-attentions at 1024^2 (B 2: CFG, or the training batch),
+# and the CogView4 sampler's joint attention (forward only: no trainer)
+FLASH_TIMING_SHAPES = (("latent", LATENT_BATCH, 4106, 12, 64, True),
+                       ("sdxl_s4096", 2, 4096, 10, 64, True),
+                       ("sdxl_s1024", 2, 1024, 20, 64, True),
+                       ("cogview4_s4112", 2, 4112, 32, 128, False))
 
 
 def phase_flash_timing() -> dict:
@@ -784,11 +812,11 @@ def phase_flash_timing() -> dict:
         flash_attention_with_lse,
     )
 
-    dim, dtype, chunk = 64, torch.bfloat16, 2
+    dtype, chunk = torch.bfloat16, 2
     gen = torch.Generator(device="cuda").manual_seed(3)
     library = "F.scaled_dot_product_attention (FLASH_ATTENTION backend)"
     rows = {}
-    for label, batch, s, heads in FLASH_TIMING_SHAPES:
+    for label, batch, s, heads, dim, backward in FLASH_TIMING_SHAPES:
         q, k, v, do = (_bshd(gen, batch, s, heads, dim, dtype) for _ in range(4))
         out, lse = flash_attention_with_lse(q, k, v)
         chunks = [[x[i:i + chunk] for x in (q, k, v, out, lse, do)]
@@ -810,21 +838,22 @@ def phase_flash_timing() -> dict:
                 "vision_pt_tpu_torch/csrc/flash_attention.cu", shape, library,
                 plain_chunk=plain_chunk, iters=20, executed_flops=2 * product,
             )
-            leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
-            sdpa_out = F.scaled_dot_product_attention(*leaves)
-            rows[f"{label}_bwd"] = _time_kernel(
-                "flash_attention_bwd",
-                lambda: flash_attention_bwd(q, k, v, out, lse, do),
-                lambda: [flash_attention_bwd_reference(*c) for c in chunks],
-                lambda: torch.autograd.grad(sdpa_out, leaves, doh,
-                                            retain_graph=True),
-                8 * size + lse_bytes, 5 * product, dtype,
-                "vision_pt_tpu/ops/flash_attention.py:325",
-                "vision_pt_tpu_torch/csrc/flash_attention_bwd.cu", shape,
-                "torch.autograd.grad of " + library, plain_chunk=plain_chunk,
-                iters=20, executed_flops=FLASH_BWD_PRODUCTS * product,
-            )
-            del leaves, sdpa_out
+            if backward:
+                leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+                sdpa_out = F.scaled_dot_product_attention(*leaves)
+                rows[f"{label}_bwd"] = _time_kernel(
+                    "flash_attention_bwd",
+                    lambda: flash_attention_bwd(q, k, v, out, lse, do),
+                    lambda: [flash_attention_bwd_reference(*c) for c in chunks],
+                    lambda: torch.autograd.grad(sdpa_out, leaves, doh,
+                                                retain_graph=True),
+                    8 * size + lse_bytes, 5 * product, dtype,
+                    "vision_pt_tpu/ops/flash_attention.py:325",
+                    "vision_pt_tpu_torch/csrc/flash_attention_bwd.cu", shape,
+                    "torch.autograd.grad of " + library, plain_chunk=plain_chunk,
+                    iters=20, executed_flops=FLASH_BWD_PRODUCTS * product,
+                )
+                del leaves, sdpa_out
         del q, k, v, do, out, lse, chunks, qh, kh, vh, doh
         torch.cuda.empty_cache()
     return rows
@@ -1185,13 +1214,16 @@ def _step_parity(phase: str, model: str, label2id: str, cases, **fields) -> None
 
 # fp16 parity steps at reduced depth: the CPU side of an fp16 step takes
 # 150 s (JiT-B/16) and 300 s (latent, depth 6) on the card's host, whose CPU
-# has no fast fp16 matrix path (``tools.bench.step_parity`` runs them whole)
-FP16_PARITY_DEPTH = {"jit": 6, "latent": 2}
+# has no fast fp16 matrix path (``tools.bench.step_parity`` runs them whole).
+# JiT needs a depth over context_start_block (4), or the class encoder gets
+# no gradient; 5 and 1 keep the whole run, CogView4 included, well inside
+# its limit (6 and 2 took 76 s and 123 s of CPU)
+FP16_PARITY_DEPTH = {"jit": 5, "latent": 1}
 
 
 def phase_train_parity(label2id: str) -> None:
     """One JiT-B/16 training step's loss and gradients on the card and on
-    the CPU (#1/#2 at S 298, blocks 0-3; fp16 at depth 6)."""
+    the CPU (#1/#2 at S 298, blocks 0-3; fp16 at depth 5)."""
     launches = _expect({1: 4, 2: 4})
     _step_parity("train_parity", "jit", label2id,
                  [("float32", None, launches), ("bfloat16", None, launches),
@@ -1424,7 +1456,7 @@ def phase_latent_trainer(tmp: str) -> tuple[int, ...]:
 
 def phase_latent_parity(tmp: str) -> None:
     """One latent training step's loss and gradients on the card and on the
-    CPU: full width, depth 6 (fp16: 2), a 64 x 64 latent (S = 1098), batch 2
+    CPU: full width, depth 6 (fp16: 1), a 64 x 64 latent (S = 1098), batch 2
     (#7/#8, one launch each a block)."""
     fp16 = FP16_PARITY_DEPTH["latent"]
     _step_parity("latent_parity", "latent", os.path.join(tmp, "latent_label2id.json"),
@@ -1439,9 +1471,11 @@ def phase_latent_parity(tmp: str) -> None:
 # kernel #9 at the sampler's shapes (the 2 x 77 context rows of every
 # cross-attention to_k / to_v, K 2048, N 640 or 1280) and at edge shapes
 # the sampler's cross-attention to_k / to_v over 154 context rows (CFG),
-# then the QLoRA trainer's over 2 x 227 (batch 2, 225 tokens + bos/eos)
+# then the QLoRA trainer's over 2 x 227 (batch 2, 225 tokens + bos/eos),
+# then the NF4 CogView4 sampler's shared feed-forward over its text stream
+# (2 x 16 rows; ff.proj 4096 -> 16384, ff.out 16384 -> 4096)
 NF4_PATH_SHAPES = ((154, 2048, 640), (154, 2048, 1280), (454, 2048, 640),
-                   (454, 2048, 1280))
+                   (454, 2048, 1280), (32, 4096, 16384), (32, 16384, 4096))
 NF4_EDGE_SHAPES = tuple((m, k, n) for m in (1, 37, 1024) for k in (128, 5120)
                         for n in (8, 136, 10240))
 # kernel #9's block shapes change at M 64, 128 and 256, and its K splits
@@ -1551,6 +1585,8 @@ def phase_nf4_timing() -> dict:
                              ("path", NF4_PATH_SHAPES[1]),
                              ("qlora_n640", NF4_PATH_SHAPES[2]),
                              ("qlora_n1280", NF4_PATH_SHAPES[3]),
+                             ("cogview4_ff_proj", NF4_PATH_SHAPES[4]),
+                             ("cogview4_ff_out", NF4_PATH_SHAPES[5]),
                              ("bench", (64, 8192, 8192))):
         w = torch.randn(n, k, generator=gen, device="cuda") * 0.05
         packed, absmax = quantize_4bit_device_kernel_layout(w)
@@ -3286,6 +3322,247 @@ def phase_tread_timing() -> dict:
     return rows
 
 
+# ---------------------------------- CogView4 sampling
+
+COGVIEW4_SIDE, COGVIEW4_STEPS, COGVIEW4_CFG = 1024, 20, 5.0
+COGVIEW4_LAYERS, COGVIEW4_OFFLOAD_GROUPS = 28, 4
+# per denoiser call at 1024^2 with CFG, every one of the 28 joint
+# self-attentions (B 2, 4096 image + 16 text tokens, 32 x 128) takes #7;
+# under NF4 the feed-forward that the two streams share runs the text
+# stream's 2 x 16 rows on its own, so its ff.proj and ff.out take #9 (the
+# joint projections and the image stream's feed-forward, 2 x 4112 and
+# 2 x 4096 rows, are over KERNEL_MAX_ROWS); int8 has no kernel
+_COGVIEW4_ATTENTION = COGVIEW4_LAYERS * COGVIEW4_STEPS
+COGVIEW4_LAUNCHES = {"bf16": _expect({7: _COGVIEW4_ATTENTION}),
+                     "bnb_nf4": _expect({7: _COGVIEW4_ATTENTION,
+                                         9: 2 * _COGVIEW4_ATTENTION}),
+                     "bnb_int8": _expect({7: _COGVIEW4_ATTENTION})}
+# the quantized linears of the DiT (to_q, to_k, to_v, to_out, ff.proj,
+# ff.out of each block); the GLM tower is never reached, as in the JAX package
+COGVIEW4_QUANTIZED = {"bf16": 0, "bnb_nf4": 6 * COGVIEW4_LAYERS,
+                      "bnb_int8": 6 * COGVIEW4_LAYERS}
+# cogview4_parity: full widths, 2 DiT and 2 GLM layers, 512^2 (1024 image +
+# 16 text tokens: still #7); one denoiser call (2 launches) and a 2-step CFG
+# generate (4)
+COGVIEW4_PARITY_SIDE, COGVIEW4_PARITY_DEPTH = 512, 2
+COGVIEW4_PARITY_LAUNCHES = _expect({7: 3 * COGVIEW4_PARITY_DEPTH})
+# cogview4_parity floors on the relative L2 error, card vs CPU, in bf16.
+# One denoiser call measured 4.0e-3 (an H100 against its host), and 3.6e-2
+# with #7's head 0 zeroed in both layers: its floor lies between, below the
+# SDXL UNet's 5e-2, which one zeroed head of 32 at depth 2 does not reach.
+# The 2-step CFG latents measured 1.95e-2 (CFG 5 scales the difference of
+# the two predictions, and its error) and 3.7e-2 with the zeroed head, too
+# close to separate: they keep the SDXL sampler's 7.5e-2, which #7 writing
+# nothing (0.118) fails. The text embeddings pass 2 bf16 GLM layers of plain
+# PyTorch on both sides (2.7e-3).
+COGVIEW4_PARITY_FLOOR = {"denoiser": 2e-2, "latents": SDXL_PARITY_FLOOR["latents"],
+                         "text": 2e-2}
+
+
+def _cogview4_model(config, **kw):
+    from vision_pt_tpu_torch.models.cogview4 import CogView4Model, GLMWordHashTokenizer
+
+    return CogView4Model.from_config(config, device="cuda", param_dtype=torch.bfloat16,
+                                     tokenizer=GLMWordHashTokenizer(), **kw)
+
+
+def _cogview4_offload(model, request) -> dict:
+    """A 2-step request with the DiT's blocks offloaded in 4 groups (all
+    parked on the host first) against the same request without: the latents
+    must be the same bits and the peak lower."""
+    from vision_pt_tpu_torch.ops.offload import LayerwiseOffloadStrategy
+
+    blocks = list(model.denoiser.transformer_blocks)
+
+    def run():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        latents = request(2, return_latents=True)
+        torch.cuda.synchronize()
+        return latents, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    plain, plain_s, plain_peak = run()
+    strategy = LayerwiseOffloadStrategy.from_num_groups(COGVIEW4_LAYERS,
+                                                        COGVIEW4_OFFLOAD_GROUPS)
+    model.denoiser.set_offload_strategy(strategy)
+    try:
+        strategy.offload_all(blocks)
+        offloaded, offload_s, offload_peak = run()
+    finally:
+        strategy.load_all(blocks)
+        model.denoiser.set_offload_strategy(None)
+    torch.cuda.synchronize()
+    result = dict(groups=[list(g) for g in strategy.layer_groups],
+                  bit_identical=torch.equal(plain, offloaded),
+                  seconds=plain_s, offload_seconds=offload_s,
+                  peak_memory_bytes=plain_peak, offload_peak_memory_bytes=offload_peak)
+    check(result["bit_identical"], "offloaded CogView4 latents differ from the plain run")
+    check(offload_peak < plain_peak,
+          f"offload peak {offload_peak} is not below the plain peak {plain_peak}")
+    return result
+
+
+def phase_cogview4_sampler() -> dict:
+    """CogView4-6B at full width (the 28-layer DiT, the 40-layer GLM-4-9B
+    tower, the 16-channel VAE), random weights from seed 0 drawn on the card,
+    bf16 parameters and compute, the GLM word-hash tokenizer, through the
+    quant-compare tool's ``compare`` at 1024^2, CFG 5, 20 steps, over its
+    default settings (bf16, NF4, int8): per setting a fresh model, a 2-step
+    warm request, the timed 20-step request and a profiled 2-step one; the
+    bf16 model also runs the offload check. Returns the timed requests'
+    launches."""
+    from vision_pt_tpu_torch.models.cogview4 import CogView4Config
+    from vision_pt_tpu_torch.tools import cogview4_quant_compare as tool
+
+    config = CogView4Config(checkpoint_path="", dtype="bfloat16")
+    launches, details = {}, {}
+
+    def after(quant, model, images, request):
+        counts = _counts()
+        stats = images.float()
+        details[quant] = dict(
+            launches=counts, image_shape=list(images.shape),
+            image_mean=float(stats.mean()), image_std=float(stats.std()),
+            params={prefix: sum(p.numel() for p in module.parameters())
+                    for prefix, module in model.modules().items()},
+            param_bytes={prefix: sum(p.numel() * p.element_size()
+                                     for p in module.parameters())
+                         for prefix, module in model.modules().items()})
+        launches[f"cogview4_{quant}"] = counts
+        check(tuple(images.shape) == (1, COGVIEW4_SIDE, COGVIEW4_SIDE, 3),
+              f"CogView4 image shape {tuple(images.shape)}")
+        check(bool(torch.isfinite(stats).all()) and float(stats.std()) > 1e-3,
+              "the CogView4 image is not finite, or constant")
+        check(counts == COGVIEW4_LAUNCHES[quant],
+              f"CogView4 {quant} launches {counts}, expected "
+              f"{COGVIEW4_LAUNCHES[quant]}")
+        profile(f"cogview4_{quant}_2_steps", lambda: request(2, return_latents=True))
+        if quant == "bf16":
+            details[quant]["offload"] = _cogview4_offload(model, request)
+
+    results = tool.compare(
+        lambda: _cogview4_model(config, seed=0), height=COGVIEW4_SIDE,
+        width=COGVIEW4_SIDE, num_inference_steps=COGVIEW4_STEPS,
+        cfg_scale=COGVIEW4_CFG, warmup_steps=2,
+        before_timed=lambda quant: _reset_counts(), after_timed=after)
+    for quant, result in results.items():
+        emit("cogview4_sampler", model="CogView4-6B + GLM-4-9B (random weights, seed 0)",
+             denoiser=quant, param_dtype="bfloat16", compute_dtype="bfloat16",
+             resolution=COGVIEW4_SIDE, batch=1, cfg=COGVIEW4_CFG, steps=COGVIEW4_STEPS,
+             tokenizer="GLM word-hash", seconds_per_image=result["seconds"],
+             **{k: v for k, v in result.items() if k != "seconds"},
+             expected=COGVIEW4_LAUNCHES[quant], **details[quant])
+        check(result["quantized_linears"] == {"text_encoder": 0,
+                                              "denoiser": COGVIEW4_QUANTIZED[quant]},
+              f"CogView4 {quant} quantized linears {result['quantized_linears']}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_cogview4_parity() -> None:
+    """The same weights and inputs on the card (kernels) and on the CPU (the
+    plain versions of the same path): full widths, 2 DiT and 2 GLM layers,
+    512^2, bf16; the text embeddings, one denoiser call (batch 2) and a
+    2-step CFG generate from injected latents. Then the card's denoiser call
+    and generate with #7's output wrong in every launch: one head zeroed,
+    and every head zeroed."""
+    import copy
+
+    import vision_pt_tpu_torch.ops.attention as attention
+    from vision_pt_tpu_torch.models.cogview4 import CogView4Config, DenoiserConfig
+    from vision_pt_tpu_torch.tools.cogview4_quant_compare import DEFAULT_PROMPT as prompt
+
+    bf16, side = torch.bfloat16, COGVIEW4_PARITY_SIDE
+    torch.set_num_threads(os.cpu_count() or 1)
+    config = CogView4Config(
+        checkpoint_path="", dtype="bfloat16",
+        denoiser=DenoiserConfig(num_layers=COGVIEW4_PARITY_DEPTH),
+        text_encoder_config={"num_hidden_layers": COGVIEW4_PARITY_DEPTH})
+    card = _cogview4_model(config, seed=1)
+    rng = np.random.default_rng(6)
+    latent, channels = side // 8, card.config.denoiser.in_channels
+    dit_args = [rng.normal(size=(2, latent, latent, channels)).astype(np.float32),
+                rng.normal(size=(2, 16, card.config.denoiser.text_embed_dim)).astype(
+                    np.float32),
+                np.asarray([999.0, 500.0], np.float32),
+                np.full((2, 2), float(side), np.float32),
+                np.full((2, 2), float(side), np.float32), np.zeros((2, 2), np.float32)]
+    low = (0, 1)  # the arguments in the execution dtype
+    latents = rng.normal(size=(1, latent, latent, channels)).astype(np.float32)
+
+    def run(model, device):
+        """(text embeddings, denoiser output, latents, launches, seconds);
+        the CPU runs the same path, through the plain versions."""
+        args = [torch.from_numpy(a).to(device, bf16 if i in low else torch.float32)
+                for i, a in enumerate(dit_args)]
+        _reset_counts()
+        gate = attention._on_cuda
+        attention._on_cuda = lambda x: True
+        t0 = time.perf_counter()
+        try:
+            enc = model.text_encoder.encode_prompts(prompt, "", use_negative_prompts=True)
+            with torch.inference_mode():
+                out = model.denoiser(*args)
+            lat = model.generate(prompt, width=side, height=side, num_inference_steps=2,
+                                 cfg_scale=COGVIEW4_CFG, execution_dtype=bf16,
+                                 latents=latents, return_latents=True)
+        finally:
+            attention._on_cuda = gate
+        text = torch.cat([enc.positive_embeddings, enc.negative_embeddings])
+        return ([x.float().cpu().numpy() for x in (text, out, lat)], _counts(),
+                time.perf_counter() - t0)
+
+    host = copy.deepcopy(card).to("cpu")
+    (text_c, dit_c, lat_c), counts_c, sec_c = run(card, "cuda")
+    (text_h, dit_h, lat_h), counts_h, sec_h = run(host, "cpu")
+    del host
+    errors = {"text": _rel_l2(text_c, text_h), "denoiser": _rel_l2(dit_c, dit_h),
+              "latents": _rel_l2(lat_c, lat_h)}
+    emit("cogview4_parity", resolution=side, depth={"dit": COGVIEW4_PARITY_DEPTH,
+                                                    "glm": COGVIEW4_PARITY_DEPTH},
+         widths="full (DiT 32 x 128, GLM 4096)", dtype="bfloat16", rel_l2=errors,
+         floor=COGVIEW4_PARITY_FLOOR,
+         psnr_db={"denoiser": psnr(dit_c, dit_h), "latents": psnr(lat_c, lat_h)},
+         launches_cuda=counts_c, launches_cpu=counts_h,
+         expected_cuda=COGVIEW4_PARITY_LAUNCHES, seconds_cuda=sec_c, seconds_cpu=sec_h)
+    check(all(np.isfinite(x).all() for x in (text_c, dit_c, lat_c)),
+          "non-finite CogView4 parity output")
+    check(counts_c == COGVIEW4_PARITY_LAUNCHES and counts_h == _expect({}),
+          f"CogView4 parity launches: card {counts_c}, expected "
+          f"{COGVIEW4_PARITY_LAUNCHES}; CPU {counts_h}, expected none")
+    check(all(errors[k] <= COGVIEW4_PARITY_FLOOR[k] for k in errors),
+          f"CogView4 parity {errors} over {COGVIEW4_PARITY_FLOOR}")
+
+    # #7 wrong in every launch: its output with head 0 zeroed, or with every
+    # head zeroed (a kernel that writes nothing)
+    kernel, wrong_errors = attention.flash_attention, {}
+    for label, heads in (("one_head_zeroed", 1), ("every_head_zeroed", None)):
+        def wrong(*a, heads=heads, **kw):
+            out = kernel(*a, **kw).clone()
+            out[:, :, :heads] = 0
+            return out
+
+        attention.flash_attention = wrong
+        try:
+            (_, dit_w, lat_w), _, _ = run(card, "cuda")
+        finally:
+            attention.flash_attention = kernel
+        wrong_errors[label] = {"denoiser": _rel_l2(dit_w, dit_h),
+                               "latents": _rel_l2(lat_w, lat_h)}
+    floors = {k: COGVIEW4_PARITY_FLOOR[k] for k in ("denoiser", "latents")}
+    emit("cogview4_parity", case="limits_can_fail", rel_l2=wrong_errors, floor=floors,
+         card_vs_cpu=errors)
+    e = wrong_errors["every_head_zeroed"]
+    check(all(e[k] > floors[k] for k in e),
+          f"a CogView4 parity floor passes #7 writing nothing: {e}")
+    e = wrong_errors["one_head_zeroed"]["denoiser"]
+    check(e > floors["denoiser"],
+          f"the CogView4 denoiser floor passes #7 with one head zeroed: {e}")
+    del card
+    torch.cuda.empty_cache()
+
+
 def main(args: list[str]) -> int:
     if args not in ([], ["--kernels-only"]):
         print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
@@ -3331,13 +3608,16 @@ def main(args: list[str]) -> int:
     phase_sdxl_lora_parity()
     launches.update(phase_sdxl_flow_match_parity())
     launches["optimizers"] = phase_optimizers()
+    launches.update(phase_cogview4_sampler())
+    phase_cogview4_parity()
     kernels = []
     # each kernel's launches are those of its main path: the training step
     # for the packed kernels (the JiT variants' trainers, parity steps and
     # IG sample beside it), the short backend's path for #3-#6, the latent
-    # trainer for the flash kernels (the SDXL requests and trainers beside
-    # them), the NF4 SDXL request for kernel #9 (the QLoRA trainer beside
-    # it), the probe tools for #10 and #11
+    # trainer for the flash kernels (the SDXL requests and trainers and the
+    # CogView4 requests beside them), the NF4 SDXL request for kernel #9
+    # (the QLoRA trainer and the NF4 CogView4 request beside it), the probe
+    # tools for #10 and #11
     for number, (row, kernel, path) in enumerate((
             (rows["train"], "short_attention_packed", "train_step"),
             (rows["train_bwd"], "short_attention_packed_bwd", "train_step"),
@@ -3363,10 +3643,13 @@ def main(args: list[str]) -> int:
     kernels[1]["retimed_ms"] = short_rows["packed_bwd"]["ms"]  # short_timing
     kernels[6]["sdxl_timing"] = [{**rows[label], "max_abs_err": errors[label]}
                                  for label in ("sdxl_s4096", "sdxl_s1024")]
+    kernels[6]["cogview4_timing"] = {**rows["cogview4_s4112"],
+                                     "max_abs_err": errors["cogview4_s4112"]}
     kernels[7]["sdxl_timing"] = [{**rows[f"{label}_bwd"], "shape": label}
                                  for label in ("sdxl_s4096", "sdxl_s1024")]
     kernels[8]["other_shapes"] = [{**nf4_rows[label], "shape": label} for label in
-                                  ("path_n640", "qlora_n640", "qlora_n1280", "bench")]
+                                  ("path_n640", "qlora_n640", "qlora_n1280",
+                                   "cogview4_ff_proj", "cogview4_ff_out", "bench")]
     emit("done", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from PIL import Image
 
-from ...ops.quant.functional import replace_by_prequantized_weights
+from ...ops.quant.functional import load_state_with_prequantized
 from ...utils import PromptType, resolve_device
 from ...utils import tensor as tensor_utils
 from ...utils.state_dict import (
@@ -115,18 +115,9 @@ class SDXLModel:
         parts[_TE2] = convert_open_clip_to_transformers(parts[_TE2])
         parts["vae."] = fix_vae_attention_projections(parts["vae."])
         for prefix, module in self._submodules().items():
-            port_sd = {torch_to_port_key(k): v for k, v in parts[prefix].items()}
-            # prequantized linears (bnb quant-state keys beside the packed
-            # weight) are swapped for quantized layers holding those weights
-            for path in replace_by_prequantized_weights(module, port_sd):
-                weight = f"{path}.weight"
-                port_sd = {k: v for k, v in port_sd.items()
-                           if k != weight and not k.startswith(weight + ".")}
-                port_sd.update({f"{path}.{name}": buf for name, buf in
-                                module.get_submodule(path).named_buffers()})
-            module.load_state_dict(
-                {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
-                 for k, v in port_sd.items()}, strict=strict)
+            load_state_with_prequantized(
+                module, {torch_to_port_key(k): v for k, v in parts[prefix].items()},
+                strict=strict)
 
     @classmethod
     def from_checkpoint(cls, config: SDXLConfig, **kw) -> "SDXLModel":

@@ -3,7 +3,8 @@
 (a) ``replace_to_quant_linear``: swap linears before loading
 (b) ``quantize_inplace``: quantize already-loaded weights
 (c) ``replace_by_prequantized_weights``: sniff quant-state keys in a
-    checkpoint and swap the matching layers, then load
+    checkpoint and swap the matching layers (``load_state_with_prequantized``
+    then loads the whole state)
 (d) ``quantize_state_dict``: offline checkpoint quantization
 
 The JAX package's NNX surgery becomes ``named_modules`` and ``setattr`` on
@@ -133,6 +134,25 @@ def replace_by_prequantized_weights(model: nn.Module, state_dict: dict) -> list[
                 continue
         setattr(parent, name, q)
         replaced.append(path)
+    return replaced
+
+
+def load_state_with_prequantized(module: nn.Module, state: dict,
+                                 strict: bool = True) -> list[str]:
+    """Load a state in the port's key layout into ``module``, plain or with
+    linears prequantized in the bnb layout: the linears whose entries carry
+    quant-state keys are swapped for quantized layers holding those weights
+    first. Returns the swapped paths."""
+    replaced = replace_by_prequantized_weights(module, state)
+    for path in replaced:
+        weight = f"{path}.weight"
+        state = {k: v for k, v in state.items()
+                 if k != weight and not k.startswith(weight + ".")}
+        state.update({f"{path}.{name}": buf for name, buf in
+                      module.get_submodule(path).named_buffers()})
+    module.load_state_dict(
+        {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+         for k, v in state.items()}, strict=strict)
     return replaced
 
 

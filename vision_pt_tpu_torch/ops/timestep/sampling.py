@@ -63,6 +63,11 @@ def time_shift(mu: float, sigma: float, t: torch.Tensor) -> torch.Tensor:
     return math.exp(mu) / (math.exp(mu) + (1.0 / t - 1.0) ** sigma)
 
 
+def time_shift_linear(mu: float, t):
+    """CogView4's linear time shift, on a tensor or a numpy array."""
+    return mu / (mu + (1.0 / t - 1.0))
+
+
 def _shift(t: torch.Tensor, shift: float) -> torch.Tensor:
     return (t * shift) / (1.0 + (shift - 1.0) * t)
 
