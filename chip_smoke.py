@@ -3,8 +3,9 @@
 its JiT variant trainers (U-JiT, Cross-JiT, IG, LoIG, TREAD) and the x-loss
 config, its latent-cache tool and latent JiT 1024^2 trainer, its SDXL 1024^2
 text-to-image sampler (bf16 and NF4), LoRA / QLoRA and flow-match trainers,
-its optax optimizers and int8 training linears, its CogView4-6B 1024^2
-sampler (bf16, NF4, int8, layer-group offload), its ``short`` attention
+its IP-Adapter and PFG (prompt-free) trainers and samplers over CLIP and
+timm vision towers, its optax optimizers and int8 training linears, its
+CogView4-6B 1024^2 sampler (bf16, NF4, int8, layer-group offload), its ``short`` attention
 backend and its two attention probes, on one CUDA card.
 
     python3 chip_smoke.py
@@ -167,6 +168,37 @@ without a result line:
    versions), within 2e-2, 2e-2 and 7.5e-2 relative L2; the denoiser floor
    must fail #7 with one head's output zeroed in every launch, and every
    floor #7 writing nothing;
+17f. vision_towers, ip_adapter_trainer, prompt_free_trainer (after
+   sdxl_flow_match_parity): random towers from a seed written in their file
+   layouts, fp16 (CLIP-L/14's shape as an HF directory, 257 tokens; a WD
+   tagger's ViT-B/16 at 448^2 as a timm file, 785 tokens) and read back by
+   ``AutoImageEncoder``; ``train.sdxl.ip_adapter_ref`` (the 2 synthetic
+   images with metadata naming synthetic references) and
+   ``train.sdxl.prompt_free_self`` on ``configs/sdxl/text_to_image_lora.yml``'s
+   trainer settings with the adapter's model (``IPAdapterConfig()`` /
+   ``PFGConfig()`` defaults over those towers) and no LoRA, SDXL-base at
+   full width and depth, 1024^2, batch 2, 4 steps, no preview:
+   exactly 140 + 69 launches of #7 / #8 a step (no backward through the
+   first self-attention, which comes before every adapter and image
+   token); exactly the 144 (IP) and 2
+   (PFG) adapter and projector tensors trained and changed (fp64
+   fingerprints of every parameter, the tower's too); the adapter file saved
+   and loaded back equal; then one timed 20-step CFG-5 1024^2 request with a
+   reference image, exactly 1,400 launches of #7; one more IP step
+   profiled after the timed ones;
+17g. adapter_entry_points: ``ip_adapter_self``, ``ip_adapter_kyara`` and
+   ``prompt_free_ref`` one step each at sdxl_parity's depth, 512^2 (6 + 2
+   launches), exactly the adapter tensors changed, kyara dropping no image;
+17h. sdxl_adapter_parity: sdxl_lora_parity's model at 512^2 over 2-layer
+   towers of the same token counts, batch 1: each family's Self step from an
+   image (no image dropped), card (kernels) against CPU under
+   SDXL_LORA_PARITY_FLOOR with the card's plain versions as the witness, and
+   against the card's plain run within ADAPTER_KERNEL_FLOOR, the
+   dropped-tile #7 / #8 failing the floors (3 + 2 launches); its fp32
+   witness within SDXL_FP32_WITNESS_FLOOR; a 2-step CFG-5 sample with a
+   reference image from injected latents and step noise within
+   max(7.5e-2, 1.5 x the card's plain versions' error) relative L2 (6
+   launches of #7);
 17c. optimizers: prodigy, lion, adafactor, rmsprop and adagrad 20 steps on
    the same numpy-made parameters (a linear, a conv, a bias, two weights
    adafactor factors) and gradients, card against CPU within 1e-5 relative
@@ -951,11 +983,13 @@ def phase_sampler(label2id: str) -> tuple[int, ...]:
 
 
 def profile(path: str, run):
-    """Where the device time of one run of ``path`` goes (torch.profiler);
-    returns what the run returns."""
+    """Where the device time of one run of ``path`` goes (torch.profiler,
+    the device traced alone: with the host's ops too, the profiler's own
+    processing took 3-55 s a profile and ≈ 170 s of a whole run, which then
+    ended 30 s short of its 1,200 s limit); returns what the run returns."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         result = run()
         torch.cuda.synchronize()
@@ -967,8 +1001,6 @@ def profile(path: str, run):
                if e.device_type.name == "CUDA" and e.device_time_total > 0
                and not e.is_user_annotation]
     device_us = sum(e.device_time_total for e in kernels)
-    ops = [e for e in averages
-           if e.device_type.name == "CPU" and e.self_device_time_total > 0]
 
     def rows(events, attr, n):
         top = sorted(events, key=lambda e: -getattr(e, attr))[:n]
@@ -980,7 +1012,6 @@ def profile(path: str, run):
          device_busy_share=(device_us / 1e6) / wall,
          port_kernels=rows([e for e in kernels if PORT_KERNEL.search(e.key)],
                            "device_time_total", 8),
-         top_ops=rows(ops, "self_device_time_total", 14),
          top_kernels=rows(kernels, "device_time_total", 8))
     return result
 
@@ -2100,6 +2131,8 @@ def _host_twin(workload_cls, config, card):
     host.model, host._full_trainable = copy.deepcopy((card.model, card._full_trainable))
     host.model.to("cpu")
     host._is_peft = True
+    if hasattr(card, "_drop_rng"):  # the image adapters' host-side draws
+        host._drop_rng = copy.deepcopy(card._drop_rng)
     return host
 
 
@@ -2138,12 +2171,15 @@ def _fp32_witness(phase: str, workload_cls, config: dict, card, batch: dict,
     from vision_pt_tpu_torch.config import TrainConfig
     from vision_pt_tpu_torch.ops.attention import attention_dtype
 
-    peft = {**config["peft"], "config": {**config["peft"]["config"], "dtype": "float32"}}
+    peft = config["peft"]
+    if peft is not None:
+        peft = {**peft, "config": {**peft["config"], "dtype": "float32"}}
     config = TrainConfig.model_validate(
         {**config, "model": {**config["model"], "dtype": "float32"}, "peft": peft})
     twin = workload_cls(config, torch.device("cuda"))
     twin.setup_model()
-    _attach(twin, peft)
+    if peft is not None:
+        _attach(twin, peft)
     # the card tree's weights and adapters (parameters fp32, adapters bf16)
     twin._full_trainable.load_state_dict(
         {k: v.float() for k, v in card._full_trainable.state_dict().items()}, strict=True)
@@ -2176,9 +2212,13 @@ def _fp32_witness(phase: str, workload_cls, config: dict, card, batch: dict,
     return worst
 
 
-def _wrong_kernel_verdicts(step, cpu, witness, nf4: bool) -> dict:
+def _wrong_kernel_verdicts(step, cpu, witness, nf4: bool, plain,
+                           kernel_floor: float | None = None) -> tuple[dict, dict]:
     """The verdicts of one card step with #7 / #8 dropping the last key tile
-    (64 keys) and, under NF4, with #9's scale row 3 25% off."""
+    (64 keys) and, under NF4, with #9's scale row 3 25% off, and each wrong
+    step's largest gradient error against ``plain`` (the card's step through
+    the plain versions); with ``kernel_floor`` a verdict also names the
+    gradients that far from ``plain``."""
     import vision_pt_tpu_torch.ops.attention as attention
     from vision_pt_tpu_torch.ops.quant import layers as qlayers
 
@@ -2194,7 +2234,7 @@ def _wrong_kernel_verdicts(step, cpu, witness, nf4: bool) -> dict:
         absmax[3 % absmax.shape[0]] *= 1.25
         return kernel(x, packed, absmax, quant_type)
 
-    wrong = {}
+    wrong, vs_plain = {}, {}
     for label, module, name, fn in (
             ("flash_last_tile_dropped", attention, "flash_attention", short_flash),
             ("nf4_absmax_row_perturbed", qlayers, "dequant_matmul_4bit", wrong_nf4)):
@@ -2203,18 +2243,24 @@ def _wrong_kernel_verdicts(step, cpu, witness, nf4: bool) -> dict:
         real = getattr(module, name)
         setattr(module, name, fn)
         try:
-            wrong[label] = _parity_verdict(step(), cpu, witness)
+            run = step()
         finally:
             setattr(module, name, real)
-    return wrong
+        vs_plain[label] = _parity_errors(run, plain)[1]
+        wrong[label] = _parity_verdict(run, cpu, witness) + (
+            [] if kernel_floor is None else
+            [f"{n} vs plain" for n, e in vs_plain[label].items() if e > kernel_floor])
+    return wrong, {label: max(errors.values()) for label, errors in vs_plain.items()}
 
 
 def _parity_case(phase: str, label: str, workload_cls, config, card, batch, draws,
-                 expected, n_grads, **fields) -> tuple[int, ...]:
+                 expected, n_grads, kernel_floor: float | None = None,
+                 **fields) -> tuple[int, ...]:
     """One adapter step, card (kernels) against CPU with the card's plain
-    versions as the witness, held to SDXL_LORA_PARITY_FLOOR, which must fail
-    the wrong kernels; emits the phase line and returns the card step's
-    launches."""
+    versions as the witness, held to SDXL_LORA_PARITY_FLOOR and, with
+    ``kernel_floor``, every gradient within that of the card's plain run; the
+    floors must fail the wrong kernels. Emits the phase line and returns the
+    card step's launches."""
     host = _host_twin(workload_cls, config, card)
     run = _parity_step(card, batch, draws)
     plain = _parity_step(card, batch, draws, kernels=False)
@@ -2222,10 +2268,14 @@ def _parity_case(phase: str, label: str, workload_cls, config, card, batch, draw
     loss_err, grad_err = _parity_errors(run, cpu)
     witness = _parity_errors(plain, cpu)[1]
     worst = max(grad_err, key=grad_err.get)
-    over = _parity_verdict(run, cpu, witness)
-    wrong = _wrong_kernel_verdicts(lambda: _parity_step(card, batch, draws), cpu, witness,
-                                   nf4=expected[8] > 0)
-    emit(phase, case=label, resolution=PARITY_SIDE, batch=2,
+    kernel_err = _parity_errors(run, plain)[1]
+    over = _parity_verdict(run, cpu, witness) + (
+        [] if kernel_floor is None else
+        [f"{n} vs plain" for n, e in kernel_err.items() if e > kernel_floor])
+    wrong, wrong_vs_plain = _wrong_kernel_verdicts(
+        lambda: _parity_step(card, batch, draws), cpu, witness, nf4=expected[8] > 0,
+        plain=plain, kernel_floor=kernel_floor)
+    emit(phase, case=label, resolution=PARITY_SIDE, batch=len(batch["caption"]),
          depth="layers_per_block 1, one transformer per stage", **fields,
          adapters=len(grad_err), loss_cuda=run[0], loss_cpu=cpu[0],
          loss_cuda_plain=plain[0], loss_rel_err=loss_err,
@@ -2233,7 +2283,8 @@ def _parity_case(phase: str, label: str, workload_cls, config, card, batch, draw
          grad_rel_l2_median=float(np.median(list(grad_err.values()))),
          witness_max=max(witness.values()),
          witness_median=float(np.median(list(witness.values()))),
-         card_vs_plain_max=max(_parity_errors(run, plain)[1].values()),
+         card_vs_plain_max=max(kernel_err.values()), kernel_floor=kernel_floor,
+         wrong_kernel_vs_plain_max=wrong_vs_plain,
          over_floor=over, wrong_kernel_over_floor=wrong, floor=SDXL_LORA_PARITY_FLOOR,
          launches_cuda=run[2], launches_cuda_plain=plain[2], launches_cpu=cpu[2],
          expected_cuda=expected, seconds_cuda=run[3], seconds_cpu=cpu[3])
@@ -3563,6 +3614,497 @@ def phase_cogview4_parity() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------- IP-Adapter and PFG
+
+# the vision towers' shapes: openai/clip-vit-large-patch14's (IPAdapterConfig's
+# default image encoder: 257 tokens at 224^2, pooled width 1024) and a WD
+# tagger's ViT-B/16 at 448^2 (SmilingWolf/wd-vit-tagger-v3's shape, PFGConfig's
+# default side: 785 tokens); both random from a seed, written in their HF and
+# timm layouts and read back through AutoImageEncoder's loaders
+CLIP_L14 = dict(hidden_size=1024, intermediate_size=4096, num_hidden_layers=24,
+                num_attention_heads=16, image_size=224, patch_size=14,
+                hidden_act="quick_gelu", projection_dim=768)
+VIT_B16_448 = dict(embed_dim=768, depth=12, num_heads=12, patch_size=16, img_size=448)
+# sdxl_adapter_parity's small towers: the same token counts, 2 layers, 128 wide
+SMALL_TOWERS = {"clip": {**CLIP_L14, "hidden_size": 128, "intermediate_size": 512,
+                         "num_hidden_layers": 2, "num_attention_heads": 2},
+                "timm": {**VIT_B16_448, "embed_dim": 128, "depth": 2, "num_heads": 2}}
+# each adapter family: the entry point the full-width phase drives, the
+# entry points driven once at reduced depth, the workload of the parity
+# step, the tower and whether it reads the referenced dataset. A training
+# step at 1024^2 takes #7 140 times as the LoRA step does (70
+# self-attentions, forward and recompute) but #8 69: the first
+# self-attention comes before every adapter and image token, so autograd
+# runs no backward through it. The image tokens (4 keys), PFG's longer
+# context (2 x 241 rows), CLIP (S 257) and the ViT (S 785) all stay on plain
+# attention, as the JAX gate sends them; a 20-step CFG request takes #7
+# 1,400 times
+ADAPTER_FAMILIES = {
+    "ip_adapter": dict(entry="ip_adapter_ref", others=("ip_adapter_self", "ip_adapter_kyara"),
+                       workload="sdxl_ip_adapter.SDXLIPAdapterSelfTraining", tower="clip",
+                       referenced=True),
+    "prompt_free": dict(entry="prompt_free_self", others=("prompt_free_ref",),
+                        workload="sdxl_prompt_free.SDXLPFGSelfTraining", tower="timm",
+                        referenced=False),
+}
+ADAPTER_STEP_LAUNCHES = _expect({7: 140, 8: 69})
+ADAPTER_REQUEST_LAUNCHES = _expect({7: 70 * SDXL_STEPS})
+# sdxl_adapter_parity: sdxl_lora_parity's model and floors; a step takes
+# #7 3 times and #8 2 (stage 2's self-attentions at S 1024, the first one
+# without a backward), a 2-step CFG sample #7 6 times
+ADAPTER_PARITY_LAUNCHES = {"step": _expect({7: 3, 8: 2}), "generate": _expect({7: 6})}
+# the adapter gradients sit far from the self-attentions, so #7 / #8 dropping
+# their last key tile moves them by less than the two devices' bf16
+# roundings (0.031-0.033 against card-vs-CPU 0.031-0.036, batch 2, NVIDIA
+# H100 80GB HBM3 700 W): the LoRA floors cannot see it. The same step on the
+# card through the plain versions can: kernels against plain 0.0044-0.0059
+# there. Each adapter gradient holds within this of the card's plain run
+ADAPTER_KERNEL_FLOOR = 1.5e-2
+
+
+def _adapter_model(family: str, weights_path: str, tower: dict) -> dict:
+    """The adapter's model section: IPAdapterConfig() / PFGConfig() as the
+    JAX package defaults them, over the given tower."""
+    encoder = {"weights_path": weights_path}
+    if family == "prompt_free":
+        encoder.update(type="timm", feature_dim=tower["embed_dim"],
+                       num_heads=tower["num_heads"])
+    else:
+        encoder.update(feature_dim=tower["hidden_size"])
+    return {"adapter": {"image_encoder": encoder}}
+
+
+def _write_tower(path: str, kind: str, shape: dict, seed: int) -> str:
+    """A random tower in its file layout (fp16): an HF CLIP vision directory
+    (config.json + model.safetensors) or a timm ViT safetensors file."""
+    from safetensors.torch import save_file
+
+    from vision_pt_tpu_torch.models import clip_vision, timm_vit
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.device("cuda"):
+        if kind == "clip":
+            model = clip_vision.CLIPVisionModel(clip_vision.CLIPVisionConfig(**shape),
+                                                generator=gen)
+        else:
+            model = timm_vit.TimmViT(timm_vit.TimmViTConfig(**shape), generator=gen)
+    sd = {k: v.detach().half().cpu().contiguous() for k, v in model.state_dict().items()}
+    del model
+    if kind == "timm":
+        save_file({k.replace("patch_embed_proj.", "patch_embed.proj."): v
+                   for k, v in sd.items()}, path)
+        return path
+    os.makedirs(path, exist_ok=True)
+    save_file({k.replace(".layers.", ".encoder.layers.", 1): v for k, v in sd.items()},
+              os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "clip_vision_model", **shape}, f)
+    return path
+
+
+def _reference_image(i: int, size=(768, 512)):
+    """A synthetic reference (not square, so the letterbox pads it)."""
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:size[1], 0:size[0]] / max(size)
+    pixels = 127.5 * (np.stack([np.cos(4 * xx - i), np.sin(5 * yy + i), 1 - xx * yy], -1) + 1)
+    return Image.fromarray(pixels.astype(np.uint8))
+
+
+def _write_referenced_images(folder: str, images: str) -> None:
+    """The synthetic training images with metadata JSONs naming a reference
+    image and tag groups (ReferencedTextToImageDatasetConfig's layout)."""
+    import shutil
+
+    os.makedirs(folder, exist_ok=True)
+    for i in range(SDXL_TRAIN_IMAGES):
+        shutil.copy(os.path.join(images, f"img{i}.png"), os.path.join(folder, f"img{i}.png"))
+        ref = os.path.join(folder, f"ref{i}.jpg")
+        _reference_image(i).save(ref)
+        with open(os.path.join(folder, f"img{i}.json"), "w") as f:
+            json.dump({"reference_image": ref, "people": ["1girl"],
+                       "character": [f"character {i}"], "general": ["solo", "smile"],
+                       "meta": ["absurdres"]}, f)
+
+
+def _adapter_train_config(tmp: str, name: str, model: dict, folder: str,
+                          reduced: bool) -> tuple[str, list]:
+    """configs/sdxl/text_to_image_lora.yml's trainer settings (bucket settings,
+    optimizer, saving, recompute) with the adapter's model, no LoRA and no
+    preview; full: 4 steps; reduced: sdxl_parity's depth at 512^2, 1 step.
+    Returns the path and the cuts."""
+    import yaml
+
+    with open(os.path.join(ROOT, SDXL_TRAIN_CONFIGS["lora"]["path"])) as f:
+        cfg = yaml.safe_load(f)
+    work = os.path.join(tmp, name)
+    os.makedirs(work, exist_ok=True)
+    cfg["model"] = {"checkpoint_path": None, "dtype": cfg["model"]["dtype"],
+                    "tokenizer": "word-hash", **model}
+    cfg["peft"] = None
+    cfg["dataset"]["folder"] = folder
+    cfg["num_train_epochs"] = 1
+    cfg["preview"] = None
+    cfg["tracker"]["log_dir"] = os.path.join(work, "logs")
+    cfg["saving"]["callbacks"][0]["save_dir"] = os.path.join(work, "out")
+    cuts = ["random weights from the seed, random vision tower from a seed",
+            "word-hash tokenizer (the repository has no CLIP vocabulary)",
+            "peft: null (only the adapter and projector train)",
+            "preview: null", "output paths in a temporary directory"]
+    if reduced:
+        cfg["model"]["denoiser"] = {"layers_per_block": 1,
+                                    "num_transformers_per_block": [1, 1, 1]}
+        cfg["dataset"].update(bucket_base_size=PARITY_SIDE, num_repeats=1)
+        cuts += ["layers_per_block 1, one transformer per stage, 512^2 buckets",
+                 f"{SDXL_TRAIN_IMAGES} synthetic images, num_repeats 1: 1 step"]
+    else:
+        cuts += [f"{SDXL_TRAIN_IMAGES} synthetic 1024^2 images, num_repeats 4, batch 2: "
+                 f"1 epoch of {SDXL_TRAIN_STEPS} steps"]
+    path = os.path.join(work, "config.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path, cuts
+
+
+def _fingerprints(named) -> dict[str, tuple[float, float]]:
+    """(sum, sum of squares) in fp64 of each parameter: what changed."""
+    named = list(named)
+    with torch.no_grad():
+        stats = torch.stack([torch.stack([p.double().sum(), p.double().square().sum()])
+                             for _, p in named]).cpu().numpy()
+    return {n: tuple(s) for (n, _), s in zip(named, stats)}
+
+
+def _adapter_run(entry: str, path: str) -> dict:
+    """``train.sdxl.<entry>.run(path)`` on the card, each step timed and
+    counted, the parameters (the frozen tower's too) fingerprinted before
+    the first step and after the run."""
+    import importlib
+
+    from vision_pt_tpu_torch.training.trainer import Trainer
+
+    run = importlib.import_module(f"vision_pt_tpu_torch.train.sdxl.{entry}").run
+    per_step, step_seconds, peaks, before = [], [], [], {}
+    inner_step, inner_prepare = Trainer.train_step, Trainer.prepare_optimizer
+
+    def tower(workload):
+        encoder = getattr(workload.model, "encoder", None) or workload.model.vision_encoder
+        if encoder.model is None:
+            encoder._load_model()
+        return encoder.model
+
+    def named(workload):
+        return [*workload.trainable().named_parameters(),
+                *(("tower." + n, p) for n, p in tower(workload).named_parameters())]
+
+    def preparing(self):
+        inner_prepare(self)
+        before.update(_fingerprints(named(self.model)))
+
+    def counting(self, *args, **kwargs):
+        if not per_step:
+            torch.cuda.reset_peak_memory_stats()
+        counts = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner_step(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        step_seconds.append(time.perf_counter() - t0)
+        per_step.append(_diff(_counts(), counts))
+        peaks.append(torch.cuda.max_memory_allocated())
+        return out
+
+    Trainer.train_step, Trainer.prepare_optimizer = counting, preparing
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer = run(path)
+    finally:
+        Trainer.train_step, Trainer.prepare_optimizer = inner_step, inner_prepare
+    seconds = time.perf_counter() - t0
+    after = _fingerprints(named(trainer.model))
+    trained = {n for n, p in trainer.model.trainable().named_parameters() if p.requires_grad}
+    return dict(trainer=trainer, per_step=per_step, step_seconds=step_seconds,
+                peak=max(peaks) if peaks else None, seconds=seconds, run_launches=_counts(),
+                changed={n for n in after if after[n] != before[n]}, trained=trained)
+
+
+def _adapter_params(family: str, names) -> set[str]:
+    """The names the family trains: every to_k_ip / to_v_ip and the image
+    projector (IP-Adapter), the projector (PFG)."""
+    if family == "ip_adapter":
+        return {n for n in names if n.endswith(("attn2.to_k_ip", "attn2.to_v_ip"))
+                or n.startswith("image_proj.")}
+    return {n for n in names if n.startswith("projector.")}
+
+
+def phase_adapter_trainer(tmp: str, family: str, towers: dict) -> dict[str, tuple[int, ...]]:
+    """``train.sdxl.ip_adapter_ref`` / ``prompt_free_self`` at SDXL-base's full
+    width and depth, 1024^2, batch 2, 4 steps, over the full-size tower; the
+    adapter file saved, loaded back and compared; exactly the adapter's and
+    projector's parameters changed; for the IP-Adapter one more step,
+    profiled; then one timed 20-step CFG-5 request with a reference image.
+    Returns the run's and the request's launches."""
+    from safetensors.torch import load_file
+
+    spec = ADAPTER_FAMILIES[family]
+    phase = f"{family}_trainer"
+    images = os.path.join(tmp, "images")
+    if not os.path.isdir(images):
+        _write_sdxl_images(images)
+    folder = images
+    if spec["referenced"]:
+        folder = os.path.join(tmp, "referenced")
+        _write_referenced_images(folder, images)
+    weights, shape = towers[family]
+    path, cuts = _adapter_train_config(tmp, family, _adapter_model(family, weights, shape),
+                                       folder, reduced=False)
+    out = _adapter_run(spec["entry"], path)
+    trainer = out["trainer"]
+    work = os.path.join(tmp, family)
+    with open(os.path.join(work, "logs", os.listdir(os.path.join(work, "logs"))[0])) as f:
+        losses = [r["train/loss"] for r in map(json.loads, f) if "train/loss" in r]
+    saved = os.listdir(os.path.join(work, "out"))
+    model = trainer.model.model
+    written = load_file(os.path.join(work, "out", saved[0])) if len(saved) == 1 else {}
+    if family == "ip_adapter":
+        model.load_adapter_state_dict(written)
+        loaded = model.adapter_state_dict()
+    else:
+        model.manager.load_adapter_state(written)
+        loaded = model.adapter_state_dict()
+    round_trip = loaded.keys() == written.keys() and all(
+        torch.equal(loaded[k], written[k]) for k in written)
+    expected = _adapter_params(family, [n for n, _ in
+                                        trainer.model.trainable().named_parameters()])
+    if family == "ip_adapter":
+        # where an adapter step's time goes: one step more, outside the timed
+        # ones, profiled as the QLoRA step is
+        batch = trainer.model.prepare_batch(next(iter(trainer.train_dataset)))
+        profile(f"{phase}_step", lambda: trainer.train_step(batch, trainer._next_generator()))
+
+    # the request: 20 steps, CFG 5, 1024^2, a reference image
+    reference = {"ip_adapter": "reference_images", "prompt_free": "reference_image"}[family]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    image = model.generate(SDXL_PROMPT[0], negative_prompt=SDXL_PROMPT[1], width=SDXL_SIDE,
+                           height=SDXL_SIDE, num_inference_steps=SDXL_STEPS,
+                           cfg_scale=SDXL_CFG, seed=1, max_token_length=SDXL_TOKENS,
+                           **{reference: _reference_image(7)})
+    torch.cuda.synchronize()
+    request_s = time.perf_counter() - t0
+    request = _counts()
+    pixels = np.asarray(image[0], dtype=np.float32)
+    timed = out["step_seconds"][1:]
+    emit(phase, entry=f"train.sdxl.{spec['entry']}", config=SDXL_TRAIN_CONFIGS["lora"]["path"],
+         cuts=cuts, tower=spec["tower"], tower_shape=shape, resolution=SDXL_SIDE, batch=2,
+         optimizer=trainer.config.optimizer.name,
+         gradient_checkpointing=trainer.config.trainer.gradient_checkpointing,
+         steps=trainer.global_step, run_seconds=out["seconds"],
+         step_seconds=out["step_seconds"], seconds_per_step_2_to_4=sum(timed) / max(len(timed), 1),
+         peak_memory_bytes=out["peak"], losses=losses, launches_per_step=out["per_step"],
+         expected_per_step=ADAPTER_STEP_LAUNCHES, run_launches=out["run_launches"],
+         trained_params=len(out["trained"]), changed_params=len(out["changed"]),
+         adapter_file_keys=len(written), adapter_file_round_trip=round_trip,
+         request_seconds_per_image=request_s,
+         request_peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         request_launches=request, request_expected=ADAPTER_REQUEST_LAUNCHES,
+         image_mean=float(pixels.mean()), image_std=float(pixels.std()))
+    check(trainer.global_step == SDXL_TRAIN_STEPS and len(losses) == SDXL_TRAIN_STEPS
+          and all(np.isfinite(losses)), f"{phase} losses {losses}")
+    check(out["per_step"] == [ADAPTER_STEP_LAUNCHES] * SDXL_TRAIN_STEPS,
+          f"{phase} launches per step {out['per_step']}, expected {ADAPTER_STEP_LAUNCHES}")
+    n_keys = 70 * 2 + 4 if family == "ip_adapter" else 2
+    check(len(written) == n_keys and round_trip,
+          f"{phase}: adapter file of {len(written)} tensors (expected {n_keys}), "
+          f"loaded back equal: {round_trip}")
+    check(out["trained"] == expected and out["changed"] == expected and len(expected) == n_keys,
+          f"{phase}: trained {len(out['trained'])}, changed {len(out['changed'])} parameters "
+          f"(first others: {sorted(out['changed'] ^ expected)[:3]}), expected {n_keys}")
+    check(request == ADAPTER_REQUEST_LAUNCHES,
+          f"{phase} request launches {request}, expected {ADAPTER_REQUEST_LAUNCHES}")
+    check(pixels.shape == (SDXL_SIDE, SDXL_SIDE, 3) and pixels.std() > 1.0,
+          f"{phase}: the image is {pixels.shape}, std {pixels.std():.3g}")
+    launches = {phase: out["run_launches"], f"{family}_request": request}
+    del trainer, model, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+# a reduced-depth step (sdxl_parity's depth, 512^2, per-layer recompute as
+# the config ships it): stage 2's 3 self-attentions at S 1024 take #7 in the
+# forward and the recompute, #8 in the backward of the last 2
+ADAPTER_REDUCED_STEP_LAUNCHES = _expect({7: 6, 8: 2})
+
+
+def phase_adapter_entry_points(tmp: str, towers: dict) -> dict[str, tuple[int, ...]]:
+    """The other entry points (``ip_adapter_self``, ``ip_adapter_kyara``,
+    ``prompt_free_ref``) one step each on the card at sdxl_parity's depth,
+    512^2, over the full-size towers: launches, what changed, the file."""
+    from safetensors.torch import load_file
+
+    launches = {}
+    for family, spec in ADAPTER_FAMILIES.items():
+        weights, shape = towers[family]
+        for entry in spec["others"]:
+            folder = os.path.join(tmp, "referenced" if entry.endswith(("_ref", "_kyara"))
+                                  else "images")
+            path, cuts = _adapter_train_config(tmp, entry, _adapter_model(family, weights, shape),
+                                               folder, reduced=True)
+            out = _adapter_run(entry, path)
+            workload = out["trainer"].model
+            saved = os.listdir(os.path.join(tmp, entry, "out"))
+            written = load_file(os.path.join(tmp, entry, "out", saved[0])) if saved else {}
+            expected = _adapter_params(family, [n for n, _ in
+                                                workload.trainable().named_parameters()])
+            emit("adapter_entry_points", entry=f"train.sdxl.{entry}", cuts=cuts,
+                 step_seconds=out["step_seconds"], run_seconds=out["seconds"],
+                 peak_memory_bytes=out["peak"], launches_per_step=out["per_step"],
+                 expected_per_step=ADAPTER_REDUCED_STEP_LAUNCHES,
+                 drop_image_rate=workload.model_config.drop_image_rate,
+                 trained_params=len(out["trained"]), changed_params=len(out["changed"]),
+                 adapter_file_keys=len(written))
+            check(out["per_step"] == [ADAPTER_REDUCED_STEP_LAUNCHES],
+                  f"{entry} launches {out['per_step']}, expected {ADAPTER_REDUCED_STEP_LAUNCHES}")
+            check(out["trained"] == out["changed"] == expected and set(written) and
+                  {k.split(".", 1)[0] for k in written} <= {"ip_adapter", "image_proj",
+                                                          "projector"},
+                  f"{entry}: trained {len(out['trained'])}, changed {len(out['changed'])}, "
+                  f"expected {len(expected)}; file of {len(written)} tensors")
+            check(entry != "ip_adapter_kyara" or workload.model_config.drop_image_rate == 0.0,
+                  "ip_adapter_kyara drops images")
+            launches[entry] = out["run_launches"]
+            del out, workload
+            torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sdxl_adapter_parity(tmp: str, towers: dict) -> dict[str, tuple[int, ...]]:
+    """Card against CPU for each family at sdxl_lora_parity's model (512^2,
+    full widths, one layer and one transformer per stage) over the small
+    towers, batch 1 (the CPU's bf16 step is the phase's cost): one Self
+    training step from an image (injected VAE noise, timestep and noise; no
+    image dropped) under SDXL_LORA_PARITY_FLOOR with the card's plain
+    versions as the witness, and within ADAPTER_KERNEL_FLOOR of the card's
+    plain run, both failing the dropped-tile #7 / #8; its fp32 witness; a
+    2-step CFG-5 ``generate`` with a reference image from injected latents
+    and step noise within max(SDXL_PARITY_FLOOR["latents"], 1.5 x the card's
+    plain versions' error). Returns the card runs' launches."""
+    import importlib
+
+    import vision_pt_tpu_torch.ops.attention as attention
+    from vision_pt_tpu_torch.config import TrainConfig
+
+    phase = "sdxl_adapter_parity"
+    torch.set_num_threads(os.cpu_count() or 1)
+    side = PARITY_SIDE
+    rng = np.random.default_rng(13)
+    yy, xx = np.mgrid[0:side, 0:side] / side
+    image = np.stack([np.sin(3 * xx), np.cos(2 * yy), xx * yy - 0.5], -1)
+    batch = {"image": np.clip(image + rng.normal(0, 0.05, size=image.shape), -1, 1)
+             .astype(np.float32)[None],
+             "caption": ["1girl, solo, red hair, looking at viewer"],
+             "original_size": np.full((1, 2), side, np.int32),
+             "target_size": np.full((1, 2), side, np.int32),
+             "crop_coords_top_left": np.zeros((1, 2), np.int32)}
+    latent = (1, side // 8, side // 8, 4)
+    draws = {"vae_noise": torch.from_numpy(rng.normal(size=latent).astype(np.float32)),
+             "timesteps": torch.tensor([400], dtype=torch.int32),
+             "noise": torch.from_numpy(rng.normal(size=latent).astype(np.float32))}
+    init = rng.normal(size=latent).astype(np.float32)
+    step_noise = [rng.normal(size=latent).astype(np.float32) for _ in range(2)]
+    launches = {}
+    for family, spec in ADAPTER_FAMILIES.items():
+        module, name = spec["workload"].split(".")
+        workload_cls = getattr(importlib.import_module(
+            f"vision_pt_tpu_torch.workloads.{module}"), name)
+        weights, shape = towers[family]
+        model = {**_adapter_model(family, weights, shape), "drop_image_rate": 0.0}
+        raw = _parity_config("bfloat16", None, **model)
+        config = TrainConfig.model_validate(raw)
+        card = workload_cls(config, torch.device("cuda"))
+        card.setup_model()
+        n_grads = 7 * 2 + 4 if family == "ip_adapter" else 2
+        launches[f"{family}_parity_step"] = _parity_case(
+            phase, family, workload_cls, config, card, batch, draws,
+            ADAPTER_PARITY_LAUNCHES["step"], n_grads, kernel_floor=ADAPTER_KERNEL_FLOOR,
+            tower=spec["tower"], tower_shape=shape,
+            inputs="an image (the Self workload: its own reference), 75 tokens, "
+                   "injected VAE noise, timestep and noise, no image dropped")
+        witness = raw
+        if family == "ip_adapter":  # the adapters in fp32 too
+            witness = {**raw, "model": {**raw["model"], "adapter": {
+                **raw["model"]["adapter"], "dtype": "float32"}}}
+        _fp32_witness(phase, workload_cls, witness, card, batch, draws)
+
+        host = _host_twin(workload_cls, config, card)
+        reference = {"ip_adapter": "reference_images",
+                     "prompt_free": "reference_image"}[family]
+        outputs, counts = {}, {}
+        for label, pipeline, kernels in (("cuda", card.model, True),
+                                         ("cuda_plain", card.model, False),
+                                         ("cpu", host.model, True)):
+            opened = attention._on_cuda
+            attention._on_cuda = lambda x: kernels
+            _reset_counts()
+            t0 = time.perf_counter()
+            try:
+                out = pipeline.generate(
+                    prompt=batch["caption"], negative_prompt=[SDXL_PROMPT[1]], width=side,
+                    height=side, num_inference_steps=2, cfg_scale=SDXL_CFG, latents=init,
+                    step_noise=step_noise, return_latents=True,
+                    **{reference: _reference_image(3)})
+            finally:
+                attention._on_cuda = opened
+            outputs[label] = (out.float().cpu().numpy(), time.perf_counter() - t0)
+            counts[label] = _counts()
+        err = _rel_l2(outputs["cuda"][0], outputs["cpu"][0])
+        plain_err = _rel_l2(outputs["cuda_plain"][0], outputs["cpu"][0])
+        floor = max(SDXL_PARITY_FLOOR["latents"], SDXL_LORA_PARITY_FLOOR["witness"] * plain_err)
+        emit(phase, case=f"{family}_generate", resolution=side, steps=2, cfg=SDXL_CFG,
+             latents_rel_l2=err, witness_rel_l2=plain_err,
+             card_vs_plain=_rel_l2(outputs["cuda"][0], outputs["cuda_plain"][0]),
+             floor=floor, launches_cuda=counts["cuda"],
+             launches_cuda_plain=counts["cuda_plain"], launches_cpu=counts["cpu"],
+             seconds_cuda=outputs["cuda"][1], seconds_cpu=outputs["cpu"][1])
+        check(np.isfinite(outputs["cuda"][0]).all(), f"non-finite {family} latents")
+        check(counts["cuda"] == ADAPTER_PARITY_LAUNCHES["generate"]
+              and counts["cuda_plain"] == counts["cpu"] == _expect({}),
+              f"{family} generate launches {counts}")
+        check(err <= floor, f"{family} generate card-vs-CPU latents {err:.3g} over {floor:.3g}")
+        launches[f"{family}_parity_generate"] = counts["cuda"]
+        del card, host
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_adapters(tmp: str) -> dict[str, tuple[int, ...]]:
+    """The IP-Adapter and PFG phases over towers written once: the two
+    full-width trainers, the other entry points, the parity phase."""
+    t0 = time.perf_counter()
+    full = {"ip_adapter": ("clip", CLIP_L14), "prompt_free": ("timm", VIT_B16_448)}
+    towers, small = {}, {}
+    for family, (kind, shape) in full.items():
+        suffix = "" if kind == "clip" else ".safetensors"
+        towers[family] = (_write_tower(os.path.join(tmp, f"{kind}{suffix}"), kind, shape,
+                                       seed=3), shape)
+        small[family] = (_write_tower(os.path.join(tmp, f"{kind}_small{suffix}"), kind,
+                                      SMALL_TOWERS[kind], seed=4), SMALL_TOWERS[kind])
+    emit("vision_towers", seconds=time.perf_counter() - t0,
+         bytes={f: sum(os.path.getsize(os.path.join(d, n)) for d, _, files in os.walk(p)
+                       for n in files) if os.path.isdir(p) else os.path.getsize(p)
+                for f, (p, _) in towers.items()},
+         shapes={f: s for f, (_, s) in towers.items()}, small=SMALL_TOWERS)
+    launches = {}
+    for family in ADAPTER_FAMILIES:
+        launches.update(phase_adapter_trainer(tmp, family, towers))
+    launches.update(phase_adapter_entry_points(tmp, towers))
+    launches.update(phase_sdxl_adapter_parity(tmp, small))
+    return launches
+
+
 def main(args: list[str]) -> int:
     if args not in ([], ["--kernels-only"]):
         print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
@@ -3607,6 +4149,8 @@ def main(args: list[str]) -> int:
             launches[f"sdxl_{label}_trainer"] = phase_sdxl_trainer(tmp, label)
     phase_sdxl_lora_parity()
     launches.update(phase_sdxl_flow_match_parity())
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(phase_adapters(tmp))
     launches["optimizers"] = phase_optimizers()
     launches.update(phase_cogview4_sampler())
     phase_cogview4_parity()

@@ -1,6 +1,7 @@
-"""Image transforms of the class-image and text-image datasets (the port's
-own copy of the part of ``vision_pt_tpu/data/transforms.py`` they use),
-PIL + NumPy. Images flow as NumPy float32 HWC in [-1, 1]."""
+"""Image transforms of the class-image, text-image and referenced datasets
+and of the image-conditioned pipelines (the port's own copy of the part of
+``vision_pt_tpu/data/transforms.py`` they use), PIL + NumPy. Images flow as
+NumPy float32 HWC in [-1, 1]."""
 
 from __future__ import annotations
 
@@ -59,3 +60,32 @@ def random_crop(arr: np.ndarray, height: int, width: int,
     top = int(rng.integers(0, max(h - height, 0) + 1))
     left = int(rng.integers(0, max(w - width, 0) + 1))
     return arr[top : top + height, left : left + width], (top, left)
+
+
+class PaddedResize:
+    """Letterbox to a ``max_size`` square: scale the long side to it
+    (bicubic) and centre the image on a ``fill`` background."""
+
+    def __init__(self, max_size: int, fill: int = 255):
+        self.max_size = max_size
+        self.fill = fill
+
+    def __call__(self, img: Image.Image) -> Image.Image:
+        w, h = img.size
+        scale = self.max_size / max(w, h)
+        new_w, new_h = int(round(w * scale)), int(round(h * scale))
+        img = img.resize((new_w, new_h), Image.Resampling.BICUBIC)
+        canvas = Image.new("RGB", (self.max_size, self.max_size),
+                           (self.fill, self.fill, self.fill))
+        canvas.paste(img, ((self.max_size - new_w) // 2, (self.max_size - new_h) // 2))
+        return canvas
+
+
+class ColorChannelSwap:
+    """Reorder the channels of an HWC array (RGB <-> BGR by default)."""
+
+    def __init__(self, swap: tuple[int, int, int] = (2, 1, 0)):
+        self.swap = swap
+
+    def __call__(self, arr: np.ndarray) -> np.ndarray:
+        return arr[..., list(self.swap)]

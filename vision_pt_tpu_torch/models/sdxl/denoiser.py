@@ -99,7 +99,10 @@ class CrossAttention(nn.Module):
         self.to_v = _linear(context_dim, inner, use_bias=False, **kw)
         self.to_out = _linear(inner, query_dim, **kw)
 
-    def forward(self, query, context, mask=None):
+    def forward(self, query, context, mask=None, time_embedding=None, **kwargs):
+        """``time_embedding`` and the ``cross_attention_kwargs`` (``kwargs``)
+        reach every ``attn2``; an image adapter in its place reads them, the
+        plain cross-attention ignores them."""
         b, s, _ = query.shape
         sk = context.shape[1]
         q = self.to_q(query).reshape(b, s, self.num_heads, self.head_dim)
@@ -152,9 +155,12 @@ class TransformerBlock(nn.Module):
         self.norm2 = LayerNorm(hidden_dim, **norm)
         self.norm3 = LayerNorm(hidden_dim, **norm)
 
-    def forward(self, hidden_states, context):
+    def forward(self, hidden_states, context, time_embedding=None,
+                cross_attention_kwargs=None):
         hidden_states = hidden_states + self.attn1(self.norm1(hidden_states))
-        hidden_states = hidden_states + self.attn2(self.norm2(hidden_states), context)
+        hidden_states = hidden_states + self.attn2(
+            self.norm2(hidden_states), context, time_embedding=time_embedding,
+            **(cross_attention_kwargs or {}))
         return hidden_states + self.ff(self.norm3(hidden_states))
 
 
@@ -177,12 +183,13 @@ class SpatialTransformer(nn.Module):
         ])
         self.proj_out = _linear(inner, in_channels, **kw)
 
-    def forward(self, hidden_states, context):
+    def forward(self, hidden_states, context, time_embedding=None,
+                cross_attention_kwargs=None):
         b, h, w, c = hidden_states.shape
         residual = hidden_states
         x = self.proj_in(self.norm(hidden_states).reshape(b, h * w, c))
         for block in self.transformer_blocks:
-            x = block(x, context)
+            x = block(x, context, time_embedding, cross_attention_kwargs)
         x = self.proj_out(x)
         return x.reshape(b, h, w, self.inner_dim) + residual
 
@@ -265,20 +272,25 @@ class DownBlocksOutput(NamedTuple):
     skip_connections: list[torch.Tensor]
 
 
-def _apply_layer(layer, hidden_states, context, global_embedding):
+def _apply_layer(layer, hidden_states, context, global_embedding,
+                 time_embedding=None, cross_attention_kwargs=None):
     if isinstance(layer, ResidualBlock):
         return layer(hidden_states, global_embedding)
     if isinstance(layer, SpatialTransformer):
-        return layer(hidden_states, context)
+        return layer(hidden_states, context, time_embedding, cross_attention_kwargs)
     return layer(hidden_states)  # conv stem / Downsample / Upsample
 
 
-def _apply_layer_remat(layer, hidden_states, context, global_embedding):
+def _apply_layer_remat(layer, hidden_states, context, global_embedding,
+                       time_embedding=None, cross_attention_kwargs=None):
     """Per-layer recompute, the JAX package's ``nnx.remat`` of each layer:
     the backward runs the layer's forward again instead of keeping its
-    activations (what fits 1024^2 training batches in memory)."""
+    activations (what fits 1024^2 training batches in memory). The
+    recompute sees the same time embedding and cross-attention kwargs (an
+    image adapter's tokens), and they take their gradients through it."""
     return checkpoint(_apply_layer, layer, hidden_states, context,
-                      global_embedding, use_reentrant=False)
+                      global_embedding, time_embedding, cross_attention_kwargs,
+                      use_reentrant=False)
 
 
 def _layer_fn(gradient_checkpointing: bool):
@@ -331,12 +343,14 @@ class DownBlocks(nn.Module):
         self.blocks = nn.ModuleList(nn.ModuleList(layers) for layers in blocks)
         self.gradient_checkpointing = False
 
-    def forward(self, hidden_states, context, global_embedding) -> DownBlocksOutput:
+    def forward(self, hidden_states, context, global_embedding, time_embedding=None,
+                cross_attention_kwargs=None) -> DownBlocksOutput:
         apply = _layer_fn(self.gradient_checkpointing)
         skips = []
         for layers in self.blocks:
             for layer in layers:
-                hidden_states = apply(layer, hidden_states, context, global_embedding)
+                hidden_states = apply(layer, hidden_states, context, global_embedding,
+                                      time_embedding, cross_attention_kwargs)
             skips.append(hidden_states)
         return DownBlocksOutput(hidden_states, skips)
 
@@ -357,10 +371,12 @@ class MidBlock(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.gradient_checkpointing = False
 
-    def forward(self, hidden_states, context, global_embedding):
+    def forward(self, hidden_states, context, global_embedding, time_embedding=None,
+                cross_attention_kwargs=None):
         apply = _layer_fn(self.gradient_checkpointing)
         for layer in self.blocks:
-            hidden_states = apply(layer, hidden_states, context, global_embedding)
+            hidden_states = apply(layer, hidden_states, context, global_embedding,
+                                  time_embedding, cross_attention_kwargs)
         return hidden_states
 
 
@@ -400,13 +416,15 @@ class UpBlocks(nn.Module):
         self.blocks = nn.ModuleList(nn.ModuleList(layers) for layers in blocks)
         self.gradient_checkpointing = False
 
-    def forward(self, hidden_states, context, global_embedding, skip_connections):
+    def forward(self, hidden_states, context, global_embedding, skip_connections,
+                time_embedding=None, cross_attention_kwargs=None):
         apply = _layer_fn(self.gradient_checkpointing)
         skips = list(skip_connections)
         for layers in self.blocks:
             hidden_states = torch.cat([hidden_states, skips.pop()], dim=-1)
             for layer in layers:
-                hidden_states = apply(layer, hidden_states, context, global_embedding)
+                hidden_states = apply(layer, hidden_states, context, global_embedding,
+                                      time_embedding, cross_attention_kwargs)
         return hidden_states
 
 
@@ -487,14 +505,17 @@ class UNet(nn.Module):
         original_size: torch.Tensor,  # (B, 2)
         target_size: torch.Tensor,  # (B, 2)
         crop_coords_top_left: torch.Tensor,  # (B, 2)
+        cross_attention_kwargs: dict | None = None,
     ) -> torch.Tensor:
-        _, global_cond = self.prepare_global_condition(
+        """``cross_attention_kwargs`` (an image adapter's ``ip_tokens``,
+        ``ip_mask``) and the time embedding reach every ``attn2``."""
+        time_embed, global_cond = self.prepare_global_condition(
             timestep, encoder_pooler_output, original_size, target_size,
             crop_coords_top_left, latents.dtype)
-        context = encoder_hidden_states
-        h, skips = self.input_blocks(latents, context, global_cond)
-        h = self.middle_block(h, context, global_cond)
-        h = self.output_blocks(h, context, global_cond, skips)
+        context, kw = encoder_hidden_states, cross_attention_kwargs
+        h, skips = self.input_blocks(latents, context, global_cond, time_embed, kw)
+        h = self.middle_block(h, context, global_cond, time_embed, kw)
+        h = self.output_blocks(h, context, global_cond, skips, time_embed, kw)
         return self.out_conv(F.silu(self.out_norm(h)))
 
     def set_gradient_checkpointing(self, enable: bool):

@@ -212,11 +212,17 @@ class SDXLModel:
         latents: torch.Tensor | np.ndarray | None = None,  # initial, NHWC
         step_noise: list | np.ndarray | None = None,  # per step, NHWC
         return_latents: bool = False,
+        cross_attention_kwargs: dict | None = None,
+        extra_context_tokens: torch.Tensor | None = None,
     ) -> list[Image.Image] | torch.Tensor:
         """Euler-ancestral sampling with CFG. ``latents`` and ``step_noise``
         replace the seeded draws (the initial latents, already scaled by the
         largest sigma, and each step's ancestral noise); otherwise the step
-        noise comes from one generator seeded with ``seed``."""
+        noise comes from one generator seeded with ``seed``.
+        ``cross_attention_kwargs`` go to every UNet call (an IP-Adapter's
+        ``ip_tokens``); ``extra_context_tokens`` are appended to the text
+        context (PFG's image tokens). Both are batched as the context is,
+        [positive; negative] under CFG."""
         do_cfg = cfg_scale > 1.0
         timesteps, sigmas = self.prepare_timesteps(num_inference_steps)
         batch_size = len(prompt) if isinstance(prompt, list) else 1
@@ -233,6 +239,9 @@ class SDXLModel:
             seed=seed, latents=latents)
         ehs, pooled = self.prepare_encoder_hidden_states(encoder_output, do_cfg)
         ehs, pooled = ehs.to(execution_dtype), pooled.to(execution_dtype)
+        if extra_context_tokens is not None:
+            ehs = torch.cat([ehs, extra_context_tokens.to(self.device, execution_dtype)],
+                            dim=1)
         n = ehs.shape[0]
 
         def rows(pair):
@@ -249,7 +258,8 @@ class SDXLModel:
             latent_in = self.scheduler.scale_model_input(latent_in, sigma)
             t_batch = torch.full((latent_in.shape[0],), float(t),
                                  dtype=torch.float32, device=self.device)
-            noise_pred = self.denoiser(latent_in, t_batch, ehs, pooled, osz, tsz, crop)
+            noise_pred = self.denoiser(latent_in, t_batch, ehs, pooled, osz, tsz, crop,
+                                       cross_attention_kwargs)
             if do_cfg:
                 pos_pred, neg_pred = noise_pred.float().chunk(2)
                 noise_pred = neg_pred + scale * (pos_pred - neg_pred)

@@ -51,7 +51,8 @@ class Conv2d(nn.Module):
     or ((top, bottom), (left, right))."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 padding: int | tuple = 0, *, dtype: torch.dtype | None = None,
+                 padding: int | tuple = 0, *, use_bias: bool = True,
+                 dtype: torch.dtype | None = None,
                  param_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None,
                  std: float | None = None):
@@ -65,16 +66,16 @@ class Conv2d(nn.Module):
         self.pad = (top, left) if self.symmetric else (left, right, top, bottom)
         self.weight = nn.Parameter(
             torch.empty(cout, cin, kernel, kernel, dtype=param_dtype))
-        self.bias = nn.Parameter(torch.zeros(cout, dtype=param_dtype))
+        self.bias = (nn.Parameter(torch.zeros(cout, dtype=param_dtype))
+                     if use_bias else None)
         _init_(self.weight, cin * kernel * kernel, std, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         x = x.to(dt).permute(0, 3, 1, 2)
+        bias = self.bias.to(dt) if self.bias is not None else None
         if self.symmetric:
-            y = F.conv2d(x, self.weight.to(dt), self.bias.to(dt), self.stride,
-                         self.pad)
+            y = F.conv2d(x, self.weight.to(dt), bias, self.stride, self.pad)
         else:
-            y = F.conv2d(F.pad(x, self.pad), self.weight.to(dt), self.bias.to(dt),
-                         self.stride)
+            y = F.conv2d(F.pad(x, self.pad), self.weight.to(dt), bias, self.stride)
         return y.permute(0, 2, 3, 1)

@@ -4,10 +4,13 @@ computed in float32 and the result is cast back to the input dtype."""
 
 from __future__ import annotations
 
-from typing import Literal
+from typing import Literal, NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from .linear import Linear
 
 NormType = Literal["layer", "rms", "dyt", "derf"]
 
@@ -103,6 +106,42 @@ class DerfNorm(nn.Module):
         if self.weight is not None:
             y = y * self.weight + self.bias
         return y.to(x.dtype)
+
+
+class AdaLayerNormZeroOutput(NamedTuple):
+    hidden_states: torch.Tensor
+    scale: torch.Tensor
+    shift: torch.Tensor
+    gate: torch.Tensor
+
+
+class SingleAdaLayerNormZero(nn.Module):
+    """AdaLN-Zero: SiLU(time embedding) -> Linear -> (scale, shift) applied
+    to the affine-free fp32 LayerNorm of the hidden states, and a separate
+    Linear gate. Both projections start at zero, so the block starts as
+    identity."""
+
+    def __init__(self, hidden_dim: int, gate_dim: int, embedding_dim: int, *,
+                 param_dtype: torch.dtype = torch.float32,
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        self.norm = FP32LayerNorm(hidden_dim, elementwise_affine=False, eps=1e-6)
+        self.scale_shift = Linear(embedding_dim, 2 * hidden_dim, dtype=dtype,
+                                  param_dtype=param_dtype)
+        self.gate = Linear(embedding_dim, gate_dim, dtype=dtype,
+                           param_dtype=param_dtype)
+        with torch.no_grad():
+            for linear in (self.scale_shift, self.gate):
+                linear.weight.zero_()
+
+    def forward(self, hidden_states: torch.Tensor,
+                time_embed: torch.Tensor) -> AdaLayerNormZeroOutput:
+        normed = self.norm(hidden_states)
+        t = F.silu(time_embed)
+        scale, shift = self.scale_shift(t).chunk(2, dim=-1)
+        gate = self.gate(t)
+        out = normed * (1.0 + scale[:, None, :]) + shift[:, None, :]
+        return AdaLayerNormZeroOutput(out.to(hidden_states.dtype), scale, shift, gate)
 
 
 def _fast_stats(x32, dims):

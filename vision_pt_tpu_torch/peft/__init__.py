@@ -3,6 +3,7 @@
 
 from .config import LoHaConfig, LoRAConfig, PeftConfigMixin, PeftTargetConfig, RegexMatch
 from .functional import (
+    AdapterParam,
     PeftLayer,
     adapter_parameters,
     calculate_trainable_parameters,
@@ -12,6 +13,7 @@ from .functional import (
     load_peft_weight,
     print_trainable_parameters,
     replace_to_peft_layer,
+    retype_to_adapter_params,
     set_peft_layer_enabled,
     while_peft_disabled,
     while_peft_enabled,
@@ -20,6 +22,7 @@ from .loha import LoHaLinear
 from .lora import LoRALinear
 
 __all__ = [
+    "AdapterParam",
     "LoRAConfig",
     "LoHaConfig",
     "LoHaLinear",
@@ -36,6 +39,7 @@ __all__ = [
     "load_peft_weight",
     "print_trainable_parameters",
     "replace_to_peft_layer",
+    "retype_to_adapter_params",
     "set_peft_layer_enabled",
     "while_peft_disabled",
     "while_peft_enabled",

@@ -7,7 +7,8 @@ the JAX package's paths for the port's modules (``nnx.List`` indices and
 package trains adapters by differentiating with respect to
 ``AdapterParam``; here :func:`freeze_all_but_adapters` clears
 ``requires_grad`` on everything else and the optimizer takes
-:func:`adapter_parameters`.
+:func:`adapter_parameters`: those of the adapter layers and every
+:class:`AdapterParam` (the image adapters' and projectors').
 """
 
 from __future__ import annotations
@@ -105,10 +106,27 @@ def peft_layers(model: nn.Module) -> Iterator[tuple[str, PeftLayer]]:
             yield path, module
 
 
+class AdapterParam(nn.Parameter):
+    """A parameter that trains under PEFT besides the adapter layers' own
+    (the JAX package's ``AdapterParam``): an image adapter's projections and
+    gates, an image projector."""
+
+
+def retype_to_adapter_params(module: nn.Module) -> None:
+    """Retype every parameter of ``module`` to :class:`AdapterParam`."""
+    for mod in module.modules():
+        for name, p in list(mod.named_parameters(recurse=False)):
+            if not isinstance(p, AdapterParam):
+                setattr(mod, name, AdapterParam(p.data, p.requires_grad))
+
+
 def adapter_parameters(model: nn.Module) -> list[nn.Parameter]:
-    """The adapters' parameters, in module order (what the optimizer takes
-    under PEFT)."""
-    return [p for _, layer in peft_layers(model) for p in layer.adapter_parameters()]
+    """The adapter layers' parameters, in module order, then every
+    :class:`AdapterParam` (what the optimizer takes under PEFT)."""
+    out = [p for _, layer in peft_layers(model) for p in layer.adapter_parameters()]
+    seen = {id(p) for p in out}
+    return out + [p for p in model.parameters()
+                  if isinstance(p, AdapterParam) and id(p) not in seen]
 
 
 def freeze_all_but_adapters(model: nn.Module) -> None:

@@ -16,18 +16,26 @@ import click
 from ...config import TrainConfig
 from ...data.preview import TextToImagePreviewConfig
 from ...data.text_to_image import TextToImageDatasetConfig
+from ...training.model import ModelForTraining
 from ...training.trainer import Trainer
 from ...workloads.sdxl_text_to_image import SDXLForTextToImageTraining
 
 
-def run(config_path: str, device: str | None = None) -> Trainer:
-    """Train from a YAML config; returns the finished Trainer."""
+def train(config_path: str, device: str | None, workload: type[ModelForTraining],
+          dataset: type = TextToImageDatasetConfig) -> Trainer:
+    """Train ``workload`` on ``dataset`` from a YAML config; returns the
+    finished Trainer. The other SDXL entry points call it too."""
     trainer = Trainer(TrainConfig.from_config_file(config_path), device=device)
-    trainer.register_train_dataset_class(TextToImageDatasetConfig)
+    trainer.register_train_dataset_class(dataset)
     trainer.register_preview_dataset_class(TextToImagePreviewConfig)
-    trainer.register_model_class(SDXLForTextToImageTraining)
+    trainer.register_model_class(workload)
     trainer.train()
     return trainer
+
+
+def run(config_path: str, device: str | None = None) -> Trainer:
+    """Train from a YAML config; returns the finished Trainer."""
+    return train(config_path, device, SDXLForTextToImageTraining)
 
 
 @click.command()

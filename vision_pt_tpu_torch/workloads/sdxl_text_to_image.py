@@ -124,9 +124,12 @@ class SDXLForTextToImageTraining(ModelForTraining):
         draws = {}
         if "latents" not in batch:
             draws["vae_noise"] = torch.randn(shape, generator=generator, device=device)
-        draws["timesteps"] = uniform_randint(generator, shape[0], 0, 1000, device=device)
+        draws["timesteps"] = self.sample_timesteps(generator, shape[0])
         draws["noise"] = torch.randn(shape, generator=generator, device=device)
         return draws
+
+    def sample_timesteps(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
+        return uniform_randint(generator, batch_size, 0, 1000, device=self.device)
 
     # ------------------------------------------------------------ loss
 
