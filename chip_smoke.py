@@ -4,7 +4,8 @@ its JiT variant trainers (U-JiT, Cross-JiT, IG, LoIG, TREAD) and the x-loss
 config, its latent-cache tool and latent JiT 1024^2 trainer, its SDXL 1024^2
 text-to-image sampler (bf16 and NF4), LoRA / QLoRA and flow-match trainers,
 its IP-Adapter and PFG (prompt-free) trainers and samplers over CLIP and
-timm vision towers, its optax optimizers and int8 training linears, its
+timm vision towers, its RoPE-distillation, DRaFT+ and style-tokenizer
+trainers, its optax optimizers and int8 training linears, its
 CogView4-6B 1024^2 sampler (bf16, NF4, int8, layer-group offload), its ``short`` attention
 backend and its two attention probes, on one CUDA card.
 
@@ -63,8 +64,8 @@ without a result line:
 7. train_parity: one training step's loss and gradients, same weights, batch
    and injected draws, on the card (kernels) and on the CPU (plain versions
    of the same path), batch 2, in fp32, bf16 and fp16 (the fp16 loss scaled
-   by 2^12 before the backward: see LOSS_SCALE; fp16 at depth 5, see
-   FP16_PARITY_DEPTH), through ``tools.bench.step_parity``;
+   by 2^12 before the backward: see LOSS_SCALE; fp16 at depth 5, batch 1,
+   see FP16_PARITY_DEPTH), through ``tools.bench.step_parity``;
 8. parity: the same weights and injected noise through the sampler on the
    card (kernel) and on the CPU (plain versions), batch 1, CFG, 2 steps;
    PSNR at least 50 dB in fp32 (under ``attention_dtype(None)``) and 30 dB
@@ -87,8 +88,8 @@ without a result line:
    one epoch = 4 steps; exactly 48 flash forward, 24 flash backward and no
    packed launches per step; the last step runs under the profiler;
 10. latent_parity: one training step of the latent workload at full width,
-   depth cut to 6 (fp16: 1), a 64 x 64 latent (S = 1098, still the flash
-   path), batch 2, on the card (kernels) and on the CPU (plain versions),
+   depth cut to 2 (fp16: 1, batch 1), a 64 x 64 latent (S = 1098, still the
+   flash path), batch 2, on the card (kernels) and on the CPU (plain versions),
    fp32, bf16 and fp16, against the train_parity floors;
 11. sdxl_sampler: SDXL-base at full width (UNet 320/640/1280, context 2048,
    CLIP-L + bigG, the VAE), random weights from a seed, built on the card,
@@ -132,23 +133,25 @@ without a result line:
    8, RAdamScheduleFree and recompute as shipped, its 16-step CFG-4 preview
    as shipped; cut as sdxl_lora_trainer; 140 launches of #7 and 70 of #8 a
    step, 16 x 70 of #7 in the preview, a LoRA file of 2,100 tensors;
-17. sdxl_lora_parity: one LoRA training step (nonzero lora_up, cached latents,
-   injected draws) of sdxl_parity's model at 512^2, card (kernels) against
+17. sdxl_lora_parity: one LoRA training step (nonzero lora_up, a cached
+   latent, batch 1: SDXL_LORA_PARITY_CUT, injected draws) of sdxl_parity's
+   model at 512^2, card (kernels) against
    CPU (plain versions), bf16, then with the UNet NF4: the loss within 2e-2
    and every LoRA gradient within 1e-1 relative L2, or within 1.5 times the
    witness's error (the card's plain versions against the CPU) where bf16
    alone puts it further (SDXL_LORA_PARITY_FLOOR); 3 + 3 flash launches, and
-   54 of #9 under NF4; the floors must fail the same step with #7 / #8
+   84 of #9 under NF4; the floors must fail the same step with #7 / #8
    dropping the last key tile, and with #9's scale row 3 25% off; then the
    bf16 step's fp32 witness: the same weights and adapters in fp32 on the
    card (kernels) and the CPU, attention in fp32, TF32 off, every gradient
    within 1e-3 (SDXL_FP32_WITNESS_FLOOR), its relative L2 printed;
 17b. sdxl_flow_match_parity: sdxl_lora_parity's model with the flow-match
-   config's LoRA, from images with injected VAE noise, timesteps and noise:
+   config's LoRA, from an image (batch 1, FLOW_MATCH_PARITY_CUT) with
+   injected VAE noise, timestep and noise:
    the LoRA step under sdxl_lora_parity's floors and wrong kernels, a 2-step
    CFG ``SDXLFlowMatch.generate`` from injected latents within 7.5e-2
    relative L2 (6 launches of #7), the step's fp32 witness, and the step
-   with LoHa adapters over the UNet NF4 (54 launches of #9);
+   with LoHa adapters over the UNet NF4 (84 launches of #9);
 17d. cogview4_sampler: CogView4-6B at full width (the 28-layer DiT, 32 x
    128 heads; the 40-layer GLM-4-9B text tower; the 16-channel VAE), random
    weights from seed 0 drawn on the card, bf16 parameters and compute, the
@@ -199,6 +202,28 @@ without a result line:
    reference image from injected latents and step noise within
    max(7.5e-2, 1.5 x the card's plain versions' error) relative L2 (6
    launches of #7);
+17i. slice14_towers, rope_distill_trainer, draft_plus_trainer,
+   style_tokenizer_trainer (after sdxl_adapter_parity): towers written once
+   (PickScore_v1's CLIP-H/14 shape as an HF CLIP directory, fp16, random
+   from a seed; the ViT-B/16-448 timm file); ``train.sdxl.rope_distill``,
+   ``draft_plus`` and ``style_tokenizer`` on
+   ``configs/sdxl/text_to_image_lora.yml``'s trainer settings (its LoRA for
+   the first two, none for the style tokenizer) at SDXL-base's full width
+   and depth, 1024^2, batch 2, 3 steps (steps 2-3 timed): RoPE distillation
+   with the workload's defaults (#7 240, #8 80 a step; a 2-step preview, 140),
+   DRaFT+ over the PickScore tower (25 sampler steps, truncation 1, CFG 5:
+   #7 1,890, #8 70 a step; its first, untimed step profiled, device-only), the style
+   tokenizer's StyleTokenizerConfig() over the timm tower on the referenced
+   images with ``<|style|>`` in every caption (#7 140, #8 70; a 2-step
+   preview with a reference image, 140); exactly the LoRA tensors (or the 4
+   projector tensors) changed, the reward towers and the vision tower not,
+   the logged metrics finite, the student unlike its teacher;
+17j. sdxl_slice14_parity: the three workloads' steps at sdxl_lora_parity's
+   model, 512^2, batch 1, card (kernels) against CPU under
+   SDXL_LORA_PARITY_FLOOR with the card's plain versions as the witness, and
+   against the card's plain run within SLICE_KERNEL_FLOOR (RoPE, style), the
+   dropped-tile #7 / #8 failing them; each step's fp32 witness within 1e-3
+   (DRaFT+: 5e-3, SLICE_WITNESS_FLOOR);
 17c. optimizers: prodigy, lion, adafactor, rmsprop and adagrad 20 steps on
    the same numpy-made parameters (a linear, a conv, a bias, two weights
    adafactor factors) and gradients, card against CPU within 1e-5 relative
@@ -252,8 +277,10 @@ two calls at M 64 and 154 must give the same bits; the QLoRA trainer's M 454
 and the NF4 CogView4 sampler's (M 32; K 4096, N 16384 and K 16384, N 4096)
 are held too. tread_timing times #1 (with its lse) and #2 at TREAD's
 unrouted blocks (B 16, S 330, suffix kv_lens of 267-270), beside SDPA with
-the equivalent boolean key mask, bounded by the valid key rows. Phase 3 also times kernels #7 and #8 at SDXL's two
-self-attention shapes and #7 at CogView4's (B 2, S 4112, 32 x 128), and
+the equivalent boolean key mask, bounded by the valid key rows. Phase 3
+also times kernels #7 and #8 at SDXL's two self-attention shapes and #7 at
+CogView4's (B 2, S 4112, 32 x 128), #7 and #8 at RoPE distillation's low-res
+shape (B 2, S 1024, 10 heads), and
 nf4_timing times kernel #9 at the sampler's, the QLoRA trainer's and the
 CogView4 sampler's shapes and at the JAX package's bench shape (M 64, K =
 N = 8192), beside F.linear on the weight dequantized beforehand.
@@ -558,6 +585,8 @@ FLASH_CASES = [
     # the SDXL sampler's self-attentions at 1024^2 (B 2 with CFG)
     ("sdxl_s4096", 2, 4096, 4096, 10, 64, torch.bfloat16, False, None),
     ("sdxl_s1024", 2, 1024, 1024, 20, 64, torch.bfloat16, False, None),
+    # RoPE distillation's low-res pass (512^2): stage 2's 10 heads at S 1024
+    ("sdxl_lowres_s1024", 2, 1024, 1024, 10, 64, torch.bfloat16, False, None),
     # the CogView4 sampler's joint self-attention at 1024^2 (B 2 with CFG):
     # 4096 image + 16 text tokens, a partial last key and query tile of 16
     ("cogview4_s4112", 2, 4112, 4112, 32, 128, torch.bfloat16, False, None),
@@ -822,10 +851,12 @@ FLASH_BWD_PRODUCTS = 7
 # kernels #7 and #8's timed shapes (bf16, no kv_lens; label, B, S, H, D,
 # whether #8 is timed too): the latent trainer's, the SDXL sampler's and
 # trainer's two self-attentions at 1024^2 (B 2: CFG, or the training batch),
-# and the CogView4 sampler's joint attention (forward only: no trainer)
+# RoPE distillation's low-res pass at 512^2 (stage 2: S 1024, 10 heads), and
+# the CogView4 sampler's joint attention (forward only: no trainer)
 FLASH_TIMING_SHAPES = (("latent", LATENT_BATCH, 4106, 12, 64, True),
                        ("sdxl_s4096", 2, 4096, 10, 64, True),
                        ("sdxl_s1024", 2, 1024, 20, 64, True),
+                       ("sdxl_lowres_s1024", 2, 1024, 10, 64, True),
                        ("cogview4_s4112", 2, 4112, 32, 128, False))
 
 
@@ -986,7 +1017,11 @@ def profile(path: str, run):
     """Where the device time of one run of ``path`` goes (torch.profiler,
     the device traced alone: with the host's ops too, the profiler's own
     processing took 3-55 s a profile and ≈ 170 s of a whole run, which then
-    ended 30 s short of its 1,200 s limit); returns what the run returns."""
+    ended 30 s short of its 1,200 s limit); returns what the run returns.
+    The kernels are summed from the profiler's raw results: its own parse
+    into events (``key_averages``) took up to a minute for a step of tens of
+    thousands of kernels."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -994,25 +1029,27 @@ def profile(path: str, run):
         result = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    averages = prof.key_averages()
-    # device events less the ranges of annotated regions on the device's
-    # timeline (e.g. "Optimizer.step#...", which spans the whole update)
-    kernels = [e for e in averages
-               if e.device_type.name == "CUDA" and e.device_time_total > 0
-               and not e.is_user_annotation]
-    device_us = sum(e.device_time_total for e in kernels)
+    # device kernels by name, less the ranges of annotated regions on the
+    # device's timeline (e.g. "Optimizer.step#...", which spans the update)
+    kernels: dict[str, list] = {}
+    for event in prof.profiler.kineto_results.events():
+        if event.device_type() != DeviceType.CUDA or event.is_user_annotation():
+            continue
+        if event.duration_ns() > 0:
+            total = kernels.setdefault(event.name(), [0, 0])
+            total[0] += event.duration_ns()
+            total[1] += 1
+    device_ns = sum(ns for ns, _ in kernels.values())
 
-    def rows(events, attr, n):
-        top = sorted(events, key=lambda e: -getattr(e, attr))[:n]
-        return [{"name": e.key[:60], "device_ms": getattr(e, attr) / 1e3,
-                 "count": e.count} for e in top]
+    def rows(names, n):
+        top = sorted(names, key=lambda name: -kernels[name][0])[:n]
+        return [{"name": name[:60], "device_ms": kernels[name][0] / 1e6,
+                 "count": kernels[name][1]} for name in top]
 
-    emit("profile", path=path, wall_seconds=wall,
-         device_kernel_seconds=device_us / 1e6,
-         device_busy_share=(device_us / 1e6) / wall,
-         port_kernels=rows([e for e in kernels if PORT_KERNEL.search(e.key)],
-                           "device_time_total", 8),
-         top_kernels=rows(kernels, "device_time_total", 8))
+    emit("profile", path=path, wall_seconds=wall, device_kernel_seconds=device_ns / 1e9,
+         device_busy_share=(device_ns / 1e9) / wall,
+         port_kernels=rows([k for k in kernels if PORT_KERNEL.search(k)], 8),
+         top_kernels=rows(kernels, 8))
     return result
 
 
@@ -1213,19 +1250,24 @@ def _step_parity(phase: str, model: str, label2id: str, cases, **fields) -> None
         summary,
     )
 
-    for dtype, depth, launches in cases:
+    for dtype, depth, launches, *cut in cases:
         results = {}
+        batch = 1 if dtype == "float16" else 2
         for device in ("cuda", "cpu"):
             _reset_counts()
             results[device] = (step(model, dtype, device, label2id,
                                     loss_scale=LOSS_SCALE.get(dtype, 1.0),
-                                    depth=depth),
+                                    depth=depth, batch=batch),
                                _counts())
         (card, counts_c), (host, counts_h) = results["cuda"], results["cpu"]
         loss_err = abs(card.loss - host.loss) / abs(host.loss)
         errors = summary(grad_errors(card.grads, host.grads))
         floor = TRAIN_PARITY_FLOOR[dtype]
-        emit(phase, dtype=dtype, batch=2, depth=depth, **fields,
+        if batch != 2:
+            seconds = FP16_BATCH2_CPU_SECONDS[model]
+            cut.append(f"batch 1, not 2: ≈ {seconds - host.seconds:.0f} s saved (the CPU "
+                       f"half {host.seconds:.0f} s, {seconds} s at batch 2)")
+        emit(phase, dtype=dtype, batch=batch, depth=depth, cuts=cut, **fields,
              loss_scale=LOSS_SCALE.get(dtype, 1.0), loss_cuda=card.loss,
              loss_cpu=host.loss, loss_rel_err=loss_err,
              grad_rel_l2_max=errors["max"], grad_rel_l2_median=errors["median"],
@@ -1243,18 +1285,24 @@ def _step_parity(phase: str, model: str, label2id: str, cases, **fields) -> None
         torch.cuda.empty_cache()
 
 
-# fp16 parity steps at reduced depth: the CPU side of an fp16 step takes
-# 150 s (JiT-B/16) and 300 s (latent, depth 6) on the card's host, whose CPU
-# has no fast fp16 matrix path (``tools.bench.step_parity`` runs them whole).
-# JiT needs a depth over context_start_block (4), or the class encoder gets
-# no gradient; 5 and 1 keep the whole run, CogView4 included, well inside
-# its limit (6 and 2 took 76 s and 123 s of CPU)
+# fp16 parity steps at reduced size: the card's host has no fast fp16 matrix
+# path (a 1024^3 product 2.98 s, bf16 0.013 s, measured on the host of one
+# NVIDIA H100 80GB HBM3 at 700 W), so the CPU side of an fp16 step took 150 s
+# (JiT-B/16) and 300 s (latent, depth 6). JiT needs a depth over
+# context_start_block (4), or the class encoder gets no gradient: depths 5
+# and 1, the least that keep each model's structure, and batch 1, the first
+# sample of the two (the fp32 and bf16 steps keep batch 2)
 FP16_PARITY_DEPTH = {"jit": 5, "latent": 1}
+# the fp16 CPU halves at batch 2 (seconds, on the same host): 75.4 and 87.3
+FP16_BATCH2_CPU_SECONDS = {"jit": 75, "latent": 87}
+# the latent fp32 and bf16 steps at 2 blocks, not 6 (their CPU halves
+# took 5 and 7 s at depth 6)
+LATENT_PARITY_DEPTH = 2
 
 
 def phase_train_parity(label2id: str) -> None:
     """One JiT-B/16 training step's loss and gradients on the card and on
-    the CPU (#1/#2 at S 298, blocks 0-3; fp16 at depth 5)."""
+    the CPU (#1/#2 at S 298, blocks 0-3; fp16 at depth 5, batch 1)."""
     launches = _expect({1: 4, 2: 4})
     _step_parity("train_parity", "jit", label2id,
                  [("float32", None, launches), ("bfloat16", None, launches),
@@ -1487,12 +1535,14 @@ def phase_latent_trainer(tmp: str) -> tuple[int, ...]:
 
 def phase_latent_parity(tmp: str) -> None:
     """One latent training step's loss and gradients on the card and on the
-    CPU: full width, depth 6 (fp16: 1), a 64 x 64 latent (S = 1098), batch 2
+    CPU: full width, depth 2 (fp16: 1, batch 1), a 64 x 64 latent (S = 1098),
+    batch 2
     (#7/#8, one launch each a block)."""
-    fp16 = FP16_PARITY_DEPTH["latent"]
+    fp16, depth = FP16_PARITY_DEPTH["latent"], LATENT_PARITY_DEPTH
+    cut = f"depth {depth}, not 6 (≈ 8 s saved)"
     _step_parity("latent_parity", "latent", os.path.join(tmp, "latent_label2id.json"),
-                 [("float32", 6, _expect({7: 6, 8: 6})),
-                  ("bfloat16", 6, _expect({7: 6, 8: 6})),
+                 [("float32", depth, _expect({7: depth, 8: depth}), cut),
+                  ("bfloat16", depth, _expect({7: depth, 8: depth}), cut),
                   ("float16", fp16, _expect({7: fp16, 8: fp16}))],
                  latent=[64, 64, 4])
 
@@ -1858,13 +1908,19 @@ SDXL_TRAIN_CONFIGS = {
 # transformers' attention and feed-forward linears and their projections)
 QLORA_QUANT_KEYS = ["attn1.", "attn2.", "ff.net.", "proj_in.", "proj_out."]
 # sdxl_lora_parity: sdxl_parity's model (full widths, one layer and one
-# transformer per stage) at 512^2 from cached latents, 75 tokens; a step
-# runs #7 / #8 in the level-2 self-attentions (S 1024: 1 down, 2 up) and,
-# NF4, #9 in the products of at most 1024 rows: the 7 cross-attentions'
-# to_k / to_v (2 x 77 rows) and the 40 other quantized products of the
-# level-3 and middle transformers (2 x 256 rows)
+# transformer per stage) at 512^2 from a cached latent, 75 tokens, batch 1;
+# a step runs #7 / #8 in the level-2 self-attentions (S 1024: 1 down, 2 up)
+# and, NF4, #9 in the products of at most 1024 rows: the 7 cross-attentions'
+# to_k / to_v (77 rows), the 40 other quantized products of the level-3 and
+# middle transformers (256 rows) and the 30 of the level-2 ones (1024 rows;
+# 2048 at batch 2, dense)
 SDXL_LORA_PARITY_LAUNCHES = {"bf16": _expect({7: 3, 8: 3}),
-                             "nf4": _expect({7: 3, 8: 3, 9: 54})}
+                             "nf4": _expect({7: 3, 8: 3, 9: 84})}
+# its model is sdxl_parity's depth already, so it is cut to the first of the
+# two samples it held: its CPU steps took 14, 5 (fp32 witness) and 17 s
+# (NF4) at batch 2 on an H100's host, 7, 3 and 7 s at batch 1
+SDXL_LORA_PARITY_CUT = "batch 1, not 2: ≈ 19 s saved over the three steps"
+
 # sdxl_lora_parity's floors, card against CPU: the loss within the bf16
 # training-step floor (2e-2); each LoRA gradient within 1e-1 relative L2 (the
 # bf16 training-step floor), or within 1.5 times the witness's error where
@@ -2098,8 +2154,9 @@ def _parity_step(workload, batch: dict, draws: dict, kernels: bool = True):
     attention._on_cuda = qlayers._on_cuda = lambda x: kernels
     t0 = time.perf_counter()
     try:
-        loss, _ = workload.compute_loss(
-            trainable, arrays, {k: v.to(workload.device) for k, v in draws.items()})
+        loss, _ = workload.compute_loss(trainable, arrays, {
+            k: [x.to(workload.device) for x in v] if isinstance(v, list)
+            else v.to(workload.device) for k, v in draws.items()})
         loss.backward()
     finally:
         attention._on_cuda, qlayers._on_cuda = gates
@@ -2133,6 +2190,11 @@ def _host_twin(workload_cls, config, card):
     host._is_peft = True
     if hasattr(card, "_drop_rng"):  # the image adapters' host-side draws
         host._drop_rng = copy.deepcopy(card._drop_rng)
+    if hasattr(card, "reward_models"):  # DRaFT+'s frozen reward towers
+        host.reward_models = copy.deepcopy(card.reward_models)
+        for reward in host.reward_models:
+            if getattr(reward, "model", None) is not None:
+                reward.model.to("cpu")
     return host
 
 
@@ -2164,10 +2226,10 @@ def _attach(card, peft: dict, seed: int = 1) -> None:
 
 
 def _fp32_witness(phase: str, workload_cls, config: dict, card, batch: dict,
-                  draws: dict) -> float:
+                  draws: dict, floor: float = SDXL_FP32_WITNESS_FLOOR) -> float:
     """The bf16 card workload's step in fp32 on the card (kernels) and on the
-    CPU, from the same weights and adapters; emits every gradient's relative
-    L2 and returns the largest."""
+    CPU, from the same weights and adapters, held to ``floor``; emits every
+    gradient's relative L2 and returns the largest."""
     from vision_pt_tpu_torch.config import TrainConfig
     from vision_pt_tpu_torch.ops.attention import attention_dtype
 
@@ -2201,12 +2263,12 @@ def _fp32_witness(phase: str, workload_cls, config: dict, card, batch: dict,
     emit(phase, case="fp32_witness", dtype="float32", attention_dtype=None,
          tf32=False, loss_cuda=run[0], loss_cpu=cpu[0], loss_rel_err=loss_err,
          grad_rel_l2_max=worst, grad_rel_l2_median=float(np.median(list(grad_err.values()))),
-         floor=SDXL_FP32_WITNESS_FLOOR, launches_cuda=run[2], grad_rel_l2=short,
+         floor=floor, launches_cuda=run[2], grad_rel_l2=short,
          seconds_cuda=run[3], seconds_cpu=cpu[3])
     check(np.isfinite(run[0]) and len(grad_err) > 0, f"{phase}: fp32 witness step")
-    check(worst <= SDXL_FP32_WITNESS_FLOOR and loss_err <= SDXL_FP32_WITNESS_FLOOR,
+    check(worst <= floor and loss_err <= floor,
           f"{phase}: the fp32 step's card-vs-CPU gap {worst:.3g} (loss {loss_err:.3g}) "
-          f"is over {SDXL_FP32_WITNESS_FLOOR}: a fault, not bf16 rounding")
+          f"is over {floor}: a fault, not bf16 rounding")
     del twin, host
     torch.cuda.empty_cache()
     return worst
@@ -2324,14 +2386,14 @@ def phase_sdxl_lora_parity() -> None:
     config = TrainConfig.model_validate(raw)
     rng = np.random.default_rng(6)
     latent = (2, PARITY_SIDE // 8, PARITY_SIDE // 8, 4)
-    batch = {"latents": rng.normal(size=latent).astype(np.float32),
-             "caption": ["1girl, solo, red hair, looking at viewer",
-                         "a red fox in the snow, detailed fur"],
-             "original_size": np.full((2, 2), PARITY_SIDE, np.int32),
-             "target_size": np.full((2, 2), PARITY_SIDE, np.int32),
-             "crop_coords_top_left": np.zeros((2, 2), np.int32)}
-    draws = {"timesteps": torch.tensor([150, 700], dtype=torch.int32),
-             "noise": torch.from_numpy(rng.normal(size=latent).astype(np.float32))}
+    # the first of the two samples (SDXL_LORA_PARITY_CUT)
+    batch = {"latents": rng.normal(size=latent).astype(np.float32)[:1],
+             "caption": ["1girl, solo, red hair, looking at viewer"],
+             "original_size": np.full((1, 2), PARITY_SIDE, np.int32),
+             "target_size": np.full((1, 2), PARITY_SIDE, np.int32),
+             "crop_coords_top_left": np.zeros((1, 2), np.int32)}
+    draws = {"timesteps": torch.tensor([150], dtype=torch.int32),
+             "noise": torch.from_numpy(rng.normal(size=latent).astype(np.float32)[:1])}
     card = SDXLForTextToImageTraining(config, torch.device("cuda"))
     card.setup_model()
     for label in ("bf16", "nf4"):
@@ -2342,7 +2404,8 @@ def phase_sdxl_lora_parity() -> None:
         _attach(card, peft)
         _parity_case("sdxl_lora_parity", label, SDXLForTextToImageTraining, config, card,
                      batch, draws, SDXL_LORA_PARITY_LAUNCHES[label], 2 * 70, unet=label,
-                     inputs="cached latents, 75 tokens, injected draws, lora_up nonzero")
+                     cuts=[SDXL_LORA_PARITY_CUT],
+                     inputs="a cached latent, 75 tokens, injected draws, lora_up nonzero")
         if label == "bf16":
             _fp32_witness("sdxl_lora_parity", SDXLForTextToImageTraining, raw, card,
                           batch, draws)
@@ -2351,16 +2414,21 @@ def phase_sdxl_lora_parity() -> None:
 
 
 # sdxl_flow_match_parity: sdxl_lora_parity's model, built once, with the
-# flow-match config's LoRA (rank 8 on attn1 / attn2 / .ff.), from images: the
-# LoRA step (#7 / #8 3 + 3, as sdxl_lora_parity), a 2-step CFG generate from
-# injected latents (#7 3 a UNet call), the fp32 witness of the step, and the
-# step with LoHa over the UNet NF4 (#9 54: the 7 cross-attentions' to_k /
-# to_v over 2 x 77 rows and the 40 other NF4 products of the transformers
-# at 2 x 256 rows; the LoHa product itself is dense)
+# flow-match config's LoRA (rank 8 on attn1 / attn2 / .ff.), from an image
+# (batch 1): the LoRA step (#7 / #8 3 + 3, as sdxl_lora_parity),
+# a 2-step CFG generate from injected latents (#7 3 a UNet call), the fp32
+# witness of the step, and the step with LoHa over the UNet NF4 (#9 84, as
+# sdxl_lora_parity's NF4 step; the LoHa product itself is dense)
 FLOW_MATCH_PARITY_LAUNCHES = {"lora": _expect({7: 3, 8: 3}),
-                              "loha_nf4": _expect({7: 3, 8: 3, 9: 54}),
+                              "loha_nf4": _expect({7: 3, 8: 3, 9: 84}),
                               "generate": _expect({7: 6})}
 FLOW_MATCH_PARITY_LATENTS_FLOOR = SDXL_PARITY_FLOOR["latents"]
+# its model is sdxl_parity's depth already, so it is cut to the first of the
+# two samples it held: its CPU steps took 31-36 s (LoRA), 15-25 s (the fp32
+# witness) and 41 s (LoHa NF4) at batch 2 on an H100's host, 15-17, 7-8 and
+# 22-25 s at batch 1
+FLOW_MATCH_PARITY_CUT = ("batch 1, not 2: ≈ 50 s saved over the LoRA step, its fp32 "
+                         "witness and the LoHa NF4 step")
 
 
 def _unwrap_adapters(tree) -> None:
@@ -2401,21 +2469,21 @@ def phase_sdxl_flow_match_parity() -> dict[str, tuple[int, ...]]:
     yy, xx = np.mgrid[0:side, 0:side] / side
     images = np.stack([np.stack([np.sin(3 * xx + i), np.cos(2 * yy - i), xx * yy - 0.5], -1)
                        for i in range(2)]) + rng.normal(0, 0.05, size=(2, side, side, 3))
-    batch = {"image": np.clip(images, -1, 1).astype(np.float32),
-             "caption": ["1girl, solo, red hair, looking at viewer",
-                         "a red fox in the snow, detailed fur"],
-             "original_size": np.full((2, 2), side, np.int32),
-             "target_size": np.full((2, 2), side, np.int32),
-             "crop_coords_top_left": np.zeros((2, 2), np.int32)}
+    batch = {"image": np.clip(images, -1, 1).astype(np.float32)[:1],
+             "caption": ["1girl, solo, red hair, looking at viewer"],
+             "original_size": np.full((1, 2), side, np.int32),
+             "target_size": np.full((1, 2), side, np.int32),
+             "crop_coords_top_left": np.zeros((1, 2), np.int32)}
     latent = (2, side // 8, side // 8, 4)
-    draws = {"vae_noise": torch.from_numpy(rng.normal(size=latent).astype(np.float32)),
-             "timesteps": torch.tensor([310.0, 870.0]),
-             "noise": torch.from_numpy(rng.normal(size=latent).astype(np.float32))}
+    draws = {"vae_noise": torch.from_numpy(rng.normal(size=latent).astype(np.float32)[:1]),
+             "timesteps": torch.tensor([310.0]),
+             "noise": torch.from_numpy(rng.normal(size=latent).astype(np.float32)[:1])}
     card = SDXLForFlowMatchingTraining(config, torch.device("cuda"))
     card.setup_model()
     _attach(card, peft)
-    common = dict(inputs="images, 75 tokens, injected VAE noise, timesteps and noise",
-                  model_prediction=fields["model_prediction"])
+    common = dict(inputs="an image, 75 tokens, injected VAE noise, timestep and noise",
+                  model_prediction=fields["model_prediction"],
+                  cuts=[FLOW_MATCH_PARITY_CUT])
     launches = {"sdxl_flow_match_lora": _parity_case(
         phase, "lora", SDXLForFlowMatchingTraining, config, card, batch, draws,
         FLOW_MATCH_PARITY_LAUNCHES["lora"], 2 * 70, adapters_type="lora", **common)}
@@ -3775,10 +3843,13 @@ def _fingerprints(named) -> dict[str, tuple[float, float]]:
     return {n: tuple(s) for (n, _), s in zip(named, stats)}
 
 
-def _adapter_run(entry: str, path: str) -> dict:
+def _adapter_run(entry: str, path: str, frozen=None,
+                 profile_first: str | None = None) -> dict:
     """``train.sdxl.<entry>.run(path)`` on the card, each step timed and
-    counted, the parameters (the frozen tower's too) fingerprinted before
-    the first step and after the run."""
+    counted, the parameters (the frozen tower's too, or ``frozen(workload)``'s
+    named parameters) fingerprinted before the first step and after the
+    run; with ``profile_first`` the first step, which is not timed, runs
+    under the profiler as that path."""
     import importlib
 
     from vision_pt_tpu_torch.training.trainer import Trainer
@@ -3794,8 +3865,9 @@ def _adapter_run(entry: str, path: str) -> dict:
         return encoder.model
 
     def named(workload):
-        return [*workload.trainable().named_parameters(),
-                *(("tower." + n, p) for n, p in tower(workload).named_parameters())]
+        others = (frozen(workload) if frozen is not None else
+                  (("tower." + n, p) for n, p in tower(workload).named_parameters()))
+        return [*workload.trainable().named_parameters(), *others]
 
     def preparing(self):
         inner_prepare(self)
@@ -3807,7 +3879,10 @@ def _adapter_run(entry: str, path: str) -> dict:
         counts = _counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = inner_step(self, *args, **kwargs)
+        if profile_first is not None and not per_step:
+            out = profile(profile_first, lambda: inner_step(self, *args, **kwargs))
+        else:
+            out = inner_step(self, *args, **kwargs)
         torch.cuda.synchronize()
         step_seconds.append(time.perf_counter() - t0)
         per_step.append(_diff(_counts(), counts))
@@ -4105,6 +4180,328 @@ def phase_adapters(tmp: str) -> dict[str, tuple[int, ...]]:
     return launches
 
 
+# ---------------------------------- RoPE distillation, DRaFT+, style tokenizer
+
+# PickScore_v1's shapes (CLIP-H/14: PickScoreModel.from_local's defaults),
+# random from a seed and written as an HF CLIP directory in fp16; the parity
+# phase's small one (tools.bench.draft_plus_gap.SMALL_PICKSCORE) keeps the
+# token counts at 2 layers and 128 wide
+PICKSCORE_H14 = {"projection_dim": 1024,
+                 "text_config": dict(vocab_size=49408, hidden_size=1024, intermediate_size=4096,
+                                     num_hidden_layers=24, num_attention_heads=16,
+                                     max_position_embeddings=77, hidden_act="gelu"),
+                 "vision_config": dict(hidden_size=1280, intermediate_size=5120,
+                                       num_hidden_layers=32, num_attention_heads=16,
+                                       image_size=224, patch_size=14, hidden_act="gelu")}
+SLICE_STEPS = 3  # 2 images, num_repeats 3, batch 2
+STYLE_PREFIX = "<|style|>, "
+# the three entry points at 1024^2, batch 2, recompute (70 self-attentions at
+# S >= 1024 a UNet call):
+# - RoPE distillation: #7 70 (teacher) + 140 (student, forward and
+#   recompute) + 20 (low-res student at 512^2: stage 2's 10 self-attentions
+#   reach S 1024) + 10 (low-res teacher); #8 70 + 10; its 2-step CFG preview
+#   #7 140;
+# - DRaFT+: 24 sampler steps without autograd (70 each), the last one's
+#   forward and recompute, its reference call without the adapters: #7 1,890,
+#   #8 70 (the UNet at B 4: 2 captions under CFG);
+# - the style tokenizer: #7 140, #8 70: the pooled embedding of encoder 2
+#   carries the style rows into the time embedding, so the gradient reaches
+#   the first self-attention too (an IP-Adapter step's #8 is 69); its 2-step
+#   CFG preview with a reference image #7 140
+SLICE_TRAINERS = {
+    "rope_distill": dict(entry="rope_distill", launches=_expect({7: 240, 8: 80}),
+                         preview=_expect({7: 2 * 70}), peft=True,
+                         metrics=("l2_loss", "distill_loss", "lowres_distill_loss")),
+    "draft_plus": dict(entry="draft_plus", launches=_expect({7: 25 * 70 + 2 * 70, 8: 70}),
+                       preview=None, peft=True,
+                       metrics=("reward", "reward_loss", "draft_reg_loss")),
+    "style_tokenizer": dict(entry="style_tokenizer", launches=_expect({7: 140, 8: 70}),
+                            preview=_expect({7: 2 * 70}), peft=False, metrics=("l2_loss",)),
+}
+# sdxl_slice14_parity at sdxl_parity's depth, 512^2, batch 1 (stage 2's 3
+# self-attentions at S 1024 a UNet call): RoPE teacher 3 + student 3 (the
+# 256^2 low-res pass stays plain), #8 3; DRaFT+ one sampler step, the
+# differentiated one (the trainer phase runs the steps without autograd):
+# 3 + 3 (reference), #8 3; style 3 + 3
+SLICE_PARITY_LAUNCHES = {"rope_distill": _expect({7: 6, 8: 3}),
+                         "draft_plus": _expect({7: 6, 8: 3}),
+                         "style_tokenizer": _expect({7: 3, 8: 3})}
+# each gradient's largest gap to the card's own plain-version step (bf16,
+# measured on one NVIDIA H100 80GB HBM3 at 700 W): RoPE LoRA 0.0177 (the
+# dropped key tile 0.25), the style projectors 0.0140 (0.026); ADAPTER_KERNEL_FLOOR's 1.5e-2
+# cannot hold the LoRA gradients, which sum over cancelling tokens. DRaFT+'s
+# sampled gradient moves 0.109 with the right kernels (2 steps, CFG 5, the
+# VAE decoder: the fp32 step's card-vs-CPU gap is 8.3e-4, the RoPE step's
+# 1.5e-5), so it takes no kernel floor: the dropped tile fails its LoRA floors
+SLICE_KERNEL_FLOOR = {"rope_distill": 5e-2, "draft_plus": None, "style_tokenizer": 2e-2}
+# DRaFT+'s fp32 witness reads 8.2e-4 where the others read 5e-6 to 2.4e-5:
+# the reward clamps the decoded image to [-1, 1], and 3 of its 717k pixels
+# inside the clamp fall on the other side of it on the CPU (a 1e-5 gap in
+# the image), the gradient of each dropping to 0 there. That moves the
+# image's gradient by about sqrt(3 / 717k) = 2e-3 and the worst LoRA
+# gradient by 8.2e-4; the CPU's fp32 and fp64 steps differ as much, by 3 pixels
+# (tools.bench.draft_plus_gap, one NVIDIA H100 80GB HBM3 at 700 W and its
+# host). 5e-3 holds about 100 such pixels; a kernel fault moves it by 0.1+
+SLICE_WITNESS_FLOOR = {"draft_plus": 5e-3}
+SLICE_WORKLOADS = {"rope_distill": "sdxl_rope_distill.SDXLRoPEDistillTraining",
+                   "draft_plus": "sdxl_draft_plus.SDXLDRaFTPlusTraining",
+                   "style_tokenizer": "sdxl_style_tokenizer.SDXLStyleTokenizerTraining"}
+
+
+def _slice_config(tmp: str, name: str, model: dict, folder: str, peft: bool,
+                  preview: list | None, **dataset) -> tuple[str, list]:
+    """configs/sdxl/text_to_image_lora.yml's trainer settings with ``model``,
+    its LoRA (or none), 3 steps and ``preview`` (or none). Returns the path
+    and the cuts."""
+    import yaml
+
+    with open(os.path.join(ROOT, SDXL_TRAIN_CONFIGS["lora"]["path"])) as f:
+        cfg = yaml.safe_load(f)
+    work = os.path.join(tmp, name)
+    os.makedirs(work, exist_ok=True)
+    cfg["model"] = {"checkpoint_path": None, "dtype": cfg["model"]["dtype"],
+                    "tokenizer": "word-hash", **model}
+    if not peft:
+        cfg["peft"] = None
+    cfg["dataset"].update(folder=folder, num_repeats=SLICE_STEPS, **dataset)
+    cfg["num_train_epochs"] = 1
+    cfg["tracker"]["log_dir"] = os.path.join(work, "logs")
+    cfg["saving"]["callbacks"][0]["save_dir"] = os.path.join(work, "out")
+    cuts = ["random weights from the seed", "word-hash tokenizer (the repository has no "
+            "CLIP vocabulary)", f"{SDXL_TRAIN_IMAGES} synthetic 1024^2 images, num_repeats "
+            f"{SLICE_STEPS}, batch 2: 1 epoch of {SLICE_STEPS} steps",
+            "output paths in a temporary directory"]
+    if preview is None:
+        cfg["preview"] = None
+        cuts.append("preview: null")
+    else:
+        with open(os.path.join(work, "preview.yml"), "w") as f:
+            yaml.safe_dump(preview, f)
+        cfg["preview"]["callbacks"][0]["save_dir"] = os.path.join(work, "preview")
+        cfg["preview"]["data"]["path"] = os.path.join(work, "preview.yml")
+        cuts.append("preview: the first prompt of configs/sdxl/preview.yml, 2 steps")
+    path = os.path.join(work, "config.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path, cuts
+
+
+def _preview_jobs(style: bool, reference: str | None = None) -> list:
+    import yaml
+
+    with open(os.path.join(ROOT, "configs/sdxl/preview.yml")) as f:
+        job = yaml.safe_load(f)[0]
+    job["num_steps"] = 2
+    if style:
+        job["prompt"] = STYLE_PREFIX + job["prompt"]
+        job["extra"] = {"reference_image_path": reference}
+    return [job]
+
+
+def phase_slice_trainer(tmp: str, name: str, model: dict, folder: str, frozen,
+                        expected_trained, reference: str | None = None,
+                        **dataset) -> tuple[int, ...]:
+    """``train.sdxl.<name>`` at SDXL-base's full width and depth, 1024^2, batch
+    2, 3 steps (steps 2-3 timed): launches per step, what changed (the
+    trained tensors only: ``frozen(workload)`` and the whole training tree
+    fingerprinted), the logged metrics finite; DRaFT+'s first step profiled.
+    Returns the run's launches."""
+    from safetensors.torch import load_file
+
+    spec = SLICE_TRAINERS[name]
+    phase = f"{name}_trainer"
+    preview = (None if spec["preview"] is None
+               else _preview_jobs(name == "style_tokenizer", reference))
+    path, cuts = _slice_config(tmp, name, model, folder, spec["peft"], preview, **dataset)
+    # where a DRaFT+ step's time goes: its first step (not timed), profiled
+    out = _adapter_run(spec["entry"], path, frozen,
+                       f"{phase}_step" if name == "draft_plus" else None)
+    trainer = out["trainer"]
+    work = os.path.join(tmp, name)
+    with open(os.path.join(work, "logs", os.listdir(os.path.join(work, "logs"))[0])) as f:
+        records = [json.loads(line) for line in f]
+    logged = {m: [r[f"train/{m}"] for r in records if f"train/{m}" in r]
+              for m in ("loss", *spec["metrics"])}
+    previews = _diff(out["run_launches"], tuple(map(sum, zip(*out["per_step"]))))
+    files = os.listdir(os.path.join(work, "out"))
+    saved = load_file(os.path.join(work, "out", files[0])) if len(files) == 1 else {}
+    expected = expected_trained({n for n, _ in trainer.model.trainable().named_parameters()})
+    timed = out["step_seconds"][1:]
+    emit(phase, entry=f"train.sdxl.{spec['entry']}", config=SDXL_TRAIN_CONFIGS["lora"]["path"],
+         cuts=cuts, resolution=SDXL_SIDE, batch=2,
+         optimizer=trainer.config.optimizer.name,
+         gradient_checkpointing=trainer.config.trainer.gradient_checkpointing,
+         steps=trainer.global_step, run_seconds=out["seconds"],
+         step_seconds=out["step_seconds"],
+         seconds_per_step_2_to_3=sum(timed) / max(len(timed), 1),
+         peak_memory_bytes=out["peak"], metrics=logged, launches_per_step=out["per_step"],
+         expected_per_step=spec["launches"], preview_launches=previews,
+         expected_preview=spec["preview"] or _expect({}), run_launches=out["run_launches"],
+         trained_params=len(out["trained"]), changed_params=len(out["changed"]),
+         saved_file_keys=len(saved))
+    check(trainer.global_step == SLICE_STEPS and all(
+        len(v) == SLICE_STEPS and np.isfinite(v).all() for v in logged.values()),
+          f"{phase}: metrics {logged}")
+    check(out["per_step"] == [spec["launches"]] * SLICE_STEPS,
+          f"{phase} launches per step {out['per_step']}, expected {spec['launches']}")
+    check(previews == (spec["preview"] or _expect({})),
+          f"{phase} preview launches {previews}, expected {spec['preview']}")
+    check(out["trained"] == expected and out["changed"] == expected and expected,
+          f"{phase}: trained {len(out['trained'])}, changed {len(out['changed'])}, expected "
+          f"{len(expected)} (first others: {sorted(out['changed'] ^ expected)[:3]})")
+    # LoRA: the 700 adapted linears' down, up and alpha; style: the projectors
+    check(len(saved) == (3 * 700 if spec["peft"] else 4),
+          f"{phase}: a saved file of {len(saved)} tensors")
+    if name == "rope_distill":
+        check(all(v > 0 for v in logged["distill_loss"] + logged["lowres_distill_loss"]),
+              "rope_distill: the student's prediction equals the teacher's")
+    launches = out["run_launches"]
+    del trainer, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_slice14_parity(towers: dict) -> dict[str, tuple[int, ...]]:
+    """Card against CPU for the three workloads at sdxl_parity's model
+    (512^2, full widths, one layer and one transformer per stage), batch 1,
+    random weights from the seed, injected draws: the LoRA (RoPE, DRaFT+) or
+    projector (style) step under SDXL_LORA_PARITY_FLOOR with the card's
+    plain versions as the witness and within SLICE_KERNEL_FLOOR of the
+    card's plain run (RoPE, style), the dropped-tile #7 / #8 failing them; then its fp32
+    witness. DRaFT+ samples 1 step over the small PickScore; the style
+    tokenizer reads the small timm tower. Returns the card steps' launches."""
+    import importlib
+
+    import yaml
+
+    from vision_pt_tpu_torch.config import TrainConfig
+
+    phase = "sdxl_slice14_parity"
+    torch.set_num_threads(os.cpu_count() or 1)
+    side = PARITY_SIDE
+    with open(os.path.join(ROOT, SDXL_TRAIN_CONFIGS["lora"]["path"])) as f:
+        peft = yaml.safe_load(f)["peft"]
+    rng = np.random.default_rng(14)
+    yy, xx = np.mgrid[0:side, 0:side] / side
+    image = np.stack([np.sin(3 * xx), np.cos(2 * yy), xx * yy - 0.5], -1)
+    image = np.clip(image + rng.normal(0, 0.05, size=image.shape), -1, 1).astype(np.float32)
+    sizes = {"original_size": np.full((1, 2), side, np.int32),
+             "target_size": np.full((1, 2), side, np.int32),
+             "crop_coords_top_left": np.zeros((1, 2), np.int32)}
+    latent, lowres = (1, side // 8, side // 8, 4), (1, side // 16, side // 16, 4)
+
+    def normal(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    timm_path, timm_shape = towers["timm"]
+    cases = {
+        "rope_distill": (
+            peft, {}, {"image": image[None], "caption": ["1girl, solo, red hair"], **sizes},
+            {"vae_noise": normal(latent), "timesteps": torch.tensor([400], dtype=torch.int32),
+             "noise": normal(latent), "lowres_vae_noise": normal(lowres),
+             "lowres_noise": normal(lowres)}, 2 * 70),
+        "draft_plus": (
+            peft, {"total_steps": 1, "sample_height": side, "sample_width": side,
+                   "reward_models": [{"type": "pickscore", "weights_path": towers["pickscore"],
+                                      "tokenizer": "word-hash"}]},
+            {"caption": ["a red fox in the snow, detailed fur"]},
+            {"latents": normal(latent), "step_noise": [normal(latent)]},
+            2 * 70),
+        "style_tokenizer": (
+            None, {"drop_image_rate": 0.0, "adapter": {"image_encoder": {
+                "type": "timm", "weights_path": timm_path,
+                "feature_dim": timm_shape["embed_dim"], "num_heads": timm_shape["num_heads"]}}},
+            {"image": image[None], "caption": [STYLE_PREFIX + "1girl, solo, red hair"],
+             **sizes},
+            {"vae_noise": normal(latent), "timesteps": torch.tensor([400], dtype=torch.int32),
+             "noise": normal(latent)}, 4),
+    }
+    launches = {}
+    for name, (lora, model, batch, draws, n_grads) in cases.items():
+        module, cls_name = SLICE_WORKLOADS[name].split(".")
+        workload_cls = getattr(importlib.import_module(
+            f"vision_pt_tpu_torch.workloads.{module}"), cls_name)
+        raw = _parity_config("bfloat16", lora, **model)
+        config = TrainConfig.model_validate(raw)
+        card = workload_cls(config, torch.device("cuda"))
+        card.setup_model()
+        if lora is not None:
+            _attach(card, lora)
+        launches[f"{name}_parity_step"] = _parity_case(
+            phase, name, workload_cls, config, card, batch, draws,
+            SLICE_PARITY_LAUNCHES[name], n_grads, kernel_floor=SLICE_KERNEL_FLOOR[name],
+            inputs=("1 sampler step, differentiated, the small PickScore"
+                    if name == "draft_plus" else "an image, injected draws"))
+        _fp32_witness(phase, workload_cls, raw, card, batch, draws,
+                      SLICE_WITNESS_FLOOR.get(name, SDXL_FP32_WITNESS_FLOOR))
+        del card
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_slice14(tmp: str) -> dict[str, tuple[int, ...]]:
+    """RoPE distillation, DRaFT+ and the style tokenizer: towers written once
+    (PickScore's CLIP-H/14 and the small one, the ViT-B/16-448 timm tower and
+    the small one), the three full-width trainers, then the parity phase."""
+    from vision_pt_tpu_torch.tools.bench.draft_plus_gap import (
+        SMALL_PICKSCORE,
+        write_pickscore,
+    )
+
+    t0 = time.perf_counter()
+    images = os.path.join(tmp, "images")
+    _write_sdxl_images(images)
+    referenced = os.path.join(tmp, "referenced")
+    _write_referenced_images(referenced, images)
+    reference = os.path.join(tmp, "style_reference.jpg")
+    _reference_image(5).save(reference)
+    cuda = torch.device("cuda")
+    towers = {"pickscore": write_pickscore(os.path.join(tmp, "pickscore"), PICKSCORE_H14, 5,
+                                           cuda),
+              "timm": _write_tower(os.path.join(tmp, "vit.safetensors"), "timm",
+                                   VIT_B16_448, seed=3)}
+    small = {"pickscore": write_pickscore(os.path.join(tmp, "pickscore_small"),
+                                          SMALL_PICKSCORE, 6, cuda),
+             "timm": (_write_tower(os.path.join(tmp, "vit_small.safetensors"), "timm",
+                                   SMALL_TOWERS["timm"], seed=4), SMALL_TOWERS["timm"])}
+    emit("slice14_towers", seconds=time.perf_counter() - t0,
+         pickscore_bytes=os.path.getsize(os.path.join(towers["pickscore"],
+                                                      "model.safetensors")),
+         pickscore_shape=PICKSCORE_H14, timm_shape=VIT_B16_448)
+
+    def lora_only(names):
+        return {n for n in names if ".lora_" in n}
+
+    def towers_of(workload):
+        return [(f"reward{i}.{n}", p) for i, reward in enumerate(workload.reward_models)
+                for n, p in reward.model.named_parameters()]
+
+    def vision_tower(workload):
+        encoder = workload.model.vision_encoder
+        if encoder.model is None:
+            encoder._load_model()
+        return [("tower." + n, p) for n, p in encoder.model.named_parameters()]
+
+    launches = {
+        "rope_distill_trainer": phase_slice_trainer(
+            tmp, "rope_distill", {}, images, lambda w: [], lora_only),
+        "draft_plus_trainer": phase_slice_trainer(
+            tmp, "draft_plus", {"reward_models": [{
+                "type": "pickscore", "weights_path": towers["pickscore"],
+                "tokenizer": "word-hash"}]}, images, towers_of, lora_only),
+        "style_tokenizer_trainer": phase_slice_trainer(
+            tmp, "style_tokenizer", {"adapter": {"image_encoder": {
+                "type": "timm", "weights_path": towers["timm"],
+                "feature_dim": VIT_B16_448["embed_dim"],
+                "num_heads": VIT_B16_448["num_heads"]}}}, referenced, vision_tower,
+            lambda names: {n for n in names if n.startswith(("projector_1.", "projector_2."))},
+            reference=reference,
+            caption_processors=[{"type": "prefix", "prefix": STYLE_PREFIX}]),
+    }
+    launches.update(phase_slice14_parity(small))
+    return launches
+
+
 def main(args: list[str]) -> int:
     if args not in ([], ["--kernels-only"]):
         print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
@@ -4151,6 +4548,8 @@ def main(args: list[str]) -> int:
     launches.update(phase_sdxl_flow_match_parity())
     with tempfile.TemporaryDirectory() as tmp:
         launches.update(phase_adapters(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(phase_slice14(tmp))
     launches["optimizers"] = phase_optimizers()
     launches.update(phase_cogview4_sampler())
     phase_cogview4_parity()
@@ -4186,11 +4585,13 @@ def main(args: list[str]) -> int:
     kernels[1]["tread_timing"] = tread_rows["tread_bwd"]
     kernels[1]["retimed_ms"] = short_rows["packed_bwd"]["ms"]  # short_timing
     kernels[6]["sdxl_timing"] = [{**rows[label], "max_abs_err": errors[label]}
-                                 for label in ("sdxl_s4096", "sdxl_s1024")]
+                                 for label in ("sdxl_s4096", "sdxl_s1024",
+                                               "sdxl_lowres_s1024")]
     kernels[6]["cogview4_timing"] = {**rows["cogview4_s4112"],
                                      "max_abs_err": errors["cogview4_s4112"]}
     kernels[7]["sdxl_timing"] = [{**rows[f"{label}_bwd"], "shape": label}
-                                 for label in ("sdxl_s4096", "sdxl_s1024")]
+                                 for label in ("sdxl_s4096", "sdxl_s1024",
+                                               "sdxl_lowres_s1024")]
     kernels[8]["other_shapes"] = [{**nf4_rows[label], "shape": label} for label in
                                   ("path_n640", "qlora_n640", "qlora_n1280",
                                    "cogview4_ff_proj", "cogview4_ff_out", "bench")]

@@ -59,7 +59,13 @@ def test_importing_the_whole_port_loads_no_jax():
                  "train.jit.class_to_image_tread", "models.lm.model",
                  "models.cogview4.config", "models.cogview4.text_encoder",
                  "models.cogview4.denoiser", "models.cogview4.pipeline",
-                 "ops.offload", "tools.cogview4_quant_compare"):
+                 "ops.offload", "tools.cogview4_quant_compare", "ops.rope",
+                 "models.sdxl.adapter.rope", "models.sdxl.adapter.style_tokenizer",
+                 "adapters.style_tokenizer", "reward", "reward.utils", "reward.pickscore",
+                 "reward.functional", "workloads.sdxl_rope_distill",
+                 "workloads.sdxl_draft_plus", "workloads.sdxl_style_tokenizer",
+                 "train.sdxl.rope_distill", "train.sdxl.draft_plus",
+                 "train.sdxl.style_tokenizer", "tools.bench.draft_plus_gap"):
         assert f"vision_pt_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["modules"] if FORBIDDEN.match(m)]
     assert leaked == []

@@ -37,7 +37,7 @@ class ReferenceImages:
     def __init__(self, config, device: torch.device):
         self.resize = PaddedResize(max_size=config.image_size, fill=config.background_color)
         self.channel_swap = (ColorChannelSwap((2, 1, 0))
-                             if config.color_channel == "bgr" else None)
+                             if getattr(config, "color_channel", "rgb") == "bgr" else None)
         self.mean = np.asarray(config.image_mean, dtype=np.float32)
         self.std = np.asarray(config.image_std, dtype=np.float32)
         self.device = device

@@ -140,23 +140,31 @@ class FeedForward(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """self-attention -> cross-attention -> feed-forward, pre-LN."""
+    """self-attention -> cross-attention -> feed-forward, pre-LN. A subclass
+    swaps the attentions through ``self_attention_class`` /
+    ``cross_attention_class`` (the RoPE retrofit)."""
+
+    self_attention_class = SelfAttention
+    cross_attention_class = CrossAttention
 
     def __init__(self, hidden_dim: int, num_heads: int, head_dim: int,
                  context_dim: int = 2048, *, dtype=None,
                  param_dtype=torch.float32, generator=None):
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype, generator=generator)
-        self.attn1 = SelfAttention(num_heads, head_dim, **kw)
+        self.attn1 = self.self_attention_class(num_heads, head_dim, **kw)
         self.ff = FeedForward(hidden_dim, **kw)
-        self.attn2 = CrossAttention(hidden_dim, context_dim, num_heads, head_dim, **kw)
+        self.attn2 = self.cross_attention_class(hidden_dim, context_dim, num_heads,
+                                                head_dim, **kw)
         norm = dict(dtype=dtype, param_dtype=param_dtype)
         self.norm1 = LayerNorm(hidden_dim, **norm)
         self.norm2 = LayerNorm(hidden_dim, **norm)
         self.norm3 = LayerNorm(hidden_dim, **norm)
 
     def forward(self, hidden_states, context, time_embedding=None,
-                cross_attention_kwargs=None):
+                cross_attention_kwargs=None, height=None, width=None):
+        """``height`` / ``width`` (the token grid's) are for a subclass; the
+        plain block ignores them."""
         hidden_states = hidden_states + self.attn1(self.norm1(hidden_states))
         hidden_states = hidden_states + self.attn2(
             self.norm2(hidden_states), context, time_embedding=time_embedding,
@@ -168,8 +176,8 @@ class SpatialTransformer(nn.Module):
     """GroupNorm + linear projections around N transformer blocks."""
 
     def __init__(self, in_channels: int, num_heads: int, head_dim: int,
-                 context_dims=(2048,), *, dtype=None, param_dtype=torch.float32,
-                 generator=None):
+                 context_dims=(2048,), transformer_block_class=TransformerBlock, *,
+                 dtype=None, param_dtype=torch.float32, generator=None):
         super().__init__()
         inner = num_heads * head_dim
         self.inner_dim = inner
@@ -178,7 +186,7 @@ class SpatialTransformer(nn.Module):
                               param_dtype=param_dtype)
         self.proj_in = _linear(in_channels, inner, **kw)
         self.transformer_blocks = nn.ModuleList([
-            TransformerBlock(inner, num_heads, head_dim, context_dim=cd, **kw)
+            transformer_block_class(inner, num_heads, head_dim, context_dim=cd, **kw)
             for cd in context_dims
         ])
         self.proj_out = _linear(inner, in_channels, **kw)
@@ -189,7 +197,8 @@ class SpatialTransformer(nn.Module):
         residual = hidden_states
         x = self.proj_in(self.norm(hidden_states).reshape(b, h * w, c))
         for block in self.transformer_blocks:
-            x = block(x, context, time_embedding, cross_attention_kwargs)
+            x = block(x, context, time_embedding, cross_attention_kwargs,
+                      height=h, width=w)
         x = self.proj_out(x)
         return x.reshape(b, h, w, self.inner_dim) + residual
 
@@ -298,11 +307,12 @@ def _layer_fn(gradient_checkpointing: bool):
 
 
 def _spatial_transformer(channels, num_head_channels, num_transformers,
-                         context_dim, kw):
+                         context_dim, block_class, kw):
     return SpatialTransformer(
         channels, num_heads=channels // num_head_channels,
         head_dim=num_head_channels,
-        context_dims=[context_dim] * num_transformers, **kw,
+        context_dims=[context_dim] * num_transformers,
+        transformer_block_class=block_class, **kw,
     )
 
 
@@ -311,7 +321,8 @@ class DownBlocks(nn.Module):
 
     def __init__(self, in_channels, block_out_channels, down_blocks,
                  num_transformers_per_block, layers_per_block, time_embed_dim,
-                 conv_resample, num_head_channels, context_dim, *, dtype=None,
+                 conv_resample, num_head_channels, context_dim,
+                 transformer_block_class=TransformerBlock, *, dtype=None,
                  param_dtype=torch.float32, generator=None):
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype, generator=generator)
@@ -333,7 +344,7 @@ class DownBlocks(nn.Module):
                     current = out_channels
                     layers.append(_spatial_transformer(
                         out_channels, num_head_channels, num_transformers,
-                        context_dim, kw))
+                        context_dim, transformer_block_class, kw))
                     blocks.append(layers)
             else:
                 raise ValueError(f"Invalid block: {block}")
@@ -359,14 +370,16 @@ class MidBlock(nn.Module):
     """Res -> Transformer -> Res."""
 
     def __init__(self, hidden_dim, time_embed_dim, mid_block_type,
-                 num_transformers, num_head_channels, context_dim, *, dtype=None,
+                 num_transformers, num_head_channels, context_dim,
+                 transformer_block_class=TransformerBlock, *, dtype=None,
                  param_dtype=torch.float32, generator=None):
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype, generator=generator)
         blocks = [ResidualBlock(hidden_dim, time_embed_dim, hidden_dim, **kw)]
         if mid_block_type == "TransformerMidBlock2D":
             blocks.append(_spatial_transformer(hidden_dim, num_head_channels,
-                                               num_transformers, context_dim, kw))
+                                               num_transformers, context_dim,
+                                               transformer_block_class, kw))
         blocks.append(ResidualBlock(hidden_dim, time_embed_dim, hidden_dim, **kw))
         self.blocks = nn.ModuleList(blocks)
         self.gradient_checkpointing = False
@@ -388,7 +401,8 @@ class UpBlocks(nn.Module):
     def __init__(self, in_channels, block_out_channels, down_skip_channels,
                  up_blocks, num_transformers_per_block, layers_per_block,
                  time_embed_dim, conv_resample, num_head_channels, context_dim,
-                 *, dtype=None, param_dtype=torch.float32, generator=None):
+                 transformer_block_class=TransformerBlock, *, dtype=None,
+                 param_dtype=torch.float32, generator=None):
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype, generator=generator)
         down_skip_channels = list(down_skip_channels)
@@ -407,7 +421,7 @@ class UpBlocks(nn.Module):
                 if block == "TransformerUpBlock2D":
                     layers.append(_spatial_transformer(
                         out_channels, num_head_channels, num_transformers,
-                        context_dim, kw))
+                        context_dim, transformer_block_class, kw))
                 stage.append(layers)
             if i != len(up_blocks) - 1:
                 stage[-1].append(Upsample(out_channels, out_channels,
@@ -434,7 +448,10 @@ class UpBlocks(nn.Module):
 class UNet(nn.Module):
     """The SDXL UNet. Parameters are created on the current default device
     from ``generator`` (the ``nnx`` default init variances: 1/fan_in for
-    linears and convs, zero biases, unit norm gains)."""
+    linears and convs, zero biases, unit norm gains). A subclass swaps every
+    transformer block through ``transformer_block_class``."""
+
+    transformer_block_class = TransformerBlock
 
     def __init__(self, config: DenoiserConfig, *, dtype=None,
                  param_dtype=torch.float32, generator=None):
@@ -452,12 +469,12 @@ class UNet(nn.Module):
             cfg.in_channels, cfg.block_out_channels, cfg.down_blocks,
             cfg.num_transformers_per_block, cfg.layers_per_block,
             time_embed_dim, cfg.conv_resample, cfg.num_head_channels,
-            cfg.context_dim, **kw,
+            cfg.context_dim, self.transformer_block_class, **kw,
         )
         self.middle_block = MidBlock(
             cfg.block_out_channels[-1], time_embed_dim, cfg.mid_block,
             cfg.num_transformers_per_block[-1], cfg.num_head_channels,
-            cfg.context_dim, **kw,
+            cfg.context_dim, self.transformer_block_class, **kw,
         )
         down_skip_channels = []
         for i, (block, channels) in enumerate(zip(cfg.down_blocks,
@@ -473,7 +490,7 @@ class UNet(nn.Module):
             down_skip_channels, cfg.up_blocks,
             cfg.num_transformers_per_block[::-1], cfg.layers_per_block + 1,
             time_embed_dim, cfg.conv_resample, cfg.num_head_channels,
-            cfg.context_dim, **kw,
+            cfg.context_dim, self.transformer_block_class, **kw,
         )
         self.out_norm = GroupNorm(hidden_dim, 32, eps=1e-5, dtype=dtype,
                                   param_dtype=param_dtype)

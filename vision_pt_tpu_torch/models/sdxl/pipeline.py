@@ -50,7 +50,12 @@ _TE1, _TE2 = "text_encoder.text_encoder_1.", "text_encoder.text_encoder_2."
 
 
 class SDXLModel:
-    """The UNet, the VAE and the two CLIP text encoders, on one device."""
+    """The UNet, the VAE and the two CLIP text encoders, on one device. A
+    subclass swaps the UNet and the dual encoder through ``denoiser_class``
+    and ``text_encoder_class``."""
+
+    denoiser_class: type[Denoiser] = Denoiser
+    text_encoder_class: type[TextEncoder] = TextEncoder
 
     def __init__(self, config: SDXLConfig, *, dtype: torch.dtype | None = None,
                  param_dtype: torch.dtype = torch.float32,
@@ -66,13 +71,13 @@ class SDXLModel:
             generator = torch.Generator(device=self.device).manual_seed(0)
         kw = dict(dtype=dtype, param_dtype=param_dtype, generator=generator)
         with self.device:
-            self.denoiser = Denoiser(config.denoiser, **kw).eval()
+            self.denoiser = self.denoiser_class(config.denoiser, **kw).eval()
             self.vae = VAE(**(config.vae_config or DEFAULT_VAE_CONFIG), **kw).eval()
             c1 = (CLIPTextConfig(**config.text_encoder_1_config)
                   if config.text_encoder_1_config else TEXT_ENCODER_1_CONFIG)
             c2 = (CLIPTextConfig(**config.text_encoder_2_config)
                   if config.text_encoder_2_config else TEXT_ENCODER_2_CONFIG)
-            self.text_encoder = TextEncoder(
+            self.text_encoder = self.text_encoder_class(
                 CLIPTextModel(c1, **kw).eval(), tokenizer_1,
                 CLIPTextModel(c2, with_projection=True, **kw).eval(), tokenizer_2,
             )
@@ -214,6 +219,7 @@ class SDXLModel:
         return_latents: bool = False,
         cross_attention_kwargs: dict | None = None,
         extra_context_tokens: torch.Tensor | None = None,
+        _encode_prompts_kwargs: dict | None = None,
     ) -> list[Image.Image] | torch.Tensor:
         """Euler-ancestral sampling with CFG. ``latents`` and ``step_noise``
         replace the seeded draws (the initial latents, already scaled by the
@@ -222,7 +228,8 @@ class SDXLModel:
         ``cross_attention_kwargs`` go to every UNet call (an IP-Adapter's
         ``ip_tokens``); ``extra_context_tokens`` are appended to the text
         context (PFG's image tokens). Both are batched as the context is,
-        [positive; negative] under CFG."""
+        [positive; negative] under CFG. ``_encode_prompts_kwargs`` go to the
+        text encoder's ``encode_prompts`` (the style tokenizer's rows)."""
         do_cfg = cfg_scale > 1.0
         timesteps, sigmas = self.prepare_timesteps(num_inference_steps)
         batch_size = len(prompt) if isinstance(prompt, list) else 1
@@ -232,7 +239,7 @@ class SDXLModel:
 
         encoder_output = self.text_encoder.encode_prompts(
             prompt, negative_prompt, use_negative_prompts=do_cfg,
-            max_token_length=max_token_length)
+            max_token_length=max_token_length, **(_encode_prompts_kwargs or {}))
         latents = self.prepare_latents(
             batch_size, height, width, execution_dtype,
             max_noise_sigma=self.scheduler.get_max_noise_sigma(sigmas),

@@ -15,8 +15,9 @@ Tokenizers are pluggable: an HF ``CLIPTokenizer`` built from local files, or
 from __future__ import annotations
 
 import os
+import re
 import zlib
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple
 
 import numpy as np
@@ -63,19 +64,55 @@ TEXT_ENCODER_2_CONFIG = CLIPTextConfig(
 class WordHashTokenizer:
     """HF-like tokenizer without a vocabulary file: each word maps to a
     stable hash in [0, 49406), with CLIP's special ids (bos 49406, eos and
-    pad 49407). eos is the largest id, so CLIP's legacy ``argmax(input_ids)``
-    pooling finds it."""
+    pad 49407). eos is the largest id of the base vocabulary, so CLIP's
+    legacy ``argmax(input_ids)`` pooling finds it. Added tokens take the ids
+    from 49408 on and, as in HF, are split out of the text wherever they
+    stand, spaces or not."""
 
     bos_token_id = 49406
     eos_token_id = 49407
     pad_token_id = 49407
+    base_vocab_size = 49408
+
+    def __init__(self):
+        self.added_tokens: dict[str, int] = {}
+
+    def __len__(self) -> int:
+        return self.base_vocab_size + len(self.added_tokens)
+
+    def add_tokens(self, tokens, special_tokens: bool = False) -> int:
+        """Add tokens not yet known; returns how many were added."""
+        added = 0
+        for token in [tokens] if isinstance(tokens, str) else tokens:
+            if token not in self.added_tokens:
+                self.added_tokens[token] = len(self)
+                added += 1
+        return added
+
+    def convert_tokens_to_ids(self, token: str) -> int:
+        return self.added_tokens[token]
+
+    def _ids(self, text: str) -> list[int]:
+        pieces = [text]
+        if self.added_tokens:
+            pattern = "(" + "|".join(map(re.escape, sorted(self.added_tokens, key=len,
+                                                           reverse=True))) + ")"
+            pieces = re.split(pattern, text)
+        ids = []
+        for piece in pieces:
+            if piece in self.added_tokens:
+                ids.append(self.added_tokens[piece])
+            else:
+                ids += [zlib.crc32(w.encode()) % self.bos_token_id for w in piece.split()]
+        return ids
 
     def __call__(self, prompts, padding="max_length", truncation=True,
-                 max_length=77):
+                 max_length=77, return_tensors=None):
+        """Padded ids as a numpy array whatever ``return_tensors`` asks."""
         out = []
         for text in prompts:
             ids = [self.bos_token_id]
-            ids += [zlib.crc32(w.encode()) % self.bos_token_id for w in text.split()]
+            ids += self._ids(text)
             ids = ids[: max_length - 1] + [self.eos_token_id]
             ids += [self.pad_token_id] * (max_length - len(ids))
             out.append(ids)
@@ -231,9 +268,46 @@ class CLIPTextModel(nn.Module):
             if with_projection else None
         )
 
-    def forward(self, input_ids: torch.Tensor) -> CLIPTextModelOutput:
+    def resize_token_embeddings(self, new_num_tokens: int) -> None:
+        """Grow the vocabulary (HF's method); each new row is the mean row."""
+        emb = self.text_model.embeddings.token_embedding
+        table = emb.weight
+        old = table.shape[0]
+        if new_num_tokens <= old:
+            return
+        with torch.no_grad():
+            mean = table.mean(dim=0, keepdim=True)
+            grown = torch.cat([table, mean.expand(new_num_tokens - old, -1)]).to(table.dtype)
+        emb.weight = nn.Parameter(grown, requires_grad=table.requires_grad)
+        # a copy: the default configs are shared by every model built
+        self.config = replace(self.config, vocab_size=new_num_tokens)
+
+    def _embed_with_style(self, input_ids, style_embeddings, style_token_id):
+        """Token embeddings with every occurrence of ``style_token_id``, in
+        flat scan order over the batch and its chunks, replaced by the next
+        row of ``style_embeddings`` (the reference's masked_scatter; past the
+        last row the last one repeats), then the positions added."""
+        emb = self.text_model.embeddings
+        tok = emb.token_embedding(input_ids)
+        hidden = tok.shape[-1]
+        flat_mask = (input_ids == style_token_id).reshape(-1)
+        flat_styles = style_embeddings.reshape(-1, hidden)
+        occurrence = torch.cumsum(flat_mask.int(), dim=0) - 1
+        gathered = flat_styles[occurrence.clamp(0, flat_styles.shape[0] - 1)].to(tok.dtype)
+        tok = torch.where(flat_mask[:, None], gathered, tok.reshape(-1, hidden))
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None]
+        return tok.reshape(*input_ids.shape, hidden) + emb.position_embedding(pos)
+
+    def forward(self, input_ids: torch.Tensor, style_embeddings: torch.Tensor | None = None,
+                style_token_id: int | None = None) -> CLIPTextModelOutput:
+        """``style_embeddings`` (with ``style_token_id``): the style
+        tokenizer's rows in place of the placeholder's embeddings."""
         tm = self.text_model
-        x = tm.embeddings(input_ids)
+        if style_embeddings is not None:
+            assert style_token_id is not None
+            x = self._embed_with_style(input_ids, style_embeddings, style_token_id)
+        else:
+            x = tm.embeddings(input_ids)
         seq = input_ids.shape[1]
         causal = torch.triu(torch.full((seq, seq), torch.finfo(torch.float32).min,
                                        device=input_ids.device), diagonal=1)
@@ -333,12 +407,12 @@ class TextEncoder:
         return ([self.escape_exclamation(t) for t in _p],
                 [self.escape_exclamation(t) for t in _n])
 
-    def _encode(self, model, tokenizer, prompts, max_token_length):
+    def _encode(self, model, tokenizer, prompts, max_token_length, **model_kwargs):
         ids, mask = tokenize_long_prompt(tokenizer, prompts,
                                          max_length=max_token_length,
                                          chunk_length=CHUNK_LENGTH)
         device = model.text_model.final_layer_norm.weight.device
-        return model(torch.as_tensor(ids).to(device)), mask
+        return model(torch.as_tensor(ids).to(device), **model_kwargs), mask
 
     def encode_prompts_text_encoder_1(self, prompts, negative_prompts=None,
                                       use_negative_prompts=False,

@@ -57,9 +57,9 @@ def write_label2id(path: str) -> str:
     return path
 
 
-def _jit(label2id, dtype, device, depth=None):
+def _jit(label2id, dtype, device, depth=None, batch=2):
     """(workload, batch, draws, gate module) of a JiT-B/16 step at 256^2,
-    at ``depth`` blocks (default 12)."""
+    at ``depth`` blocks (default 12), the first ``batch`` of 2 samples."""
     import vision_pt_tpu_torch.models.jit.denoiser as gate
     from vision_pt_tpu_torch.config import TrainConfig
     from vision_pt_tpu_torch.models.jit import JiT_B_16_Config
@@ -71,6 +71,7 @@ def _jit(label2id, dtype, device, depth=None):
     images = rng.uniform(-1, 1, size=(2, 256, 256, 3)).astype(np.float32)
     t_draw = rng.normal(size=(2,)).astype(np.float32)
     noise = rng.normal(size=images.shape).astype(np.float32)
+    images, t_draw, noise = images[:batch], t_draw[:batch], noise[:batch]
     denoiser = JiT_B_16_Config().model_dump()
     denoiser["depth"] = depth or denoiser["depth"]
     config = TrainConfig.model_validate({
@@ -81,14 +82,14 @@ def _jit(label2id, dtype, device, depth=None):
     })
     workload = JiTForClassToImageTraining(config, torch.device(device))
     workload.setup_model()
-    batch = workload.prepare_batch({"image": images, "caption": ["c1", "c2 c3"]})
-    return workload, batch, t_draw, noise, gate
+    arrays = workload.prepare_batch({"image": images, "caption": ["c1", "c2 c3"][:batch]})
+    return workload, arrays, t_draw, noise, gate
 
 
-def _latent(label2id, dtype, device, depth=None):
+def _latent(label2id, dtype, device, depth=None, batch=2):
     """(workload, batch, draws, gate module) of a latent step: the shipped
     config at ``depth`` blocks (default 6), a 64 x 64 x 4 latent (S = 1024 +
-    74 context)."""
+    74 context), the first ``batch`` of 2 samples."""
     import yaml
 
     import vision_pt_tpu_torch.ops.attention as gate
@@ -103,18 +104,19 @@ def _latent(label2id, dtype, device, depth=None):
     model["denoiser"]["depth"] = depth or 6
     model["drop_context_rate"] = 0.0
     rng = np.random.default_rng(1)
-    batch = {"latents": rng.normal(size=(2, 64, 64, 4)).astype(np.float32),
-             "caption": ["c1", "c0 c2 c3"],
-             **{k: np.full((2, 2), v, np.int32) for k, v in
-                (("original_size", 512), ("target_size", 512),
-                 ("crop_coords_top_left", 0))}}
-    t_draw = rng.normal(size=(2,)).astype(np.float32)
-    noise = rng.normal(size=(2, 64, 64, 4)).astype(np.float32)
+    arrays = {"latents": rng.normal(size=(2, 64, 64, 4)).astype(np.float32),
+              "caption": ["c1", "c0 c2 c3"],
+              **{k: np.full((2, 2), v, np.int32) for k, v in
+                 (("original_size", 512), ("target_size", 512),
+                  ("crop_coords_top_left", 0))}}
+    arrays = {k: v[:batch] for k, v in arrays.items()}
+    t_draw = rng.normal(size=(2,)).astype(np.float32)[:batch]
+    noise = rng.normal(size=(2, 64, 64, 4)).astype(np.float32)[:batch]
     config = TrainConfig.model_validate({"model": {**model, "dtype": dtype},
                                          "dataset": {}, "seed": 0})
     workload = JiTForArbClassToImageTraining(config, torch.device(device))
     workload.setup_model()
-    return workload, workload.prepare_batch(batch), t_draw, noise, gate
+    return workload, workload.prepare_batch(arrays), t_draw, noise, gate
 
 
 @contextlib.contextmanager
@@ -136,16 +138,16 @@ def _plain_on_card():
 
 def step(model: str, dtype: str, device: str, label2id: str, *,
          loss_scale: float = 1.0, plain: bool = False,
-         depth: int | None = None) -> Step:
+         depth: int | None = None, batch: int = 2) -> Step:
     """One step of ``model`` ("jit" or "latent"; ``depth`` blocks, or 12
-    and 6) in ``dtype`` on ``device``, the attention gate open on the CPU too
-    (so the CPU runs the kernels' plain versions); ``plain`` also runs the
-    plain versions on the card. The backward takes ``loss * loss_scale``;
-    gradients are divided back."""
+    and 6; the first ``batch`` of 2 samples) in ``dtype`` on ``device``, the
+    attention gate open on the CPU too (so the CPU runs the kernels' plain
+    versions); ``plain`` also runs the plain versions on the card. The
+    backward takes ``loss * loss_scale``; gradients are divided back."""
     from vision_pt_tpu_torch.ops.attention import attention_dtype
 
-    workload, batch, t_draw, noise, gate = (_jit if model == "jit" else _latent)(
-        label2id, dtype, device, depth)
+    workload, arrays, t_draw, noise, gate = (_jit if model == "jit" else _latent)(
+        label2id, dtype, device, depth, batch)
     trainable = workload.trainable()
     draws = {"timesteps": torch.sigmoid(torch.from_numpy(t_draw) * 0.8 - 0.8),
              "noise": torch.from_numpy(noise)}
@@ -156,7 +158,7 @@ def step(model: str, dtype: str, device: str, label2id: str, *,
     try:
         with (_plain_on_card() if plain else contextlib.nullcontext()), \
                 attention_dtype(None if dtype == "float32" else getattr(torch, dtype)):
-            loss, _ = workload.compute_loss(trainable, batch, draws)
+            loss, _ = workload.compute_loss(trainable, arrays, draws)
             (loss * loss_scale).backward()
     finally:
         gate._on_cuda = opened
