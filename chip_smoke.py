@@ -7,7 +7,8 @@ its IP-Adapter and PFG (prompt-free) trainers and samplers over CLIP and
 timm vision towers, its RoPE-distillation, DRaFT+ and style-tokenizer
 trainers, its optax optimizers and int8 training linears, its
 CogView4-6B 1024^2 sampler (bf16, NF4, int8, layer-group offload), its ``short`` attention
-backend and its two attention probes, on one CUDA card.
+backend and its two attention probes, and its inference server (NF4 + LoRA
+over loopback HTTP, with the quantize and import tools), on one CUDA card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 (with nf4_kernel,
@@ -285,6 +286,40 @@ nf4_timing times kernel #9 at the sampler's, the QLoRA trainer's and the
 CogView4 sampler's shapes and at the JAX package's bench shape (M 64, K =
 N = 8192), beside F.linear on the weight dequantized beforehand.
 
+21. import_sdxl and inference_server (last, in the SDXL trainers' directory):
+   the fp16 random-weight sgm file that sdxl_qlora_trainer's checkpoint was
+   quantized from (``tools.quantize_model.quantize_file`` on the card wrote
+   the NF4 file) through ``tools.checkpoint.import_sdxl.run_import``: a
+   strict load, a UNet forward at 128 x 128 latents and a 2-step 1024^2
+   generate (210 launches of #7). Then ``tools.inference_server.T2IModel``
+   on the QLoRA config (the NF4 file, word-hash) with the LoRA that
+   sdxl_qlora_trainer saved, served on 127.0.0.1:0 from a thread and driven
+   from threads through ``tools.inference_client.generate_image``: /health,
+   a seeded request at the server's defaults (768 x 1024, 25 steps, CFG
+   6.5), 8 seedless 1024^2 requests (CFG 5, 20 steps) queued while it runs,
+   which the batcher folds into one call (sampler calls [1, 8]), and a
+   malformed body (422); untimed 2-step warm-ups of both shapes first. The
+   group launches #7 1,400 times and #9 never (16 x 77 context rows, over
+   the kernel's 1,024), the default request #7 250 and #9 3,500 times; every
+   response a webp of its size, finite and not constant; the seeded
+   response's bytes those of the same ``generate`` made directly and encoded
+   as the server encodes it (or, if the card's sampler were not repeatable,
+   within one level before encoding); the peaks that ``check_memory`` and
+   ``snapshot_max_memory`` read equal ``torch.cuda.max_memory_allocated``;
+   a profiled 2-step group of 8.
+
+The parity phases' CPU halves (train_parity, parity, cache_latents' CPU
+encode, latent_parity, jit_variants_parity, sdxl_parity, sdxl_lora_parity,
+sdxl_flow_match_parity, sdxl_adapter_parity, sdxl_slice14_parity,
+cogview4_parity) run in one spawned worker process beside the card's
+phases (see ``CpuHalves``); the halves that need no card state are queued
+right after the build, the others when their card half runs, and each
+phase's comparison runs when both halves are in, before the kernels line.
+The SDXL LoRA, flow-match, adapter and slice-14 parity phases run before
+their trainers, and cogview4_parity before cogview4_sampler, so their CPU
+halves overlap the trainers and samplers; a ``cpu_halves`` line gives every
+job's span.
+
 Every kernel launch counter is set to 0 just before a path is driven and read
 just after. Then the ``{"kernels": [...]}`` line, the card's name and power
 limit as nvidia-smi prints them, and the result line.
@@ -292,9 +327,12 @@ limit as nvidia-smi prints them, and the result line.
 
 from __future__ import annotations
 
+import io
 import json
 import os
+import pickle
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -379,8 +417,11 @@ _STARTED = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    """One JSON line, stamped with the seconds since the script started."""
+    """One JSON line, stamped with the seconds since the script started and
+    the CPU-half jobs not done at the time."""
     at = round(time.perf_counter() - _STARTED, 1)
+    if _HALVES is not None:
+        fields.setdefault("cpu_halves_beside", _HALVES.beside())
     print(json.dumps({"phase": phase, "at_seconds": at, **fields}), flush=True)
 
 
@@ -396,6 +437,193 @@ def psnr(ours: np.ndarray, theirs: np.ndarray) -> float:
     mse = float(np.mean((ours - theirs) ** 2))
     peak = float(theirs.max() - theirs.min())
     return 10 * np.log10(peak**2 / max(mse, 1e-30))
+
+
+# ------------------------------------------------ the CPU halves, beside the card
+
+# The parity phases' CPU halves (the same weights and draws through the
+# plain versions on the host) run in one spawned worker process, one job at
+# a time in the order they were submitted, while the card goes on with the
+# later phases; each phase's comparison runs when both halves are in (at the
+# end of the run, before the kernels line). The worker takes all cores but
+# one, which the card's dispatching thread keeps. Every phase line names the
+# jobs not yet done when it was printed (``cpu_halves_beside``: the first is
+# running, the rest wait), because a host-bound s/step can move while one
+# runs. A card object reaches the worker, which makes its CPU twin
+# (``_cpu_twin``): pickled with every tensor copied to the host, each tensor whose
+# content the worker holds from the previous shipment sent by a key (shape,
+# dtype and two sums of its values) instead.
+_HALVES = None  # the CpuHalves of the run
+_STARTED_WALL = time.time()
+
+
+def _cpu_worker_init(threads: int) -> None:
+    torch.set_num_threads(threads)
+
+
+def _run_job(ship, fn, *args):
+    """A worker job: the shipped object (if any) unpacked, then ``fn``;
+    returns its result and the job's wall-clock span."""
+    started = time.time()
+    args = (_unship(ship), *args) if ship is not None else args
+    result = fn(*args)
+    return {"result": result, "span": (started, time.time())}
+
+
+_WORKER_CACHE: dict = {}  # the worker's tensors of the previous shipment
+
+
+class _Collector(pickle.Pickler):
+    """Pickles an object graph with its tensors left out, by index."""
+
+    def __init__(self, file):
+        super().__init__(file, protocol=4)
+        self.tensors, self.index = [], {}
+
+    def persistent_id(self, obj):
+        if isinstance(obj, torch.Tensor):
+            if id(obj) not in self.index:
+                self.index[id(obj)] = len(self.tensors)
+                self.tensors.append(obj)
+            return ("tensor", self.index[id(obj)])
+        if isinstance(obj, torch.Generator):
+            return ("generator", obj.initial_seed())
+        return None
+
+
+class _Restorer(pickle.Unpickler):
+    def __init__(self, file, manifest):
+        super().__init__(file)
+        self.manifest, self.made = manifest, {}
+
+    def persistent_load(self, pid):
+        kind, value = pid
+        if kind == "generator":
+            return torch.Generator().manual_seed(value)
+        if value not in self.made:
+            key, is_param, requires_grad = self.manifest[value]
+            tensor = _WORKER_CACHE[key].detach()
+            self.made[value] = (torch.nn.Parameter(tensor, requires_grad=requires_grad)
+                                if is_param else tensor.requires_grad_(requires_grad))
+        return self.made[value]
+
+
+def _content_keys(tensors) -> list[str]:
+    """A key per tensor from its shape, dtype and two sums of its values
+    (plain and position-weighted), computed where the tensor lies."""
+    keys = []
+    for t in tensors:
+        v = t.detach().reshape(-1).float()
+        w = torch.arange(v.numel(), device=v.device, dtype=torch.float32).remainder_(7919)
+        a, b = torch.stack([v.sum(), (v * w).sum()]).tolist()
+        keys.append(f"{tuple(t.shape)}|{t.dtype}|{a!r}|{b!r}")
+    return keys
+
+
+def _unship(ship: dict):
+    """The object of a shipment, its tensors on the host; the worker keeps
+    this shipment's tensors for the next one."""
+    global _WORKER_CACHE
+    new = torch.load(ship["tensors"], weights_only=True) if ship["tensors"] else {}
+    if ship["tensors"]:
+        os.remove(ship["tensors"])
+    cache = {key: new[key] if key in new else _WORKER_CACHE[key]
+             for key, _, _ in ship["manifest"]}
+    _WORKER_CACHE = cache
+    return _Restorer(io.BytesIO(ship["skeleton"]), ship["manifest"]).load()
+
+
+class CpuHalves:
+    """The worker process and its jobs (see above)."""
+
+    def __init__(self, work: str):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.work, self.threads = work, max((os.cpu_count() or 2) - 1, 1)
+        self.pool = ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init, initargs=(self.threads,))
+        self.jobs: list[list] = []  # [name, future, finish]
+        self.early: dict = {}
+        self.previous: set[str] = set()
+        self.shipped = {"count": 0, "bytes": 0, "sent_bytes": 0, "seconds": 0.0}
+
+    def ship(self, obj) -> dict:
+        """``obj`` pickled for the worker: the tensors it lacks written to a
+        file, the others named by their keys."""
+        t0 = time.perf_counter()
+        buf = io.BytesIO()
+        collector = _Collector(buf)
+        collector.dump(obj)
+        keys = _content_keys(collector.tensors)
+        manifest = [(key, isinstance(t, torch.nn.Parameter), t.requires_grad)
+                    for key, t in zip(keys, collector.tensors)]
+        new = {}
+        for key, t in zip(keys, collector.tensors):
+            if key not in self.previous and key not in new:
+                new[key] = t.detach().cpu()
+        path = None
+        if new:
+            path = os.path.join(self.work, f"ship{self.shipped['count']}.pt")
+            torch.save(new, path)
+        self.previous = set(keys)
+        self.shipped["count"] += 1
+        self.shipped["bytes"] += sum(t.numel() * t.element_size()
+                                     for t in {id(t): t for t in collector.tensors}.values())
+        self.shipped["sent_bytes"] += sum(t.numel() * t.element_size() for t in new.values())
+        self.shipped["seconds"] += time.perf_counter() - t0
+        return {"skeleton": buf.getvalue(), "manifest": manifest, "tensors": path}
+
+    def submit(self, name: str, fn, *args, ship=None, finish=None):
+        """Queue ``fn(*args)`` (with the shipped object first); ``finish``
+        takes its result when the run drains."""
+        future = self.pool.submit(_run_job, ship, fn, *args)
+        self.jobs.append([name, future, finish])
+        return future
+
+    def early_submit(self, key, name: str, fn, *args) -> None:
+        """A job whose inputs need no card work, queued at the start; the
+        phase that compares takes it with ``take``."""
+        self.early[key] = self.submit(name, fn, *args)
+
+    def take(self, key, name: str, fn, *args):
+        """The future of an early job, or the job queued now."""
+        return self.early.pop(key, None) or self.submit(name, fn, *args)
+
+    def then(self, future, finish) -> None:
+        for job in self.jobs:
+            if job[1] is future:
+                job[2] = finish
+
+    def beside(self) -> list[str]:
+        return [name for name, future, _ in self.jobs if not future.done()]
+
+    def drain(self) -> None:
+        """Each job's result through its ``finish``, in submission order;
+        then one line of the worker's jobs and their spans."""
+        spans = []
+        t0 = time.perf_counter()
+        for name, future, finish in self.jobs:
+            out = future.result()
+            started, ended = (round(t - _STARTED_WALL, 1) for t in out["span"])
+            spans.append({"job": name, "started_at": started, "ended_at": ended})
+            if finish is not None:
+                finish(out["result"], {"cpu_half": "worker", "cpu_started_at": started,
+                                        "cpu_ended_at": ended})
+        emit("cpu_halves", threads=self.threads, cpu_count=os.cpu_count(),
+             waited_seconds=time.perf_counter() - t0, jobs=spans,
+             shipped_objects=self.shipped["count"], shipped_bytes=self.shipped["bytes"],
+             sent_bytes=self.shipped["sent_bytes"],
+             ship_seconds=self.shipped["seconds"])
+        self.jobs = []
+
+    def close(self) -> None:
+        processes = list((self.pool._processes or {}).values())
+        self.pool.shutdown(wait=False, cancel_futures=True)
+        for process in processes:
+            process.terminate()
+            process.join(timeout=30)
 
 
 # ------------------------------------------------------------------ phases
@@ -851,13 +1079,19 @@ FLASH_BWD_PRODUCTS = 7
 # kernels #7 and #8's timed shapes (bf16, no kv_lens; label, B, S, H, D,
 # whether #8 is timed too): the latent trainer's, the SDXL sampler's and
 # trainer's two self-attentions at 1024^2 (B 2: CFG, or the training batch),
-# RoPE distillation's low-res pass at 512^2 (stage 2: S 1024, 10 heads), and
-# the CogView4 sampler's joint attention (forward only: no trainer)
+# RoPE distillation's low-res pass at 512^2 (stage 2: S 1024, 10 heads), the
+# CogView4 sampler's joint attention (forward only: no trainer), and the
+# inference server's: a group of 8 at 1024^2 under CFG (B 16) in stages 2
+# and 3, and the default 768 x 1024 request's stage 2 (S 3072; its stage 3,
+# S 768, is under MIN_FLASH_SEQ), forward only
 FLASH_TIMING_SHAPES = (("latent", LATENT_BATCH, 4106, 12, 64, True),
                        ("sdxl_s4096", 2, 4096, 10, 64, True),
                        ("sdxl_s1024", 2, 1024, 20, 64, True),
                        ("sdxl_lowres_s1024", 2, 1024, 10, 64, True),
-                       ("cogview4_s4112", 2, 4112, 32, 128, False))
+                       ("cogview4_s4112", 2, 4112, 32, 128, False),
+                       ("server_s4096", 16, 4096, 10, 64, False),
+                       ("server_s1024", 16, 1024, 20, 64, False),
+                       ("server_s3072", 2, 3072, 10, 64, False))
 
 
 def phase_flash_timing() -> dict:
@@ -1239,49 +1473,74 @@ def _trainer_resume(tmp: str, cfg: dict, unbroken: list[float]) -> None:
 RESUME_REL_TOL = 1e-3
 
 
+def _cpu_step(model: str, dtype: str, label2id: str, loss_scale: float,
+              depth: int | None, batch: int):
+    """A worker job: one step of ``tools.bench.step_parity`` on the CPU
+    (plain versions); (loss, gradients as arrays, seconds, launches)."""
+    from vision_pt_tpu_torch.tools.bench.step_parity import step
+
+    _reset_counts()
+    host = step(model, dtype, "cpu", label2id, loss_scale=loss_scale, depth=depth,
+                batch=batch)
+    return host.loss, {n: g.numpy() for n, g in host.grads.items()}, host.seconds, _counts()
+
+
+def _step_args(model: str, dtype: str, depth: int | None, label2id: str) -> tuple:
+    """The arguments of one parity step: fp16 at batch 1 (the first of the
+    two samples), the others at 2; the fp16 loss scaled by LOSS_SCALE."""
+    return (model, dtype, label2id, LOSS_SCALE.get(dtype, 1.0), depth,
+            1 if dtype == "float16" else 2)
+
+
 def _step_parity(phase: str, model: str, label2id: str, cases, **fields) -> None:
     """One training step of ``model`` (``tools.bench.step_parity``) on the
-    card (kernels) and on the CPU (plain versions) for each (dtype, depth or
-    None for the model's, launches) of ``cases``, held to
-    TRAIN_PARITY_FLOOR; the card step must launch ``launches``."""
+    card (kernels), and on the CPU (plain versions) in the worker, for each
+    (dtype, depth or None for the model's, launches) of ``cases``, held to
+    TRAIN_PARITY_FLOOR when both are in; the card step must launch
+    ``launches``."""
     from vision_pt_tpu_torch.tools.bench.step_parity import (
+        Step,
         grad_errors,
         step,
         summary,
     )
 
     for dtype, depth, launches, *cut in cases:
-        results = {}
-        batch = 1 if dtype == "float16" else 2
-        for device in ("cuda", "cpu"):
-            _reset_counts()
-            results[device] = (step(model, dtype, device, label2id,
-                                    loss_scale=LOSS_SCALE.get(dtype, 1.0),
-                                    depth=depth, batch=batch),
-                               _counts())
-        (card, counts_c), (host, counts_h) = results["cuda"], results["cpu"]
-        loss_err = abs(card.loss - host.loss) / abs(host.loss)
-        errors = summary(grad_errors(card.grads, host.grads))
-        floor = TRAIN_PARITY_FLOOR[dtype]
-        if batch != 2:
-            seconds = FP16_BATCH2_CPU_SECONDS[model]
-            cut.append(f"batch 1, not 2: ≈ {seconds - host.seconds:.0f} s saved (the CPU "
-                       f"half {host.seconds:.0f} s, {seconds} s at batch 2)")
-        emit(phase, dtype=dtype, batch=batch, depth=depth, cuts=cut, **fields,
-             loss_scale=LOSS_SCALE.get(dtype, 1.0), loss_cuda=card.loss,
-             loss_cpu=host.loss, loss_rel_err=loss_err,
-             grad_rel_l2_max=errors["max"], grad_rel_l2_median=errors["median"],
-             worst_params=errors["worst"], floor=floor, launches_cuda=counts_c,
-             launches_cpu=counts_h, seconds_cuda=card.seconds,
-             seconds_cpu=host.seconds)
+        args = _step_args(model, dtype, depth, label2id)
+        batch = args[-1]
+        future = _HALVES.take((model, dtype), f"{phase} {dtype}", _cpu_step, *args)
+        _reset_counts()
+        card = step(model, dtype, "cuda", label2id, loss_scale=args[3], depth=depth,
+                    batch=batch)
+        counts_c = _counts()
         check(all(bool(torch.isfinite(g).all()) for g in card.grads.values()),
               "non-finite grads")
-        check(counts_c == launches and counts_h == _expect({}),
-              f"the card step must launch {launches} ({counts_c}), the CPU "
-              f"step none ({counts_h})")
-        check(loss_err <= floor["loss"] and errors["max"] <= floor["grad"],
-              f"{dtype} {phase}: loss {loss_err:.2e}, grad {errors['worst'][0]}")
-        del results, card, host
+        check(counts_c == launches, f"the card step must launch {launches} ({counts_c})")
+
+        def finish(result, where, dtype=dtype, depth=depth, batch=batch, card=card,
+                   counts_c=counts_c, cut=cut):
+            loss, grads, seconds, counts_h = result
+            host = Step(loss, {n: torch.from_numpy(g) for n, g in grads.items()}, seconds)
+            loss_err = abs(card.loss - host.loss) / abs(host.loss)
+            errors = summary(grad_errors(card.grads, host.grads))
+            floor = TRAIN_PARITY_FLOOR[dtype]
+            if batch != 2:
+                total = FP16_BATCH2_CPU_SECONDS[model]
+                cut = [*cut, f"batch 1, not 2: ≈ {total - host.seconds:.0f} s saved (the "
+                       f"CPU half {host.seconds:.0f} s, {total} s at batch 2)"]
+            emit(phase, dtype=dtype, batch=batch, depth=depth, cuts=cut, **fields,
+                 **where, loss_scale=LOSS_SCALE.get(dtype, 1.0), loss_cuda=card.loss,
+                 loss_cpu=host.loss, loss_rel_err=loss_err,
+                 grad_rel_l2_max=errors["max"], grad_rel_l2_median=errors["median"],
+                 worst_params=errors["worst"], floor=floor, launches_cuda=counts_c,
+                 launches_cpu=counts_h, seconds_cuda=card.seconds,
+                 seconds_cpu=host.seconds)
+            check(counts_h == _expect({}), f"the CPU step launched {counts_h}")
+            check(loss_err <= floor["loss"] and errors["max"] <= floor["grad"],
+                  f"{dtype} {phase}: loss {loss_err:.2e}, grad {errors['worst'][0]}")
+
+        _HALVES.then(future, finish)
+        del card
         torch.cuda.empty_cache()
 
 
@@ -1300,47 +1559,62 @@ FP16_BATCH2_CPU_SECONDS = {"jit": 75, "latent": 87}
 LATENT_PARITY_DEPTH = 2
 
 
+# (model, dtype, depth) of each parity step, fp16 at FP16_PARITY_DEPTH
+STEP_PARITY_CASES = (("jit", "float32", None), ("jit", "bfloat16", None),
+                     ("jit", "float16", FP16_PARITY_DEPTH["jit"]),
+                     ("latent", "float32", LATENT_PARITY_DEPTH),
+                     ("latent", "bfloat16", LATENT_PARITY_DEPTH),
+                     ("latent", "float16", FP16_PARITY_DEPTH["latent"]))
+
+
 def phase_train_parity(label2id: str) -> None:
     """One JiT-B/16 training step's loss and gradients on the card and on
     the CPU (#1/#2 at S 298, blocks 0-3; fp16 at depth 5, batch 1)."""
     launches = _expect({1: 4, 2: 4})
     _step_parity("train_parity", "jit", label2id,
-                 [("float32", None, launches), ("bfloat16", None, launches),
-                  ("float16", FP16_PARITY_DEPTH["jit"], launches)])
+                 [(dtype, depth, launches) for model, dtype, depth in STEP_PARITY_CASES
+                  if model == "jit"])
 
 
-def phase_parity(label2id: str) -> None:
+def _jit_sample(label2id: str, dtype: str, device: str):
+    """The JiT-B/16 sampler from seed 0 on ``device``, batch 1, CFG, 2
+    steps, from fixed noise; (output, launches of #1)."""
     from vision_pt_tpu_torch.models.jit import JiTModel
     from vision_pt_tpu_torch.ops.attention import attention_dtype
 
+    init = np.random.default_rng(0).normal(size=(1, 256, 256, 3)).astype(np.float32)
+    model = JiTModel.new_with_config(_jit_b16_config(label2id, dtype), seed=0,
+                                     device=device)
+    _reset_counts()
+    with attention_dtype(None if dtype == "float32" else torch.bfloat16):
+        out = model.generate(
+            prompt=["c1"], width=256, height=256, num_inference_steps=2,
+            cfg_scale=2.0, execution_dtype=getattr(torch, dtype),
+            initial_noise=init, return_arrays=True,
+        )
+    return out.float().cpu().numpy(), _counts()[0]
+
+
+def phase_parity(label2id: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.set_num_threads(os.cpu_count() or 1)
-    init = np.random.default_rng(0).normal(size=(1, 256, 256, 3)).astype(np.float32)
     for dtype in ("float32", "bfloat16"):
-        config = _jit_b16_config(label2id, dtype)
-        results = {}
-        for device in ("cuda", "cpu"):
-            model = JiTModel.new_with_config(config, seed=0, device=device)
-            _reset_counts()
-            with attention_dtype(None if dtype == "float32" else torch.bfloat16):
-                out = model.generate(
-                    prompt=["c1"], width=256, height=256, num_inference_steps=2,
-                    cfg_scale=2.0, execution_dtype=getattr(torch, dtype),
-                    initial_noise=init, return_arrays=True,
-                )
-            results[device] = (out.float().cpu().numpy(), _counts()[0])
-            del model
-        value = psnr(results["cuda"][0], results["cpu"][0])
-        emit("parity", dtype=dtype, batch=1, cfg=True, steps=2,
-             psnr_db=value, floor_db=PSNR_FLOOR_DB[dtype],
-             kernel_launches_cuda=results["cuda"][1],
-             kernel_launches_cpu=results["cpu"][1])
-        check(np.isfinite(results["cuda"][0]).all(), "non-finite parity output")
-        check(results["cuda"][1] == 4 * 2 and results["cpu"][1] == 0,
-              "the card run must launch the kernel 8 times, the CPU run never")
-        check(value >= PSNR_FLOOR_DB[dtype],
-              f"{dtype} card-vs-CPU PSNR {value:.2f} dB < {PSNR_FLOOR_DB[dtype]}")
+        future = _HALVES.take(("parity", dtype), f"parity {dtype}", _jit_sample,
+                              label2id, dtype, "cpu")
+        card = _jit_sample(label2id, dtype, "cuda")
+        check(np.isfinite(card[0]).all(), "non-finite parity output")
+        check(card[1] == 4 * 2, "the card run must launch the kernel 8 times")
+
+        def finish(host, where, dtype=dtype, card=card):
+            value = psnr(card[0], host[0])
+            emit("parity", dtype=dtype, batch=1, cfg=True, steps=2, **where,
+                 psnr_db=value, floor_db=PSNR_FLOOR_DB[dtype],
+                 kernel_launches_cuda=card[1], kernel_launches_cpu=host[1])
+            check(host[1] == 0, "the CPU run must never launch the kernel")
+            check(value >= PSNR_FLOOR_DB[dtype],
+                  f"{dtype} card-vs-CPU PSNR {value:.2f} dB < {PSNR_FLOOR_DB[dtype]}")
+
+        _HALVES.then(future, finish)
 
 
 def _write_latent_images(folder: str, label2id: str) -> None:
@@ -1382,7 +1656,6 @@ def phase_cache_latents(tmp: str) -> tuple[int, ...]:
     matmuls off), whatever an earlier phase left, and they are restored
     after. Returns the kernel launches of the run (none: the VAE's attention
     is a plain product)."""
-    from vision_pt_tpu_torch.data.text_to_image import TextToImageDatasetConfig
     from vision_pt_tpu_torch.tools.data.cache_latents import build_vae, run
 
     folder, cache = os.path.join(tmp, "latent_images"), os.path.join(tmp, "latent_cache")
@@ -1407,48 +1680,70 @@ def phase_cache_latents(tmp: str) -> tuple[int, ...]:
     peak = torch.cuda.max_memory_allocated()
     with open(manifest) as f:
         rows = [json.loads(line) for line in f]
-    # the same VAE (the tool's seed) on the CPU, and the tool's first batch
+    # the same VAE (the tool's seed) on the CPU, in the worker, over the
+    # tool's first batch; the card's rows of that batch read now
     vae = build_vae(device="cuda")
-    host = build_vae(device="cpu")
-    host.load_state_dict({k: v.cpu() for k, v in vae.state_dict().items()})
+    state = os.path.join(_HALVES.work, "cache_latents_vae.pt")
+    torch.save({k: v.cpu() for k, v in vae.state_dict().items()}, state)
     del vae
+    future = _HALVES.submit("cache_latents", _cpu_encode, state, folder)
+    cached = []
+    for row in rows[:CACHE_BATCH]:
+        with np.load(os.path.join(cache, row["file"])) as z:
+            cached.append((row["caption"], z["mean"].astype(np.float32),
+                           z["std"].astype(np.float32)))
+    check(len(rows) == LATENT_ITEMS and {(r["latent_height"], r["latent_width"])
+                                         for r in rows} == {(LATENT_SIDE, LATENT_SIDE)},
+          f"cache of {len(rows)} rows")
+    check(counts == _expect({}), f"cache_latents launched {counts}")
+    fields = dict(tool="vision_pt_tpu_torch.tools.data.cache_latents",
+                  images=LATENT_ITEMS, resolution=8 * LATENT_SIDE, batch=CACHE_BATCH,
+                  vae="SDXL VAE at full width, random weights from seed 0",
+                  store="float16", matmul_allow_tf32=card_tf32[0],
+                  cudnn_allow_tf32=card_tf32[1], write_images_seconds=write_seconds,
+                  run_seconds=seconds, images_per_second=LATENT_ITEMS / seconds,
+                  peak_memory_bytes=peak, rows=len(rows),
+                  latent=[rows[0]["latent_height"], rows[0]["latent_width"], 4],
+                  launches=counts)
+
+    def finish(result, where):
+        captions, mean, std, cpu_seconds = result
+        errors, flipped = [], None
+        for i, (caption, cached_mean, cached_std) in enumerate(cached):
+            check(caption == captions[i], "cache rows out of batch order")
+            errors.append((_rel_l2(cached_mean, mean[i]), _rel_l2(cached_std, std[i])))
+            if i == 0:
+                flipped = (_rel_l2(cached_mean, mean[-1]), _rel_l2(cached_std, std[-1]))
+        emit("cache_latents", **fields, **where, cpu_encode_seconds=cpu_seconds,
+             mean_std_rel_l2=errors, flipped_image_rel_l2=flipped, floor=CACHE_FLOOR)
+        check(all(max(e) <= CACHE_FLOOR for e in errors),
+              f"cached latents against the CPU's: {errors}")
+        check(flipped[0] > CACHE_FLOOR, f"the floor passes a flipped image: {flipped}")
+
+    _HALVES.then(future, finish)
+    return counts
+
+
+def _cpu_encode(state: str, folder: str):
+    """A worker job: the cache tool's VAE with the card's weights on the
+    CPU, encoding the tool's first batch and its first image flipped
+    left-right; (captions, mean, std, seconds)."""
+    from vision_pt_tpu_torch.data.text_to_image import TextToImageDatasetConfig
+    from vision_pt_tpu_torch.tools.data.cache_latents import build_vae
+
+    host = build_vae(device="cpu")
+    host.load_state_dict(torch.load(state, weights_only=True))
+    os.remove(state)
     batch = next(iter(TextToImageDatasetConfig(
         folder=folder, batch_size=CACHE_BATCH, bucket_base_size=8 * LATENT_SIDE,
         shuffle=False, num_repeats=1).get_dataset()))
     images = batch["image"]
-    torch.set_num_threads(os.cpu_count() or 1)
-    t1 = time.perf_counter()
+    t0 = time.perf_counter()
     with torch.no_grad():
         dist = host.encode(torch.from_numpy(np.concatenate([images, images[:1, :, ::-1]])))
-    cpu_seconds = time.perf_counter() - t1
-    mean = dist.mean.numpy()
+    seconds = time.perf_counter() - t0
     std = torch.exp(0.5 * torch.clamp(dist.logvar, -30.0, 20.0)).numpy()
-    errors, flipped = [], None
-    for i, row in enumerate(rows[:CACHE_BATCH]):
-        with np.load(os.path.join(cache, row["file"])) as z:
-            cached = z["mean"].astype(np.float32), z["std"].astype(np.float32)
-        check(row["caption"] == batch["caption"][i], "cache rows out of batch order")
-        errors.append((_rel_l2(cached[0], mean[i]), _rel_l2(cached[1], std[i])))
-        if i == 0:
-            flipped = (_rel_l2(cached[0], mean[-1]), _rel_l2(cached[1], std[-1]))
-    emit("cache_latents", tool="vision_pt_tpu_torch.tools.data.cache_latents",
-         images=LATENT_ITEMS, resolution=8 * LATENT_SIDE, batch=CACHE_BATCH,
-         vae="SDXL VAE at full width, random weights from seed 0", store="float16",
-         matmul_allow_tf32=card_tf32[0], cudnn_allow_tf32=card_tf32[1],
-         write_images_seconds=write_seconds, run_seconds=seconds,
-         images_per_second=LATENT_ITEMS / seconds, peak_memory_bytes=peak,
-         rows=len(rows), latent=[rows[0]["latent_height"], rows[0]["latent_width"], 4],
-         cpu_encode_seconds=cpu_seconds, mean_std_rel_l2=errors,
-         flipped_image_rel_l2=flipped, floor=CACHE_FLOOR, launches=counts)
-    check(len(rows) == LATENT_ITEMS and {(r["latent_height"], r["latent_width"])
-                                         for r in rows} == {(LATENT_SIDE, LATENT_SIDE)},
-          f"cache of {len(rows)} rows")
-    check(all(max(e) <= CACHE_FLOOR for e in errors),
-          f"cached latents against the CPU's: {errors}")
-    check(flipped[0] > CACHE_FLOOR, f"the floor passes a flipped image: {flipped}")
-    check(counts == _expect({}), f"cache_latents launched {counts}")
-    del host, dist
-    return counts
+    return list(batch["caption"]), dist.mean.numpy(), std, seconds
 
 
 def phase_latent_trainer(tmp: str) -> tuple[int, ...]:
@@ -1538,12 +1833,11 @@ def phase_latent_parity(tmp: str) -> None:
     CPU: full width, depth 2 (fp16: 1, batch 1), a 64 x 64 latent (S = 1098),
     batch 2
     (#7/#8, one launch each a block)."""
-    fp16, depth = FP16_PARITY_DEPTH["latent"], LATENT_PARITY_DEPTH
-    cut = f"depth {depth}, not 6 (≈ 8 s saved)"
+    cut = f"depth {LATENT_PARITY_DEPTH}, not 6 (≈ 8 s saved)"
     _step_parity("latent_parity", "latent", os.path.join(tmp, "latent_label2id.json"),
-                 [("float32", depth, _expect({7: depth, 8: depth}), cut),
-                  ("bfloat16", depth, _expect({7: depth, 8: depth}), cut),
-                  ("float16", fp16, _expect({7: fp16, 8: fp16}))],
+                 [(dtype, depth, _expect({7: depth, 8: depth}),
+                   *([cut] if dtype != "float16" else []))
+                  for model, dtype, depth in STEP_PARITY_CASES if model == "latent"],
                  latent=[64, 64, 4])
 
 
@@ -1766,14 +2060,45 @@ def _rel_l2(ours: np.ndarray, theirs: np.ndarray) -> float:
     return float(np.linalg.norm(ours - theirs) / max(np.linalg.norm(theirs), 1e-30))
 
 
+def _sdxl_parity_run(model, inputs: dict):
+    """(UNet output, latents, launches, seconds) of one UNet call and the
+    2-step generate of sdxl_parity on ``model``'s device, the flash and NF4
+    gates open (the CPU runs the same path, through the plain versions)."""
+    import vision_pt_tpu_torch.ops.attention as attention
+    from vision_pt_tpu_torch.ops.quant import layers as qlayers
+
+    bf16, device = torch.bfloat16, model.device
+    args = [torch.from_numpy(a).to(device, bf16 if i in (0, 2, 3) else torch.float32)
+            for i, a in enumerate(inputs["unet_args"])]
+    _reset_counts()
+    gates = attention._on_cuda, qlayers._on_cuda
+    attention._on_cuda = qlayers._on_cuda = lambda x: True
+    t0 = time.perf_counter()
+    try:
+        with torch.inference_mode():
+            unet_out = model.denoiser(*args)
+        out = model.generate(SDXL_PROMPT[0], SDXL_PROMPT[1], width=512,
+                             height=512, num_inference_steps=2,
+                             cfg_scale=SDXL_CFG, execution_dtype=bf16,
+                             latents=inputs["latents"], step_noise=inputs["noise"],
+                             return_latents=True)
+    finally:
+        attention._on_cuda, qlayers._on_cuda = gates
+    return (unet_out.float().cpu().numpy(), out.float().cpu().numpy(),
+            _counts(), time.perf_counter() - t0)
+
+
+def _cpu_model_run(model, run, *args):
+    """A worker job: the shipped pipeline moved to the CPU, then ``run``."""
+    return run(model.to("cpu"), *args)
+
+
 def phase_sdxl_parity() -> None:
     """The same weights and draws on the card (kernels) and on the CPU (the
-    plain versions of the same path): full widths, layers_per_block 1, one
-    transformer per stage, 512^2, bf16; one UNet call (batch 2) and a 2-step
-    CFG generate, before and after NF4 quantization."""
-    import copy
-
-    import vision_pt_tpu_torch.ops.attention as attention
+    plain versions of the same path, in the worker): full widths,
+    layers_per_block 1, one transformer per stage, 512^2, bf16; one UNet
+    call (batch 2) and a 2-step CFG generate, before and after NF4
+    quantization."""
     from vision_pt_tpu_torch.models.sdxl import (
         DenoiserConfig,
         SDXLConfig,
@@ -1784,8 +2109,6 @@ def phase_sdxl_parity() -> None:
     from vision_pt_tpu_torch.ops.quant import quantize_inplace
     from vision_pt_tpu_torch.tools import inference_cli as cli
 
-    bf16 = torch.bfloat16
-    torch.set_num_threads(os.cpu_count() or 1)
     config = SDXLConfig(checkpoint_path="", dtype="bfloat16", denoiser=DenoiserConfig(
         layers_per_block=1, num_transformers_per_block=[1, 1, 1]))
     tokenizer = WordHashTokenizer()
@@ -1800,81 +2123,69 @@ def phase_sdxl_parity() -> None:
         np.full((2, 2), 512.0, np.float32), np.full((2, 2), 512.0, np.float32),
         np.zeros((2, 2), np.float32),
     ]
-    low = (0, 2, 3)  # the arguments in the execution dtype
     sigma = card.scheduler.get_max_noise_sigma(
         card.scheduler.get_sigmas(card.scheduler.get_timesteps(2)))
     latents = rng.normal(size=(1, 64, 64, 4)).astype(np.float32) * sigma
     noise = [rng.normal(size=(1, 64, 64, 4)).astype(np.float32) for _ in range(2)]
-
-    def run(model, device):
-        """(UNet output, latents, launches, seconds) of one UNet call and the
-        2-step generate; the CPU runs the same path, through the plain
-        versions."""
-        args = [torch.from_numpy(a).to(device, bf16 if i in low else torch.float32)
-                for i, a in enumerate(unet_args)]
-        _reset_counts()
-        gates = attention._on_cuda, qlayers._on_cuda
-        attention._on_cuda = qlayers._on_cuda = lambda x: True
-        t0 = time.perf_counter()
-        try:
-            with torch.inference_mode():
-                unet_out = model.denoiser(*args)
-            out = model.generate(SDXL_PROMPT[0], SDXL_PROMPT[1], width=512,
-                                 height=512, num_inference_steps=2,
-                                 cfg_scale=SDXL_CFG, execution_dtype=bf16,
-                                 latents=latents, step_noise=noise,
-                                 return_latents=True)
-        finally:
-            attention._on_cuda, qlayers._on_cuda = gates
-        return (unet_out.float().cpu().numpy(), out.float().cpu().numpy(),
-                _counts(), time.perf_counter() - t0)
+    inputs = {"unet_args": unet_args, "latents": latents, "noise": noise}
 
     for label in ("bf16", "nf4"):
         if label == "nf4":
             quantize_inplace(card.denoiser, "bnb_nf4", cli.INCLUDE_KEYS,
                              cli.EXCLUDE_KEYS)
-        host = copy.deepcopy(card).to("cpu")
-        unet_c, lat_c, counts_c, sec_c = run(card, "cuda")
-        unet_h, lat_h, counts_h, sec_h = run(host, "cpu")
-        errors = {"unet": _rel_l2(unet_c, unet_h), "latents": _rel_l2(lat_c, lat_h)}
-        emit("sdxl_parity", unet=label, resolution=512, depth="layers_per_block 1, "
-             "one transformer per stage", rel_l2=errors, floor=SDXL_PARITY_FLOOR,
-             psnr_db={"unet": psnr(unet_c, unet_h), "latents": psnr(lat_c, lat_h)},
-             launches_cuda=counts_c, launches_cpu=counts_h,
-             expected_cuda=SDXL_PARITY_LAUNCHES[label], seconds_cuda=sec_c,
-             seconds_cpu=sec_h)
+        future = _HALVES.submit(f"sdxl_parity {label}", _cpu_model_run,
+                                _sdxl_parity_run, inputs, ship=_HALVES.ship(card))
+        unet_c, lat_c, counts_c, sec_c = _sdxl_parity_run(card, inputs)
         check(np.isfinite(unet_c).all() and np.isfinite(lat_c).all(),
               "non-finite SDXL parity output")
-        check(counts_c == SDXL_PARITY_LAUNCHES[label] and counts_h == _expect({}),
+        check(counts_c == SDXL_PARITY_LAUNCHES[label],
               f"SDXL parity launches: card {counts_c}, expected "
-              f"{SDXL_PARITY_LAUNCHES[label]}; CPU {counts_h}, expected none")
-        check(all(errors[k] <= SDXL_PARITY_FLOOR[k] for k in errors),
-              f"SDXL {label} parity {errors} over {SDXL_PARITY_FLOOR}")
-        del host
-        if label != "nf4":
-            continue
-        # the floors must fail a kernel #9 that is slightly wrong in every
-        # launch: its scale row 3 25% off, or that chunk left out
-        kernel, wrong_errors = qlayers.dequant_matmul_4bit, {}
-        for wrong_label, scale in (("absmax_row_perturbed", 1.25),
-                                   ("chunk_dropped", 0.0)):
-            def wrong(x, packed, absmax, quant_type="nf4", scale=scale):
-                absmax = absmax.clone()
-                absmax[3] *= scale
-                return kernel(x, packed, absmax, quant_type)
+              f"{SDXL_PARITY_LAUNCHES[label]}")
+        wrong_runs = {}
+        if label == "nf4":
+            # the floors must fail a kernel #9 that is slightly wrong in
+            # every launch: its scale row 3 25% off, or that chunk left out
+            kernel = qlayers.dequant_matmul_4bit
+            for wrong_label, scale in (("absmax_row_perturbed", 1.25),
+                                       ("chunk_dropped", 0.0)):
+                def wrong(x, packed, absmax, quant_type="nf4", scale=scale):
+                    absmax = absmax.clone()
+                    absmax[3] *= scale
+                    return kernel(x, packed, absmax, quant_type)
 
-            qlayers.dequant_matmul_4bit = wrong
-            try:
-                unet_w, lat_w, _, _ = run(card, "cuda")
-            finally:
-                qlayers.dequant_matmul_4bit = kernel
-            wrong_errors[wrong_label] = {"unet": _rel_l2(unet_w, unet_h),
-                                         "latents": _rel_l2(lat_w, lat_h)}
-        emit("sdxl_parity", unet=label, case="limits_can_fail", rel_l2=wrong_errors,
-             floor=SDXL_PARITY_FLOOR)
-        for wrong_label, e in wrong_errors.items():
-            check(all(e[k] > SDXL_PARITY_FLOOR[k] for k in e),
-                  f"an SDXL parity floor passes kernel #9 with {wrong_label}: {e}")
+                qlayers.dequant_matmul_4bit = wrong
+                try:
+                    wrong_runs[wrong_label] = _sdxl_parity_run(card, inputs)[:2]
+                finally:
+                    qlayers.dequant_matmul_4bit = kernel
+
+        def finish(result, where, label=label, card_run=(unet_c, lat_c, counts_c, sec_c),
+                   wrong_runs=wrong_runs):
+            unet_c, lat_c, counts_c, sec_c = card_run
+            unet_h, lat_h, counts_h, sec_h = result
+            errors = {"unet": _rel_l2(unet_c, unet_h), "latents": _rel_l2(lat_c, lat_h)}
+            emit("sdxl_parity", unet=label, resolution=512, depth="layers_per_block 1, "
+                 "one transformer per stage", **where, rel_l2=errors,
+                 floor=SDXL_PARITY_FLOOR,
+                 psnr_db={"unet": psnr(unet_c, unet_h), "latents": psnr(lat_c, lat_h)},
+                 launches_cuda=counts_c, launches_cpu=counts_h,
+                 expected_cuda=SDXL_PARITY_LAUNCHES[label], seconds_cuda=sec_c,
+                 seconds_cpu=sec_h)
+            check(counts_h == _expect({}), f"SDXL parity launches on the CPU: {counts_h}")
+            check(all(errors[k] <= SDXL_PARITY_FLOOR[k] for k in errors),
+                  f"SDXL {label} parity {errors} over {SDXL_PARITY_FLOOR}")
+            if not wrong_runs:
+                return
+            wrong_errors = {name: {"unet": _rel_l2(unet_w, unet_h),
+                                   "latents": _rel_l2(lat_w, lat_h)}
+                            for name, (unet_w, lat_w) in wrong_runs.items()}
+            emit("sdxl_parity", unet=label, case="limits_can_fail", rel_l2=wrong_errors,
+                 floor=SDXL_PARITY_FLOOR)
+            for wrong_label, e in wrong_errors.items():
+                check(all(e[k] > SDXL_PARITY_FLOOR[k] for k in e),
+                      f"an SDXL parity floor passes kernel #9 with {wrong_label}: {e}")
+
+        _HALVES.then(future, finish)
     del card
     torch.cuda.empty_cache()
 
@@ -1953,13 +2264,15 @@ def _write_sdxl_images(folder: str) -> None:
 
 
 def _write_nf4_checkpoint(path: str) -> dict:
-    """A random-weight SDXL checkpoint in the sgm layout, fp16, its UNet
-    linears (QLORA_QUANT_KEYS) NF4-prequantized by ``quantize_state_dict``
-    on the card."""
+    """A random-weight SDXL checkpoint in the sgm layout, fp16, written to a
+    file beside ``path``; the port's quantize tool (``tools.quantize_model``,
+    its function, on the card) then writes ``path`` from it, the UNet's
+    linears that QLORA_QUANT_KEYS name NF4-prequantized. The fp16 file stays
+    for the server phase's import check."""
     from safetensors.numpy import save_file
 
     from vision_pt_tpu_torch.models.sdxl import SDXLConfig, SDXLModel
-    from vision_pt_tpu_torch.ops.quant.functional import quantize_state_dict
+    from vision_pt_tpu_torch.tools.quantize_model import quantize_file
 
     t0 = time.perf_counter()
     model = SDXLModel.from_config(SDXLConfig(checkpoint_path="", dtype="bfloat16"),
@@ -1967,13 +2280,18 @@ def _write_nf4_checkpoint(path: str) -> dict:
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
     del model
     torch.cuda.empty_cache()
-    unet = [k for k in sd if k.startswith("model.diffusion_model.")]
-    quantized = quantize_state_dict({k: sd.pop(k) for k in unet}, "bnb_nf4",
-                                    QLORA_QUANT_KEYS, device="cuda")
-    sd.update(quantized)
-    save_file({k: np.ascontiguousarray(v) for k, v in sd.items()}, path)
-    return {"nf4_linears": sum(k.endswith(".quant_state.bitsandbytes__nf4") for k in sd),
-            "bytes": os.path.getsize(path), "seconds": time.perf_counter() - t0}
+    fp16 = path.replace(".bnb_nf4.safetensors", ".fp16.safetensors")
+    t1 = time.perf_counter()
+    save_file({k: np.ascontiguousarray(v) for k, v in sd.items()}, fp16)
+    fp16_write = time.perf_counter() - t1
+    del sd
+    tool = quantize_file(fp16, path, "bnb_nf4",
+                         [f"model.diffusion_model.*{k}" for k in QLORA_QUANT_KEYS], [],
+                         device="cuda")
+    return {"nf4_linears": tool["quantized"], "bytes": os.path.getsize(path),
+            "seconds": time.perf_counter() - t0, "fp16_path": fp16,
+            "fp16_bytes": os.path.getsize(fp16), "fp16_write_seconds": fp16_write,
+            "quantize_tool": tool}
 
 
 def _sdxl_train_config(tmp: str, label: str, checkpoint: str | None) -> tuple[str, list]:
@@ -2003,8 +2321,8 @@ def _sdxl_train_config(tmp: str, label: str, checkpoint: str | None) -> tuple[st
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     cuts = ["random weights from the seed" if checkpoint is None else
-            "random weights from a seed, NF4-prequantized in-process "
-            "(quantize_state_dict)",
+            "random weights from a seed, written fp16 and NF4-prequantized by the "
+            "port's quantize tool (tools.quantize_model.quantize_file)",
             "word-hash tokenizer (the repository has no CLIP vocabulary)",
             f"{SDXL_TRAIN_IMAGES} synthetic 1024^2 images with captions, "
             f"num_repeats 4, batch 2: 1 epoch of {SDXL_TRAIN_STEPS} steps",
@@ -2114,9 +2432,237 @@ def phase_sdxl_trainer(tmp: str, label: str) -> tuple[int, ...]:
                                                             trainer._next_generator()))
     del trainer, tree
     torch.cuda.empty_cache()
-    if checkpoint is not None:
-        os.remove(checkpoint)
     return counts
+
+
+# ---------------------------------- the inference server
+
+# inference_server: the port's server (tools.inference_server) on the QLoRA
+# trainer's NF4 file and LoRA, over loopback HTTP. A seeded request at the
+# server's defaults (768 x 1024, 25 steps, CFG 6.5) runs alone; 8 seedless
+# 1024^2 requests (CFG 5, 20 steps) queued while it runs form one group.
+# Launches: the group's UNet calls (B 16) take #7 in all 70 self-attentions
+# (10 at S 4096, 60 at S 1024) and #9 never (16 x 77 = 1,232 context rows,
+# over the kernel's 1,024); the default request takes #7 only in stage 2
+# (S 3,072; stage 3's S 768 is under MIN_FLASH_SEQ) and #9 in the 140 to_k /
+# to_v products over 2 x 77 rows
+SERVER_GROUP, SERVER_GROUP_STEPS, SERVER_GROUP_CFG = 8, 20, 5.0
+SERVER_GROUP_LAUNCHES = _expect({7: 70 * SERVER_GROUP_STEPS})
+SERVER_DEFAULT_LAUNCHES = _expect({7: 10 * 25, 9: 140 * 25})
+SERVER_SEED = 1234
+SERVER_PROMPTS = ("a red fox in the snow, detailed fur", "a lighthouse at dusk",
+                  "portrait of a cat wearing a hat", "a bowl of ramen, top view",
+                  "a mountain lake at sunrise", "an old steam locomotive",
+                  "a watercolor of a city street", "a robot reading a book")
+# an import check of the fp16 file (tools.checkpoint.import_sdxl): a strict
+# load, a UNet forward at 1024^2 (70 #7 launches) and a 2-step generate
+IMPORT_STEPS = 2
+IMPORT_LAUNCHES = _expect({7: 70 + 70 * IMPORT_STEPS})
+
+
+def _webp_image(body: bytes):
+    from PIL import Image
+
+    return Image.open(io.BytesIO(body))
+
+
+def phase_import_sdxl(tmp: str, fp16: str) -> tuple[int, ...]:
+    """The port's import tool's ``run_import`` on the fp16 checkpoint, on
+    the card, without the quant matrix."""
+    from vision_pt_tpu_torch.models.sdxl import SDXLConfig
+    from vision_pt_tpu_torch.tools.checkpoint import import_sdxl
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    report = import_sdxl.run_import(SDXLConfig(checkpoint_path=fp16),
+                                    os.path.join(tmp, "import_sdxl"),
+                                    num_inference_steps=IMPORT_STEPS)
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    emit("import_sdxl", tool="vision_pt_tpu_torch.tools.checkpoint.import_sdxl",
+         checkpoint="the random fp16 sgm file", report=report, seconds=seconds,
+         launches=counts, expected=IMPORT_LAUNCHES)
+    check(report["denoiser_forward"] == "ok" and report["bf16"]["pixel_std"] > 0,
+          f"import_sdxl report {report}")
+    check(counts == IMPORT_LAUNCHES, f"import_sdxl launches {counts}, expected "
+          f"{IMPORT_LAUNCHES}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_inference_server(tmp: str) -> dict[str, tuple[int, ...]]:
+    """The port's server over loopback HTTP, on the QLoRA trainer's config
+    (the NF4 file the quantize tool wrote, word-hash) with the LoRA it saved,
+    driven from threads through the port's client; see SERVER_* above.
+    Returns the launches of the drive, of its group and of its default
+    request."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from vision_pt_tpu_torch.tools import inference_client, inference_server
+    from vision_pt_tpu_torch.tools.bench import check_memory
+    from vision_pt_tpu_torch.tools.snapshot_max_memory import live_stats
+
+    checkpoint = os.path.join(tmp, "sdxl_random.bnb_nf4.safetensors")
+    fp16 = checkpoint.replace(".bnb_nf4.safetensors", ".fp16.safetensors")
+    launches = {"import_sdxl": phase_import_sdxl(tmp, fp16)}
+    os.remove(fp16)
+    lora_dir = os.path.join(tmp, "qlora", "out")
+    lora = os.path.join(lora_dir, os.listdir(lora_dir)[0])
+    t0 = time.perf_counter()
+    t2i = inference_server.T2IModel(os.path.join(tmp, "qlora", "config.yml"), lora)
+    load_seconds = time.perf_counter() - t0
+    os.remove(checkpoint)
+    calls, started = [], threading.Event()
+    generate_batch = t2i.batcher._generate_batch
+
+    def counting(params_list):
+        started.set()
+        before = _counts()
+        t0 = time.perf_counter()
+        out = generate_batch(params_list)
+        calls.append((len(params_list), _diff(_counts(), before), time.perf_counter() - t0))
+        return out
+
+    t2i.batcher._generate_batch = counting
+    encoded = []
+    encode = inference_server.encode_webp
+
+    def recording(image):
+        body = encode(image)
+        encoded.append((image, body))
+        return body
+
+    P = inference_server.GenerationParams
+    default = P(prompt=SERVER_PROMPTS[0], seed=SERVER_SEED)
+    group = [P(prompt=p, width=1024, height=1024, inference_steps=SERVER_GROUP_STEPS,
+               cfg_scale=SERVER_GROUP_CFG) for p in SERVER_PROMPTS]
+    # untimed warm-ups of both shapes, 2 steps
+    t2i._generate_batch([default.model_copy(update={"inference_steps": 2})])
+    t2i._generate_batch([g.model_copy(update={"inference_steps": 2}) for g in group])
+    calls.clear()
+
+    server = inference_server.serve(t2i, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    results, failures = {}, []
+
+    def client(key, params):
+        try:
+            t0 = time.perf_counter()
+            images, status = inference_client.generate_image(
+                url, params.prompt, params.negative_prompt, params.width, params.height,
+                params.inference_steps, params.cfg_scale, seed=params.seed)
+            results[key] = (images[0], time.perf_counter() - t0, status)
+        except Exception as e:  # noqa: BLE001 - failed below, by name
+            failures.append((key, repr(e)))
+
+    inference_server.encode_webp = recording
+    try:
+        with urllib.request.urlopen(f"{url}/health") as resp:
+            health = json.loads(resp.read())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        first = threading.Thread(target=client, args=("default", default))
+        t_default = time.perf_counter()
+        first.start()
+        check(started.wait(timeout=600), "the seeded request never reached the sampler")
+        t_group = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i, g)) for i, g in enumerate(group)]
+        for t in threads:
+            t.start()
+        first.join()
+        for t in threads:
+            t.join()
+        group_seconds = time.perf_counter() - t_group
+        drive_seconds = time.perf_counter() - t_default
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        reported = {"check_memory": check_memory.report("inference_server")[0][
+            "peak_bytes_in_use"], "snapshot_max_memory": live_stats()[0]["peak_bytes_in_use"]}
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                f"{url}/predict", data=b'{"prompt": "x", "width": 1000}',
+                headers={"Content-Type": "application/json"}))
+            malformed = 200
+        except urllib.error.HTTPError as e:
+            malformed = e.code
+    finally:
+        inference_server.encode_webp = encode
+        server.shutdown()
+        server.server_close()
+    check(not failures, f"requests failed: {failures}")
+    check(health == {"status": "ok"}, f"/health answered {health}")
+    sizes = [n for n, _, _ in calls]
+    # the seeded response against the same request made directly and
+    # encoded as the server encodes it
+    served_image, served_body = next((image, body) for image, body in encoded
+                                     if image.size == (default.width, default.height))
+    direct = t2i.model.generate(
+        prompt=[default.prompt], negative_prompt=[default.negative_prompt],
+        num_inference_steps=default.inference_steps, cfg_scale=default.cfg_scale,
+        width=default.width, height=default.height, seed=default.seed)[0]
+    direct_body = encode(direct)
+    pixel_gap = float(np.abs(np.asarray(direct, np.int16)
+                             - np.asarray(served_image, np.int16)).max())
+    same_bytes = direct_body == served_body
+    for key, (image, seconds, _) in results.items():
+        params = default if key == "default" else group[key]
+        check(image.format == "WEBP" and image.size == (params.width, params.height),
+              f"response {key}: {image.format} {image.size}")
+        pixels = np.asarray(image.convert("RGB"), np.float32)
+        check(np.isfinite(pixels).all() and pixels.std() > 0,
+              f"response {key}: a constant or non-finite image")
+    check(np.array_equal(np.asarray(results["default"][0].convert("RGB")),
+                         np.asarray(_webp_image(served_body).convert("RGB"))),
+          "the seeded response is not the image the server encoded")
+    group_counts = next((c for n, c, _ in calls if n == SERVER_GROUP), None)
+    default_counts = next((c for n, c, _ in calls if n == 1), None)
+    group_call = next((sec for n, _, sec in calls if n == SERVER_GROUP), None)
+    group_requests = [results[i][1] for i in range(SERVER_GROUP)]
+    emit("inference_server", tool="vision_pt_tpu_torch.tools.inference_server",
+         config="configs/sdxl/text_to_image_qlora_nf4.yml (the QLoRA trainer's copy)",
+         checkpoint="NF4 file written by tools.quantize_model from the random fp16 file",
+         lora=os.path.basename(lora), load_seconds=load_seconds,
+         health=health, malformed_status=malformed, batch_sizes=sizes,
+         default_request={"width": default.width, "height": default.height,
+                          "steps": default.inference_steps, "cfg": default.cfg_scale,
+                          "seconds": results["default"][1],
+                          "sampler_seconds": next((sec for n, _, sec in calls if n == 1),
+                                                  None)},
+         group={"requests": SERVER_GROUP, "side": 1024, "steps": SERVER_GROUP_STEPS,
+                "cfg": SERVER_GROUP_CFG, "sampler_seconds": group_call,
+                "seconds_per_image": group_call / SERVER_GROUP,
+                "images_per_second": SERVER_GROUP / group_call,
+                "request_seconds": group_requests,
+                "last_response_after_seconds": group_seconds},
+         drive_seconds=drive_seconds, launches=counts,
+         launches_group=group_counts, expected_group=SERVER_GROUP_LAUNCHES,
+         launches_default=default_counts, expected_default=SERVER_DEFAULT_LAUNCHES,
+         seeded_same_bytes=same_bytes, seeded_max_pixel_gap=pixel_gap,
+         peak_memory_bytes=peak, reported_peaks=reported)
+    check(malformed == 422, f"a malformed body got {malformed}, expected 422")
+    check(sizes == [1, SERVER_GROUP], f"sampler calls of {sizes}, expected [1, 8]")
+    check(group_counts == SERVER_GROUP_LAUNCHES,
+          f"the group launched {group_counts}, expected {SERVER_GROUP_LAUNCHES}")
+    check(default_counts == SERVER_DEFAULT_LAUNCHES,
+          f"the default request launched {default_counts}, expected "
+          f"{SERVER_DEFAULT_LAUNCHES}")
+    check(same_bytes or pixel_gap <= 1,
+          f"the seeded response differs from the direct generate: {pixel_gap} levels")
+    check(reported == {"check_memory": peak, "snapshot_max_memory": peak},
+          f"reported peaks {reported}, torch.cuda.max_memory_allocated {peak}")
+    # where a group's time goes: 2 steps, profiled (device alone)
+    profile("inference_server_group", lambda: t2i._generate_batch(
+        [g.model_copy(update={"inference_steps": 2}) for g in group]))
+    del t2i, direct
+    torch.cuda.empty_cache()
+    launches.update(inference_server=counts, inference_server_group=group_counts,
+                    inference_server_default=default_counts)
+    return launches
 
 
 # the fp32 witness of a parity step: the same step in fp32 on the card
@@ -2180,22 +2726,55 @@ def _parity_verdict(run, host, witness):
     return over + (["loss"] if loss_err > floor["loss"] else [])
 
 
-def _host_twin(workload_cls, config, card):
-    """The card workload's model and training tree, copied to the CPU."""
-    import copy
-
+def _cpu_twin(workload_cls, config, card):
+    """The shipped card workload's model and training tree as a CPU
+    workload (the worker's copy is its own, so nothing is copied again)."""
     host = workload_cls(config, torch.device("cpu"))
-    host.model, host._full_trainable = copy.deepcopy((card.model, card._full_trainable))
+    host.model, host._full_trainable = card.model, card._full_trainable
     host.model.to("cpu")
     host._is_peft = True
     if hasattr(card, "_drop_rng"):  # the image adapters' host-side draws
-        host._drop_rng = copy.deepcopy(card._drop_rng)
+        host._drop_rng = card._drop_rng
     if hasattr(card, "reward_models"):  # DRaFT+'s frozen reward towers
-        host.reward_models = copy.deepcopy(card.reward_models)
+        host.reward_models = card.reward_models
         for reward in host.reward_models:
             if getattr(reward, "model", None) is not None:
                 reward.model.to("cpu")
     return host
+
+
+def _exact_fp32():
+    """TF32 off for matmuls and cuDNN, fp32 matmul precision "highest" and
+    fp32 attention, for the fp32 witnesses; restored after."""
+    import contextlib
+
+    from vision_pt_tpu_torch.ops.attention import attention_dtype
+
+    @contextlib.contextmanager
+    def scope():
+        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                torch.get_float32_matmul_precision())
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        try:
+            with attention_dtype(None):
+                yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32[:2]
+            torch.set_float32_matmul_precision(tf32[2])
+
+    return scope()
+
+
+def _cpu_parity_step(card, workload_cls, config, batch: dict, draws: dict,
+                     fp32: bool = False):
+    """A worker job: one step of the shipped card workload's CPU twin, the
+    gates open (the plain versions); in fp32 under ``_exact_fp32``."""
+    host = _cpu_twin(workload_cls, config, card)
+    if not fp32:
+        return _parity_step(host, batch, draws)
+    with _exact_fp32():
+        return _parity_step(host, batch, draws)
 
 
 def _perturb_adapters(tree, names: tuple[str, ...], seed: int, scale: float) -> None:
@@ -2225,13 +2804,34 @@ def _attach(card, peft: dict, seed: int = 1) -> None:
     card._is_peft = True
 
 
+def _generate_latents(pipeline, request: dict, kernels: bool = True):
+    """``pipeline.generate(**request)``'s latents with the flash gate open
+    (``kernels``: the CPU runs the plain versions of the same path) or
+    closed; (latents, seconds, launches)."""
+    import vision_pt_tpu_torch.ops.attention as attention
+
+    opened = attention._on_cuda
+    attention._on_cuda = lambda x: kernels
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out = pipeline.generate(**request, return_latents=True)
+    finally:
+        attention._on_cuda = opened
+    return out.float().cpu().numpy(), time.perf_counter() - t0, _counts()
+
+
+def _cpu_twin_generate(card, workload_cls, config, request: dict):
+    """A worker job: ``_generate_latents`` on the shipped workload's CPU twin."""
+    return _generate_latents(_cpu_twin(workload_cls, config, card).model, request)
+
+
 def _fp32_witness(phase: str, workload_cls, config: dict, card, batch: dict,
-                  draws: dict, floor: float = SDXL_FP32_WITNESS_FLOOR) -> float:
+                  draws: dict, floor: float = SDXL_FP32_WITNESS_FLOOR) -> None:
     """The bf16 card workload's step in fp32 on the card (kernels) and on the
-    CPU, from the same weights and adapters, held to ``floor``; emits every
-    gradient's relative L2 and returns the largest."""
+    CPU (in the worker), from the same weights and adapters, held to
+    ``floor``; emits every gradient's relative L2."""
     from vision_pt_tpu_torch.config import TrainConfig
-    from vision_pt_tpu_torch.ops.attention import attention_dtype
 
     peft = config["peft"]
     if peft is not None:
@@ -2245,42 +2845,36 @@ def _fp32_witness(phase: str, workload_cls, config: dict, card, batch: dict,
     # the card tree's weights and adapters (parameters fp32, adapters bf16)
     twin._full_trainable.load_state_dict(
         {k: v.float() for k, v in card._full_trainable.state_dict().items()}, strict=True)
-    host = _host_twin(workload_cls, config, twin)
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
-            torch.get_float32_matmul_precision())
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    try:
-        with attention_dtype(None):
-            run, cpu = _parity_step(twin, batch, draws), _parity_step(host, batch, draws)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32[:2]
-        torch.set_float32_matmul_precision(tf32[2])
-    loss_err, grad_err = _parity_errors(run, cpu)
-    worst = max(grad_err.values())
-    short = {n.removeprefix("denoiser.").replace(".weight", ""): float(f"{e:.3g}")
-             for n, e in grad_err.items()}
-    emit(phase, case="fp32_witness", dtype="float32", attention_dtype=None,
-         tf32=False, loss_cuda=run[0], loss_cpu=cpu[0], loss_rel_err=loss_err,
-         grad_rel_l2_max=worst, grad_rel_l2_median=float(np.median(list(grad_err.values()))),
-         floor=floor, launches_cuda=run[2], grad_rel_l2=short,
-         seconds_cuda=run[3], seconds_cpu=cpu[3])
-    check(np.isfinite(run[0]) and len(grad_err) > 0, f"{phase}: fp32 witness step")
-    check(worst <= floor and loss_err <= floor,
-          f"{phase}: the fp32 step's card-vs-CPU gap {worst:.3g} (loss {loss_err:.3g}) "
-          f"is over {floor}: a fault, not bf16 rounding")
-    del twin, host
+    future = _HALVES.submit(f"{phase} fp32_witness", _cpu_parity_step, workload_cls,
+                            config, batch, draws, True, ship=_HALVES.ship(twin))
+    with _exact_fp32():
+        run = _parity_step(twin, batch, draws)
+    check(np.isfinite(run[0]), f"{phase}: fp32 witness step")
+
+    def finish(cpu, where):
+        loss_err, grad_err = _parity_errors(run, cpu)
+        worst = max(grad_err.values()) if grad_err else float("nan")
+        short = {n.removeprefix("denoiser.").replace(".weight", ""): float(f"{e:.3g}")
+                 for n, e in grad_err.items()}
+        emit(phase, case="fp32_witness", dtype="float32", attention_dtype=None,
+             tf32=False, **where, loss_cuda=run[0], loss_cpu=cpu[0],
+             loss_rel_err=loss_err, grad_rel_l2_max=worst,
+             grad_rel_l2_median=float(np.median(list(grad_err.values()))),
+             floor=floor, launches_cuda=run[2], grad_rel_l2=short,
+             seconds_cuda=run[3], seconds_cpu=cpu[3])
+        check(len(grad_err) > 0, f"{phase}: fp32 witness step without gradients")
+        check(worst <= floor and loss_err <= floor,
+              f"{phase}: the fp32 step's card-vs-CPU gap {worst:.3g} (loss {loss_err:.3g}) "
+              f"is over {floor}: a fault, not bf16 rounding")
+
+    _HALVES.then(future, finish)
+    del twin
     torch.cuda.empty_cache()
-    return worst
 
 
-def _wrong_kernel_verdicts(step, cpu, witness, nf4: bool, plain,
-                           kernel_floor: float | None = None) -> tuple[dict, dict]:
-    """The verdicts of one card step with #7 / #8 dropping the last key tile
-    (64 keys) and, under NF4, with #9's scale row 3 25% off, and each wrong
-    step's largest gradient error against ``plain`` (the card's step through
-    the plain versions); with ``kernel_floor`` a verdict also names the
-    gradients that far from ``plain``."""
+def _wrong_kernel_runs(step, nf4: bool) -> dict:
+    """One card step with #7 / #8 dropping the last key tile (64 keys) and,
+    under NF4, one with #9's scale row 3 25% off."""
     import vision_pt_tpu_torch.ops.attention as attention
     from vision_pt_tpu_torch.ops.quant import layers as qlayers
 
@@ -2296,7 +2890,7 @@ def _wrong_kernel_verdicts(step, cpu, witness, nf4: bool, plain,
         absmax[3 % absmax.shape[0]] *= 1.25
         return kernel(x, packed, absmax, quant_type)
 
-    wrong, vs_plain = {}, {}
+    runs = {}
     for label, module, name, fn in (
             ("flash_last_tile_dropped", attention, "flash_attention", short_flash),
             ("nf4_absmax_row_perturbed", qlayers, "dequant_matmul_4bit", wrong_nf4)):
@@ -2305,9 +2899,19 @@ def _wrong_kernel_verdicts(step, cpu, witness, nf4: bool, plain,
         real = getattr(module, name)
         setattr(module, name, fn)
         try:
-            run = step()
+            runs[label] = step()
         finally:
             setattr(module, name, real)
+    return runs
+
+
+def _wrong_kernel_verdicts(runs: dict, cpu, witness, plain,
+                           kernel_floor: float | None = None) -> tuple[dict, dict]:
+    """Each wrong step's verdict (the names over the floors, against the CPU
+    and, with ``kernel_floor``, against ``plain``, the card's step through
+    the plain versions) and its largest gradient error against ``plain``."""
+    wrong, vs_plain = {}, {}
+    for label, run in runs.items():
         vs_plain[label] = _parity_errors(run, plain)[1]
         wrong[label] = _parity_verdict(run, cpu, witness) + (
             [] if kernel_floor is None else
@@ -2318,50 +2922,58 @@ def _wrong_kernel_verdicts(step, cpu, witness, nf4: bool, plain,
 def _parity_case(phase: str, label: str, workload_cls, config, card, batch, draws,
                  expected, n_grads, kernel_floor: float | None = None,
                  **fields) -> tuple[int, ...]:
-    """One adapter step, card (kernels) against CPU with the card's plain
-    versions as the witness, held to SDXL_LORA_PARITY_FLOOR and, with
-    ``kernel_floor``, every gradient within that of the card's plain run; the
-    floors must fail the wrong kernels. Emits the phase line and returns the
-    card step's launches."""
-    host = _host_twin(workload_cls, config, card)
+    """One adapter step, card (kernels) against CPU (in the worker) with the
+    card's plain versions as the witness, held to SDXL_LORA_PARITY_FLOOR
+    and, with ``kernel_floor``, every gradient within that of the card's
+    plain run; the floors must fail the wrong kernels. Emits the phase line
+    when the CPU half is in; returns the card step's launches."""
+    future = _HALVES.submit(f"{phase} {label}", _cpu_parity_step, workload_cls, config,
+                            batch, draws, ship=_HALVES.ship(card))
     run = _parity_step(card, batch, draws)
     plain = _parity_step(card, batch, draws, kernels=False)
-    cpu = _parity_step(host, batch, draws)
-    loss_err, grad_err = _parity_errors(run, cpu)
-    witness = _parity_errors(plain, cpu)[1]
-    worst = max(grad_err, key=grad_err.get)
-    kernel_err = _parity_errors(run, plain)[1]
-    over = _parity_verdict(run, cpu, witness) + (
-        [] if kernel_floor is None else
-        [f"{n} vs plain" for n, e in kernel_err.items() if e > kernel_floor])
-    wrong, wrong_vs_plain = _wrong_kernel_verdicts(
-        lambda: _parity_step(card, batch, draws), cpu, witness, nf4=expected[8] > 0,
-        plain=plain, kernel_floor=kernel_floor)
-    emit(phase, case=label, resolution=PARITY_SIDE, batch=len(batch["caption"]),
-         depth="layers_per_block 1, one transformer per stage", **fields,
-         adapters=len(grad_err), loss_cuda=run[0], loss_cpu=cpu[0],
-         loss_cuda_plain=plain[0], loss_rel_err=loss_err,
-         grad_rel_l2_max=grad_err[worst], worst_param=worst, worst_witness=witness[worst],
-         grad_rel_l2_median=float(np.median(list(grad_err.values()))),
-         witness_max=max(witness.values()),
-         witness_median=float(np.median(list(witness.values()))),
-         card_vs_plain_max=max(kernel_err.values()), kernel_floor=kernel_floor,
-         wrong_kernel_vs_plain_max=wrong_vs_plain,
-         over_floor=over, wrong_kernel_over_floor=wrong, floor=SDXL_LORA_PARITY_FLOOR,
-         launches_cuda=run[2], launches_cuda_plain=plain[2], launches_cpu=cpu[2],
-         expected_cuda=expected, seconds_cuda=run[3], seconds_cpu=cpu[3])
+    runs = _wrong_kernel_runs(lambda: _parity_step(card, batch, draws), nf4=expected[8] > 0)
     check(np.isfinite(run[0]) and all(np.isfinite(g).all() for g in run[1].values()),
           f"non-finite {phase} {label} step")
-    check(run[1].keys() == cpu[1].keys() and len(run[1]) == n_grads,
+    check(len(run[1]) == n_grads,
           f"{phase} {label}: {len(run[1])} adapter gradients, expected {n_grads}")
-    check(all(np.abs(g).max() > 0 for g in cpu[1].values()),
-          f"{phase} {label}: an adapter gradient is 0")
-    check(run[2] == expected and plain[2] == _expect({}) and cpu[2] == _expect({}),
+    check(run[2] == expected and plain[2] == _expect({}),
           f"{phase} {label} launches: card {run[2]}, expected {expected}; plain "
-          f"{plain[2]} and CPU {cpu[2]}, expected none")
-    check(not over, f"{phase} {label} over its floors: {over[:4]}")
-    check(all(wrong.values()), f"a {phase} floor passes a wrong kernel: {wrong}")
-    del host
+          f"{plain[2]}, expected none")
+
+    def finish(cpu, where):
+        loss_err, grad_err = _parity_errors(run, cpu)
+        witness = _parity_errors(plain, cpu)[1]
+        worst = max(grad_err, key=grad_err.get)
+        kernel_err = _parity_errors(run, plain)[1]
+        over = _parity_verdict(run, cpu, witness) + (
+            [] if kernel_floor is None else
+            [f"{n} vs plain" for n, e in kernel_err.items() if e > kernel_floor])
+        wrong, wrong_vs_plain = _wrong_kernel_verdicts(runs, cpu, witness, plain,
+                                                       kernel_floor)
+        emit(phase, case=label, resolution=PARITY_SIDE, batch=len(batch["caption"]),
+             depth="layers_per_block 1, one transformer per stage", **fields, **where,
+             adapters=len(grad_err), loss_cuda=run[0], loss_cpu=cpu[0],
+             loss_cuda_plain=plain[0], loss_rel_err=loss_err,
+             grad_rel_l2_max=grad_err[worst], worst_param=worst,
+             worst_witness=witness[worst],
+             grad_rel_l2_median=float(np.median(list(grad_err.values()))),
+             witness_max=max(witness.values()),
+             witness_median=float(np.median(list(witness.values()))),
+             card_vs_plain_max=max(kernel_err.values()), kernel_floor=kernel_floor,
+             wrong_kernel_vs_plain_max=wrong_vs_plain,
+             over_floor=over, wrong_kernel_over_floor=wrong,
+             floor=SDXL_LORA_PARITY_FLOOR, launches_cuda=run[2],
+             launches_cuda_plain=plain[2], launches_cpu=cpu[2], expected_cuda=expected,
+             seconds_cuda=run[3], seconds_cpu=cpu[3])
+        check(run[1].keys() == cpu[1].keys(),
+              f"{phase} {label}: the card and CPU steps' adapter gradients differ in name")
+        check(all(np.abs(g).max() > 0 for g in cpu[1].values()),
+              f"{phase} {label}: an adapter gradient is 0")
+        check(cpu[2] == _expect({}), f"{phase} {label} launches on the CPU: {cpu[2]}")
+        check(not over, f"{phase} {label} over its floors: {over[:4]}")
+        check(all(wrong.values()), f"a {phase} floor passes a wrong kernel: {wrong}")
+
+    _HALVES.then(future, finish)
     return run[2]
 
 
@@ -2379,7 +2991,6 @@ def phase_sdxl_lora_parity() -> None:
         SDXLForTextToImageTraining,
     )
 
-    torch.set_num_threads(os.cpu_count() or 1)
     with open(os.path.join(ROOT, SDXL_TRAIN_CONFIGS["lora"]["path"])) as f:
         peft = yaml.safe_load(f)["peft"]
     raw = _parity_config("bfloat16", peft)
@@ -2456,7 +3067,6 @@ def phase_sdxl_flow_match_parity() -> dict[str, tuple[int, ...]]:
     )
 
     phase = "sdxl_flow_match_parity"
-    torch.set_num_threads(os.cpu_count() or 1)
     with open(os.path.join(ROOT, SDXL_TRAIN_CONFIGS["flow_match"]["path"])) as f:
         shipped = yaml.safe_load(f)
     peft = shipped["peft"]
@@ -2489,36 +3099,30 @@ def phase_sdxl_flow_match_parity() -> dict[str, tuple[int, ...]]:
         FLOW_MATCH_PARITY_LAUNCHES["lora"], 2 * 70, adapters_type="lora", **common)}
 
     # (c) the sampler, 2 Euler steps with CFG 4 from the same latents
-    host = _host_twin(SDXLForFlowMatchingTraining, config, card)
     init = rng.normal(size=(1, side // 8, side // 8, 4)).astype(np.float32)
-    outputs, counts = {}, {}
-    for device, model in (("cuda", card.model), ("cpu", host.model)):
-        import vision_pt_tpu_torch.ops.attention as attention
+    request = dict(prompt=[SDXL_PROMPT[0]], negative_prompt=[SDXL_PROMPT[1]], width=side,
+                   height=side, num_inference_steps=2, cfg_scale=4.0, latents=init)
+    future = _HALVES.submit(f"{phase} generate", _cpu_twin_generate,
+                            SDXLForFlowMatchingTraining, config, request,
+                            ship=_HALVES.ship(card))
+    card_out = _generate_latents(card.model, request)
+    check(np.isfinite(card_out[0]).all(), "non-finite flow-match latents")
+    check(card_out[2] == FLOW_MATCH_PARITY_LAUNCHES["generate"],
+          f"flow-match generate launches {card_out[2]} on the card")
+    launches["sdxl_flow_match_generate"] = card_out[2]
 
-        opened = attention._on_cuda
-        attention._on_cuda = lambda x: True
-        _reset_counts()
-        t0 = time.perf_counter()
-        try:
-            out = model.generate(prompt=[SDXL_PROMPT[0]], negative_prompt=[SDXL_PROMPT[1]],
-                                 width=side, height=side, num_inference_steps=2,
-                                 cfg_scale=4.0, latents=init, return_latents=True)
-        finally:
-            attention._on_cuda = opened
-        outputs[device] = (out.float().cpu().numpy(), time.perf_counter() - t0)
-        counts[device] = _counts()
-    err = _rel_l2(outputs["cuda"][0], outputs["cpu"][0])
-    emit(phase, case="generate", resolution=side, steps=2, cfg=4.0,
-         latents_rel_l2=err, floor=FLOW_MATCH_PARITY_LATENTS_FLOOR,
-         launches_cuda=counts["cuda"], launches_cpu=counts["cpu"],
-         seconds_cuda=outputs["cuda"][1], seconds_cpu=outputs["cpu"][1])
-    check(np.isfinite(outputs["cuda"][0]).all(), "non-finite flow-match latents")
-    check(counts["cuda"] == FLOW_MATCH_PARITY_LAUNCHES["generate"]
-          and counts["cpu"] == _expect({}), f"flow-match generate launches {counts}")
-    check(err <= FLOW_MATCH_PARITY_LATENTS_FLOOR,
-          f"flow-match generate card-vs-CPU latents {err:.3g}")
-    launches["sdxl_flow_match_generate"] = counts["cuda"]
-    del host
+    def finish(host_out, where):
+        err = _rel_l2(card_out[0], host_out[0])
+        emit(phase, case="generate", resolution=side, steps=2, cfg=4.0, **where,
+             latents_rel_l2=err, floor=FLOW_MATCH_PARITY_LATENTS_FLOOR,
+             launches_cuda=card_out[2], launches_cpu=host_out[2],
+             seconds_cuda=card_out[1], seconds_cpu=host_out[1])
+        check(host_out[2] == _expect({}), f"flow-match generate launches {host_out[2]} "
+              "on the CPU")
+        check(err <= FLOW_MATCH_PARITY_LATENTS_FLOOR,
+              f"flow-match generate card-vs-CPU latents {err:.3g}")
+
+    _HALVES.then(future, finish)
 
     # (d) the fp32 witness of (a)
     _fp32_witness(phase, SDXLForFlowMatchingTraining, raw, card, batch, draws)
@@ -3309,74 +3913,93 @@ def _variant_step(name: str, device: str, label2id: str):
     return Step(float(loss.detach()), grads, seconds), workload
 
 
-def phase_jit_variants_parity(label2id: str) -> dict[str, tuple[int, ...]]:
-    """Each variant's training step on the card (kernels) and on the CPU
-    (plain versions), then a 2-step IG-guided CFG sample; returns the card
-    runs' launches."""
+def _ig_sample(model):
+    """A 2-step IG-guided CFG sample of ``model`` from fixed noise, the
+    packed gate open; (output, launches)."""
     import vision_pt_tpu_torch.models.jit.denoiser as gate
     from vision_pt_tpu_torch.ops.attention import attention_dtype
-    from vision_pt_tpu_torch.tools.bench.step_parity import grad_errors, summary
-
-    floor = TRAIN_PARITY_FLOOR["bfloat16"]
-    launches, models = {}, {}
-    for name, (_, _, n) in PARITY_VARIANTS.items():
-        results = {}
-        for device in ("cuda", "cpu"):
-            _reset_counts()
-            step, workload = _variant_step(name, device, label2id)
-            results[device] = (step, _counts())
-            if name == "ig":
-                models[device] = workload.model
-            del workload
-        (card, counts_c), (host, counts_h) = results["cuda"], results["cpu"]
-        loss_err = abs(card.loss - host.loss) / abs(host.loss)
-        errors = summary(grad_errors(card.grads, host.grads))
-        emit("jit_variants_parity", variant=name, dtype="bfloat16", batch=2,
-             blocks=4, loss_cuda=card.loss, loss_cpu=host.loss,
-             loss_rel_err=loss_err, grad_rel_l2_max=errors["max"],
-             grad_rel_l2_median=errors["median"], worst_params=errors["worst"],
-             floor=floor, launches_cuda=counts_c, launches_cpu=counts_h,
-             seconds_cuda=card.seconds, seconds_cpu=host.seconds)
-        check(all(bool(torch.isfinite(g).all()) for g in card.grads.values()),
-              f"{name}: non-finite grads")
-        check(counts_c == _expect({1: n, 2: n}) and counts_h == _expect({}),
-              f"{name}: the card step must launch {n} + {n} ({counts_c}), the "
-              f"CPU step none ({counts_h})")
-        check(loss_err <= floor["loss"] and errors["max"] <= floor["grad"],
-              f"{name} parity: loss {loss_err:.2e}, grad {errors['worst'][0]}")
-        launches[f"{name}_parity"] = counts_c
-        del results, card, host
-        torch.cuda.empty_cache()
 
     init = np.random.default_rng(4).normal(size=(1, 256, 256, 3)).astype(np.float32)
-    outputs, sample_counts = {}, {}
-    for device, model in models.items():
-        opened = gate._on_cuda
-        gate._on_cuda = lambda x: True
+    opened = gate._on_cuda
+    gate._on_cuda = lambda x: True
+    _reset_counts()
+    try:
+        with attention_dtype(torch.bfloat16):
+            out = model.generate(prompt=["c1"], width=256, height=256,
+                                 num_inference_steps=2, cfg_scale=2.0,
+                                 ig_scale=2.0, execution_dtype=torch.bfloat16,
+                                 initial_noise=init, return_arrays=True)
+    finally:
+        gate._on_cuda = opened
+    return out.float().cpu().numpy(), _counts()
+
+
+def _variant_steps(device: str, label2id: str):
+    """Each variant's step on ``device`` (the CPU in the worker), then the
+    IG model's sample: ({name: (loss, grads, seconds, launches)}, sample)."""
+    steps, sample = {}, None
+    for name in PARITY_VARIANTS:
         _reset_counts()
-        try:
-            with attention_dtype(torch.bfloat16):
-                out = model.generate(prompt=["c1"], width=256, height=256,
-                                     num_inference_steps=2, cfg_scale=2.0,
-                                     ig_scale=2.0, execution_dtype=torch.bfloat16,
-                                     initial_noise=init, return_arrays=True)
-        finally:
-            gate._on_cuda = opened
-        outputs[device] = out.float().cpu().numpy()
-        sample_counts[device] = _counts()
-    value = psnr(outputs["cuda"], outputs["cpu"])
-    emit("jit_variants_parity", variant="ig_sample", dtype="bfloat16", batch=1,
-         cfg=2.0, ig_scale=2.0, steps=2, psnr_db=value,
-         floor_db=PSNR_FLOOR_DB["bfloat16"], launches_cuda=sample_counts["cuda"],
-         launches_cpu=sample_counts["cpu"])
-    check(np.isfinite(outputs["cuda"]).all(), "non-finite IG sample")
-    check(sample_counts["cuda"] == _expect({1: IG_SAMPLE_LAUNCHES})
-          and sample_counts["cpu"] == _expect({}),
-          f"IG sample launches {sample_counts}, expected {IG_SAMPLE_LAUNCHES} on the card")
-    check(value >= PSNR_FLOOR_DB["bfloat16"],
-          f"IG sample card-vs-CPU PSNR {value:.2f} dB < {PSNR_FLOOR_DB['bfloat16']}")
-    launches["ig_sample"] = sample_counts["cuda"]
-    del models
+        step, workload = _variant_step(name, device, label2id)
+        steps[name] = (step.loss, {n: g.numpy() for n, g in step.grads.items()},
+                       step.seconds, _counts())
+        if name == "ig":
+            sample = _ig_sample(workload.model)
+        del workload
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return steps, sample
+
+
+def phase_jit_variants_parity(label2id: str) -> dict[str, tuple[int, ...]]:
+    """Each variant's training step on the card (kernels) and on the CPU
+    (plain versions, in the worker), then a 2-step IG-guided CFG sample;
+    returns the card runs' launches."""
+    from vision_pt_tpu_torch.tools.bench.step_parity import grad_errors, summary
+
+    future = _HALVES.take("jit_variants", "jit_variants_parity", _variant_steps, "cpu",
+                          label2id)
+    card_steps, card_sample = _variant_steps("cuda", label2id)
+    launches = {}
+    for name, (_, _, n) in PARITY_VARIANTS.items():
+        grads, counts_c = card_steps[name][1], card_steps[name][3]
+        check(all(np.isfinite(g).all() for g in grads.values()), f"{name}: non-finite grads")
+        check(counts_c == _expect({1: n, 2: n}),
+              f"{name}: the card step must launch {n} + {n} ({counts_c})")
+        launches[f"{name}_parity"] = counts_c
+    check(np.isfinite(card_sample[0]).all(), "non-finite IG sample")
+    check(card_sample[1] == _expect({1: IG_SAMPLE_LAUNCHES}),
+          f"IG sample launches {card_sample[1]}, expected {IG_SAMPLE_LAUNCHES} on the card")
+    launches["ig_sample"] = card_sample[1]
+
+    def finish(result, where):
+        host_steps, host_sample = result
+        floor = TRAIN_PARITY_FLOOR["bfloat16"]
+        for name in PARITY_VARIANTS:
+            card, host = card_steps[name], host_steps[name]
+            loss_err = abs(card[0] - host[0]) / abs(host[0])
+            errors = summary(grad_errors(
+                {n: torch.from_numpy(g) for n, g in card[1].items()},
+                {n: torch.from_numpy(g) for n, g in host[1].items()}))
+            emit("jit_variants_parity", variant=name, dtype="bfloat16", batch=2,
+                 blocks=4, **where, loss_cuda=card[0], loss_cpu=host[0],
+                 loss_rel_err=loss_err, grad_rel_l2_max=errors["max"],
+                 grad_rel_l2_median=errors["median"], worst_params=errors["worst"],
+                 floor=floor, launches_cuda=card[3], launches_cpu=host[3],
+                 seconds_cuda=card[2], seconds_cpu=host[2])
+            check(host[3] == _expect({}), f"{name}: the CPU step launched {host[3]}")
+            check(loss_err <= floor["loss"] and errors["max"] <= floor["grad"],
+                  f"{name} parity: loss {loss_err:.2e}, grad {errors['worst'][0]}")
+        value = psnr(card_sample[0], host_sample[0])
+        emit("jit_variants_parity", variant="ig_sample", dtype="bfloat16", batch=1,
+             cfg=2.0, ig_scale=2.0, steps=2, **where, psnr_db=value,
+             floor_db=PSNR_FLOOR_DB["bfloat16"], launches_cuda=card_sample[1],
+             launches_cpu=host_sample[1])
+        check(host_sample[1] == _expect({}), f"IG sample launched {host_sample[1]} on the CPU")
+        check(value >= PSNR_FLOOR_DB["bfloat16"],
+              f"IG sample card-vs-CPU PSNR {value:.2f} dB < {PSNR_FLOOR_DB['bfloat16']}")
+
+    _HALVES.then(future, finish)
     torch.cuda.empty_cache()
     return launches
 
@@ -3579,21 +4202,45 @@ def phase_cogview4_sampler() -> dict:
     return launches
 
 
-def phase_cogview4_parity() -> None:
-    """The same weights and inputs on the card (kernels) and on the CPU (the
-    plain versions of the same path): full widths, 2 DiT and 2 GLM layers,
-    512^2, bf16; the text embeddings, one denoiser call (batch 2) and a
-    2-step CFG generate from injected latents. Then the card's denoiser call
-    and generate with #7's output wrong in every launch: one head zeroed,
-    and every head zeroed."""
-    import copy
-
+def _cogview4_parity_run(model, inputs: dict):
+    """(text embeddings, denoiser output, latents), launches and seconds of
+    cogview4_parity on ``model``'s device, the flash gate open (the CPU runs
+    the same path, through the plain versions)."""
     import vision_pt_tpu_torch.ops.attention as attention
-    from vision_pt_tpu_torch.models.cogview4 import CogView4Config, DenoiserConfig
     from vision_pt_tpu_torch.tools.cogview4_quant_compare import DEFAULT_PROMPT as prompt
 
-    bf16, side = torch.bfloat16, COGVIEW4_PARITY_SIDE
-    torch.set_num_threads(os.cpu_count() or 1)
+    bf16, side, device = torch.bfloat16, COGVIEW4_PARITY_SIDE, model.device
+    args = [torch.from_numpy(a).to(device, bf16 if i in (0, 1) else torch.float32)
+            for i, a in enumerate(inputs["dit_args"])]
+    _reset_counts()
+    gate = attention._on_cuda
+    attention._on_cuda = lambda x: True
+    t0 = time.perf_counter()
+    try:
+        enc = model.text_encoder.encode_prompts(prompt, "", use_negative_prompts=True)
+        with torch.inference_mode():
+            out = model.denoiser(*args)
+        lat = model.generate(prompt, width=side, height=side, num_inference_steps=2,
+                             cfg_scale=COGVIEW4_CFG, execution_dtype=bf16,
+                             latents=inputs["latents"], return_latents=True)
+    finally:
+        attention._on_cuda = gate
+    text = torch.cat([enc.positive_embeddings, enc.negative_embeddings])
+    return ([x.float().cpu().numpy() for x in (text, out, lat)], _counts(),
+            time.perf_counter() - t0)
+
+
+def phase_cogview4_parity() -> None:
+    """The same weights and inputs on the card (kernels) and on the CPU (the
+    plain versions of the same path, in the worker): full widths, 2 DiT and
+    2 GLM layers, 512^2, bf16; the text embeddings, one denoiser call (batch
+    2) and a 2-step CFG generate from injected latents. Then the card's
+    denoiser call and generate with #7's output wrong in every launch: one
+    head zeroed, and every head zeroed."""
+    import vision_pt_tpu_torch.ops.attention as attention
+    from vision_pt_tpu_torch.models.cogview4 import CogView4Config, DenoiserConfig
+
+    side = COGVIEW4_PARITY_SIDE
     config = CogView4Config(
         checkpoint_path="", dtype="bfloat16",
         denoiser=DenoiserConfig(num_layers=COGVIEW4_PARITY_DEPTH),
@@ -3607,55 +4254,19 @@ def phase_cogview4_parity() -> None:
                 np.asarray([999.0, 500.0], np.float32),
                 np.full((2, 2), float(side), np.float32),
                 np.full((2, 2), float(side), np.float32), np.zeros((2, 2), np.float32)]
-    low = (0, 1)  # the arguments in the execution dtype
     latents = rng.normal(size=(1, latent, latent, channels)).astype(np.float32)
-
-    def run(model, device):
-        """(text embeddings, denoiser output, latents, launches, seconds);
-        the CPU runs the same path, through the plain versions."""
-        args = [torch.from_numpy(a).to(device, bf16 if i in low else torch.float32)
-                for i, a in enumerate(dit_args)]
-        _reset_counts()
-        gate = attention._on_cuda
-        attention._on_cuda = lambda x: True
-        t0 = time.perf_counter()
-        try:
-            enc = model.text_encoder.encode_prompts(prompt, "", use_negative_prompts=True)
-            with torch.inference_mode():
-                out = model.denoiser(*args)
-            lat = model.generate(prompt, width=side, height=side, num_inference_steps=2,
-                                 cfg_scale=COGVIEW4_CFG, execution_dtype=bf16,
-                                 latents=latents, return_latents=True)
-        finally:
-            attention._on_cuda = gate
-        text = torch.cat([enc.positive_embeddings, enc.negative_embeddings])
-        return ([x.float().cpu().numpy() for x in (text, out, lat)], _counts(),
-                time.perf_counter() - t0)
-
-    host = copy.deepcopy(card).to("cpu")
-    (text_c, dit_c, lat_c), counts_c, sec_c = run(card, "cuda")
-    (text_h, dit_h, lat_h), counts_h, sec_h = run(host, "cpu")
-    del host
-    errors = {"text": _rel_l2(text_c, text_h), "denoiser": _rel_l2(dit_c, dit_h),
-              "latents": _rel_l2(lat_c, lat_h)}
-    emit("cogview4_parity", resolution=side, depth={"dit": COGVIEW4_PARITY_DEPTH,
-                                                    "glm": COGVIEW4_PARITY_DEPTH},
-         widths="full (DiT 32 x 128, GLM 4096)", dtype="bfloat16", rel_l2=errors,
-         floor=COGVIEW4_PARITY_FLOOR,
-         psnr_db={"denoiser": psnr(dit_c, dit_h), "latents": psnr(lat_c, lat_h)},
-         launches_cuda=counts_c, launches_cpu=counts_h,
-         expected_cuda=COGVIEW4_PARITY_LAUNCHES, seconds_cuda=sec_c, seconds_cpu=sec_h)
+    inputs = {"dit_args": dit_args, "latents": latents}
+    future = _HALVES.submit("cogview4_parity", _cpu_model_run, _cogview4_parity_run,
+                            inputs, ship=_HALVES.ship(card))
+    (text_c, dit_c, lat_c), counts_c, sec_c = _cogview4_parity_run(card, inputs)
     check(all(np.isfinite(x).all() for x in (text_c, dit_c, lat_c)),
           "non-finite CogView4 parity output")
-    check(counts_c == COGVIEW4_PARITY_LAUNCHES and counts_h == _expect({}),
-          f"CogView4 parity launches: card {counts_c}, expected "
-          f"{COGVIEW4_PARITY_LAUNCHES}; CPU {counts_h}, expected none")
-    check(all(errors[k] <= COGVIEW4_PARITY_FLOOR[k] for k in errors),
-          f"CogView4 parity {errors} over {COGVIEW4_PARITY_FLOOR}")
+    check(counts_c == COGVIEW4_PARITY_LAUNCHES,
+          f"CogView4 parity launches: card {counts_c}, expected {COGVIEW4_PARITY_LAUNCHES}")
 
     # #7 wrong in every launch: its output with head 0 zeroed, or with every
     # head zeroed (a kernel that writes nothing)
-    kernel, wrong_errors = attention.flash_attention, {}
+    kernel, wrong_runs = attention.flash_attention, {}
     for label, heads in (("one_head_zeroed", 1), ("every_head_zeroed", None)):
         def wrong(*a, heads=heads, **kw):
             out = kernel(*a, **kw).clone()
@@ -3664,20 +4275,38 @@ def phase_cogview4_parity() -> None:
 
         attention.flash_attention = wrong
         try:
-            (_, dit_w, lat_w), _, _ = run(card, "cuda")
+            wrong_runs[label] = _cogview4_parity_run(card, inputs)[0][1:]
         finally:
             attention.flash_attention = kernel
-        wrong_errors[label] = {"denoiser": _rel_l2(dit_w, dit_h),
-                               "latents": _rel_l2(lat_w, lat_h)}
-    floors = {k: COGVIEW4_PARITY_FLOOR[k] for k in ("denoiser", "latents")}
-    emit("cogview4_parity", case="limits_can_fail", rel_l2=wrong_errors, floor=floors,
-         card_vs_cpu=errors)
-    e = wrong_errors["every_head_zeroed"]
-    check(all(e[k] > floors[k] for k in e),
-          f"a CogView4 parity floor passes #7 writing nothing: {e}")
-    e = wrong_errors["one_head_zeroed"]["denoiser"]
-    check(e > floors["denoiser"],
-          f"the CogView4 denoiser floor passes #7 with one head zeroed: {e}")
+
+    def finish(result, where):
+        (text_h, dit_h, lat_h), counts_h, sec_h = result
+        errors = {"text": _rel_l2(text_c, text_h), "denoiser": _rel_l2(dit_c, dit_h),
+                  "latents": _rel_l2(lat_c, lat_h)}
+        emit("cogview4_parity", resolution=side, depth={"dit": COGVIEW4_PARITY_DEPTH,
+                                                        "glm": COGVIEW4_PARITY_DEPTH},
+             widths="full (DiT 32 x 128, GLM 4096)", dtype="bfloat16", **where,
+             rel_l2=errors, floor=COGVIEW4_PARITY_FLOOR,
+             psnr_db={"denoiser": psnr(dit_c, dit_h), "latents": psnr(lat_c, lat_h)},
+             launches_cuda=counts_c, launches_cpu=counts_h,
+             expected_cuda=COGVIEW4_PARITY_LAUNCHES, seconds_cuda=sec_c, seconds_cpu=sec_h)
+        check(counts_h == _expect({}), f"CogView4 parity launches on the CPU: {counts_h}")
+        check(all(errors[k] <= COGVIEW4_PARITY_FLOOR[k] for k in errors),
+              f"CogView4 parity {errors} over {COGVIEW4_PARITY_FLOOR}")
+        wrong_errors = {label: {"denoiser": _rel_l2(dit_w, dit_h),
+                                "latents": _rel_l2(lat_w, lat_h)}
+                        for label, (dit_w, lat_w) in wrong_runs.items()}
+        floors = {k: COGVIEW4_PARITY_FLOOR[k] for k in ("denoiser", "latents")}
+        emit("cogview4_parity", case="limits_can_fail", rel_l2=wrong_errors, floor=floors,
+             card_vs_cpu=errors)
+        e = wrong_errors["every_head_zeroed"]
+        check(all(e[k] > floors[k] for k in e),
+              f"a CogView4 parity floor passes #7 writing nothing: {e}")
+        e = wrong_errors["one_head_zeroed"]["denoiser"]
+        check(e > floors["denoiser"],
+              f"the CogView4 denoiser floor passes #7 with one head zeroed: {e}")
+
+    _HALVES.then(future, finish)
     del card
     torch.cuda.empty_cache()
 
@@ -4069,11 +4698,9 @@ def phase_sdxl_adapter_parity(tmp: str, towers: dict) -> dict[str, tuple[int, ..
     plain versions' error). Returns the card runs' launches."""
     import importlib
 
-    import vision_pt_tpu_torch.ops.attention as attention
     from vision_pt_tpu_torch.config import TrainConfig
 
     phase = "sdxl_adapter_parity"
-    torch.set_num_threads(os.cpu_count() or 1)
     side = PARITY_SIDE
     rng = np.random.default_rng(13)
     yy, xx = np.mgrid[0:side, 0:side] / side
@@ -4114,50 +4741,47 @@ def phase_sdxl_adapter_parity(tmp: str, towers: dict) -> dict[str, tuple[int, ..
                 **raw["model"]["adapter"], "dtype": "float32"}}}
         _fp32_witness(phase, workload_cls, witness, card, batch, draws)
 
-        host = _host_twin(workload_cls, config, card)
         reference = {"ip_adapter": "reference_images",
                      "prompt_free": "reference_image"}[family]
-        outputs, counts = {}, {}
-        for label, pipeline, kernels in (("cuda", card.model, True),
-                                         ("cuda_plain", card.model, False),
-                                         ("cpu", host.model, True)):
-            opened = attention._on_cuda
-            attention._on_cuda = lambda x: kernels
-            _reset_counts()
-            t0 = time.perf_counter()
-            try:
-                out = pipeline.generate(
-                    prompt=batch["caption"], negative_prompt=[SDXL_PROMPT[1]], width=side,
-                    height=side, num_inference_steps=2, cfg_scale=SDXL_CFG, latents=init,
-                    step_noise=step_noise, return_latents=True,
-                    **{reference: _reference_image(3)})
-            finally:
-                attention._on_cuda = opened
-            outputs[label] = (out.float().cpu().numpy(), time.perf_counter() - t0)
-            counts[label] = _counts()
-        err = _rel_l2(outputs["cuda"][0], outputs["cpu"][0])
-        plain_err = _rel_l2(outputs["cuda_plain"][0], outputs["cpu"][0])
-        floor = max(SDXL_PARITY_FLOOR["latents"], SDXL_LORA_PARITY_FLOOR["witness"] * plain_err)
-        emit(phase, case=f"{family}_generate", resolution=side, steps=2, cfg=SDXL_CFG,
-             latents_rel_l2=err, witness_rel_l2=plain_err,
-             card_vs_plain=_rel_l2(outputs["cuda"][0], outputs["cuda_plain"][0]),
-             floor=floor, launches_cuda=counts["cuda"],
-             launches_cuda_plain=counts["cuda_plain"], launches_cpu=counts["cpu"],
-             seconds_cuda=outputs["cuda"][1], seconds_cpu=outputs["cpu"][1])
+        request = dict(prompt=batch["caption"], negative_prompt=[SDXL_PROMPT[1]],
+                       width=side, height=side, num_inference_steps=2, cfg_scale=SDXL_CFG,
+                       latents=init, step_noise=step_noise,
+                       **{reference: _reference_image(3)})
+        future = _HALVES.submit(f"{phase} {family}_generate", _cpu_twin_generate,
+                                workload_cls, config, request, ship=_HALVES.ship(card))
+        outputs = {"cuda": _generate_latents(card.model, request),
+                   "cuda_plain": _generate_latents(card.model, request, kernels=False)}
+        counts = outputs["cuda"][2], outputs["cuda_plain"][2]
         check(np.isfinite(outputs["cuda"][0]).all(), f"non-finite {family} latents")
-        check(counts["cuda"] == ADAPTER_PARITY_LAUNCHES["generate"]
-              and counts["cuda_plain"] == counts["cpu"] == _expect({}),
-              f"{family} generate launches {counts}")
-        check(err <= floor, f"{family} generate card-vs-CPU latents {err:.3g} over {floor:.3g}")
-        launches[f"{family}_parity_generate"] = counts["cuda"]
-        del card, host
+        check(counts == (ADAPTER_PARITY_LAUNCHES["generate"], _expect({})),
+              f"{family} generate launches {counts[0]}, plain {counts[1]}")
+        launches[f"{family}_parity_generate"] = outputs["cuda"][2]
+
+        def finish(host_out, where, family=family, outputs=outputs):
+            err = _rel_l2(outputs["cuda"][0], host_out[0])
+            plain_err = _rel_l2(outputs["cuda_plain"][0], host_out[0])
+            floor = max(SDXL_PARITY_FLOOR["latents"],
+                        SDXL_LORA_PARITY_FLOOR["witness"] * plain_err)
+            emit(phase, case=f"{family}_generate", resolution=side, steps=2,
+                 cfg=SDXL_CFG, **where, latents_rel_l2=err, witness_rel_l2=plain_err,
+                 card_vs_plain=_rel_l2(outputs["cuda"][0], outputs["cuda_plain"][0]),
+                 floor=floor, launches_cuda=outputs["cuda"][2],
+                 launches_cuda_plain=outputs["cuda_plain"][2], launches_cpu=host_out[2],
+                 seconds_cuda=outputs["cuda"][1], seconds_cpu=host_out[1])
+            check(host_out[2] == _expect({}), f"{family} generate launches "
+                  f"{host_out[2]} on the CPU")
+            check(err <= floor,
+                  f"{family} generate card-vs-CPU latents {err:.3g} over {floor:.3g}")
+
+        _HALVES.then(future, finish)
+        del card
         torch.cuda.empty_cache()
     return launches
 
 
 def phase_adapters(tmp: str) -> dict[str, tuple[int, ...]]:
-    """The IP-Adapter and PFG phases over towers written once: the two
-    full-width trainers, the other entry points, the parity phase."""
+    """The IP-Adapter and PFG phases over towers written once: the parity
+    phase, the two full-width trainers, the other entry points."""
     t0 = time.perf_counter()
     full = {"ip_adapter": ("clip", CLIP_L14), "prompt_free": ("timm", VIT_B16_448)}
     towers, small = {}, {}
@@ -4172,11 +4796,12 @@ def phase_adapters(tmp: str) -> dict[str, tuple[int, ...]]:
                        for n in files) if os.path.isdir(p) else os.path.getsize(p)
                 for f, (p, _) in towers.items()},
          shapes={f: s for f, (_, s) in towers.items()}, small=SMALL_TOWERS)
-    launches = {}
+    # the parity phase first: its CPU halves run in the worker beside the
+    # trainers
+    launches = phase_sdxl_adapter_parity(tmp, small)
     for family in ADAPTER_FAMILIES:
         launches.update(phase_adapter_trainer(tmp, family, towers))
     launches.update(phase_adapter_entry_points(tmp, towers))
-    launches.update(phase_sdxl_adapter_parity(tmp, small))
     return launches
 
 
@@ -4377,7 +5002,6 @@ def phase_slice14_parity(towers: dict) -> dict[str, tuple[int, ...]]:
     from vision_pt_tpu_torch.config import TrainConfig
 
     phase = "sdxl_slice14_parity"
-    torch.set_num_threads(os.cpu_count() or 1)
     side = PARITY_SIDE
     with open(os.path.join(ROOT, SDXL_TRAIN_CONFIGS["lora"]["path"])) as f:
         peft = yaml.safe_load(f)["peft"]
@@ -4442,7 +5066,7 @@ def phase_slice14_parity(towers: dict) -> dict[str, tuple[int, ...]]:
 def phase_slice14(tmp: str) -> dict[str, tuple[int, ...]]:
     """RoPE distillation, DRaFT+ and the style tokenizer: towers written once
     (PickScore's CLIP-H/14 and the small one, the ViT-B/16-448 timm tower and
-    the small one), the three full-width trainers, then the parity phase."""
+    the small one), the parity phase, then the three full-width trainers."""
     from vision_pt_tpu_torch.tools.bench.draft_plus_gap import (
         SMALL_PICKSCORE,
         write_pickscore,
@@ -4482,7 +5106,10 @@ def phase_slice14(tmp: str) -> dict[str, tuple[int, ...]]:
             encoder._load_model()
         return [("tower." + n, p) for n, p in encoder.model.named_parameters()]
 
-    launches = {
+    # the parity phase first: its CPU halves run in the worker beside the
+    # trainers
+    launches = phase_slice14_parity(small)
+    launches.update({
         "rope_distill_trainer": phase_slice_trainer(
             tmp, "rope_distill", {}, images, lambda w: [], lora_only),
         "draft_plus_trainer": phase_slice_trainer(
@@ -4497,8 +5124,7 @@ def phase_slice14(tmp: str) -> dict[str, tuple[int, ...]]:
             lambda names: {n for n in names if n.startswith(("projector_1.", "projector_2."))},
             reference=reference,
             caption_processors=[{"type": "prefix", "prefix": STYLE_PREFIX}]),
-    }
-    launches.update(phase_slice14_parity(small))
+    })
     return launches
 
 
@@ -4511,6 +5137,40 @@ def main(args: list[str]) -> int:
         return 1
     started = time.perf_counter()
     smi = phase_device()
+    global _HALVES
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        if not args:
+            _start_cpu_halves(work)
+        return _run(args, started, smi, work)
+    finally:
+        if _HALVES is not None:
+            _HALVES.close()
+            _HALVES = None
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _start_cpu_halves(work: str) -> None:
+    """The worker, and the CPU halves that need no card work queued at once:
+    the JiT and latent parity steps, the JiT sampler parity and the JiT
+    variants' steps."""
+    global _HALVES
+    _HALVES = CpuHalves(work)
+    label2id = os.path.join(work, "label2id.json")
+    with open(label2id, "w") as f:
+        json.dump({f"c{i}": i for i in range(4)}, f)
+    phases = {"jit": "train_parity", "latent": "latent_parity"}
+    for model, dtype, depth in STEP_PARITY_CASES:
+        _HALVES.early_submit((model, dtype), f"{phases[model]} {dtype}", _cpu_step,
+                             *_step_args(model, dtype, depth, label2id))
+    for dtype in ("float32", "bfloat16"):
+        _HALVES.early_submit(("parity", dtype), f"parity {dtype}", _jit_sample, label2id,
+                             dtype, "cpu")
+    _HALVES.early_submit("jit_variants", "jit_variants_parity", _variant_steps, "cpu",
+                         label2id)
+
+
+def _run(args: list[str], started: float, smi: str, work: str) -> int:
     errors = {**phase_kernel(), **phase_flash_kernel(),
               "dequant_matmul_4bit": phase_nf4_kernel(), **phase_short_kernel()}
     rows = phase_timing()
@@ -4522,45 +5182,47 @@ def main(args: list[str]) -> int:
         emit("done", seconds=time.perf_counter() - started)
         return 0
     launches = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        label2id = os.path.join(tmp, "label2id.json")
-        with open(label2id, "w") as f:
-            json.dump({f"c{i}": i for i in range(4)}, f)
-        launches["sampler"] = phase_sampler(label2id)
-        launches["train_step"] = phase_train_step()
-        launches["short_path"] = phase_short_path()
-        launches["attention_probes"] = phase_attention_probes()
-        launches["trainer"] = phase_trainer(tmp)
-        phase_train_parity(label2id)
-        phase_parity(label2id)
-        launches["cache_latents"] = phase_cache_latents(tmp)
-        launches["latent_trainer"] = phase_latent_trainer(tmp)
-        phase_latent_parity(tmp)
-        launches.update(phase_jit_variants_trainer(tmp))
-        launches["x_loss_trainer"] = phase_x_loss_trainer(tmp)
-        launches.update(phase_jit_variants_parity(label2id))
+    # every phase's files stay until the CPU halves are in (a worker job
+    # may read them)
+    tmp = tempfile.mkdtemp(dir=work)
+    label2id = os.path.join(tmp, "label2id.json")
+    with open(label2id, "w") as f:
+        json.dump({f"c{i}": i for i in range(4)}, f)
+    launches["sampler"] = phase_sampler(label2id)
+    launches["train_step"] = phase_train_step()
+    launches["short_path"] = phase_short_path()
+    launches["attention_probes"] = phase_attention_probes()
+    launches["trainer"] = phase_trainer(tmp)
+    phase_train_parity(label2id)
+    phase_parity(label2id)
+    launches["cache_latents"] = phase_cache_latents(tmp)
+    launches["latent_trainer"] = phase_latent_trainer(tmp)
+    phase_latent_parity(tmp)
+    launches.update(phase_jit_variants_trainer(tmp))
+    launches["x_loss_trainer"] = phase_x_loss_trainer(tmp)
+    launches.update(phase_jit_variants_parity(label2id))
     launches.update(phase_sdxl_sampler())
     phase_sdxl_parity()
-    with tempfile.TemporaryDirectory() as tmp:
-        for label in ("lora", "qlora", "flow_match"):
-            launches[f"sdxl_{label}_trainer"] = phase_sdxl_trainer(tmp, label)
     phase_sdxl_lora_parity()
     launches.update(phase_sdxl_flow_match_parity())
-    with tempfile.TemporaryDirectory() as tmp:
-        launches.update(phase_adapters(tmp))
-    with tempfile.TemporaryDirectory() as tmp:
-        launches.update(phase_slice14(tmp))
+    sdxl_tmp = tempfile.mkdtemp(dir=work)
+    for label in ("lora", "qlora", "flow_match"):
+        launches[f"sdxl_{label}_trainer"] = phase_sdxl_trainer(sdxl_tmp, label)
+    launches.update(phase_adapters(tempfile.mkdtemp(dir=work)))
+    launches.update(phase_slice14(tempfile.mkdtemp(dir=work)))
     launches["optimizers"] = phase_optimizers()
-    launches.update(phase_cogview4_sampler())
     phase_cogview4_parity()
+    launches.update(phase_cogview4_sampler())
+    launches.update(phase_inference_server(sdxl_tmp))
+    _HALVES.drain()
     kernels = []
     # each kernel's launches are those of its main path: the training step
     # for the packed kernels (the JiT variants' trainers, parity steps and
     # IG sample beside it), the short backend's path for #3-#6, the latent
     # trainer for the flash kernels (the SDXL requests and trainers and the
     # CogView4 requests beside them), the NF4 SDXL request for kernel #9
-    # (the QLoRA trainer and the NF4 CogView4 request beside it), the probe
-    # tools for #10 and #11
+    # (the QLoRA trainer, the NF4 CogView4 request and the inference server
+    # beside it), the probe tools for #10 and #11
     for number, (row, kernel, path) in enumerate((
             (rows["train"], "short_attention_packed", "train_step"),
             (rows["train_bwd"], "short_attention_packed_bwd", "train_step"),
@@ -4589,6 +5251,9 @@ def main(args: list[str]) -> int:
                                                "sdxl_lowres_s1024")]
     kernels[6]["cogview4_timing"] = {**rows["cogview4_s4112"],
                                      "max_abs_err": errors["cogview4_s4112"]}
+    kernels[6]["server_timing"] = [{**rows[label], "shape": label}
+                                   for label in ("server_s4096", "server_s1024",
+                                                 "server_s3072")]
     kernels[7]["sdxl_timing"] = [{**rows[f"{label}_bwd"], "shape": label}
                                  for label in ("sdxl_s4096", "sdxl_s1024",
                                                "sdxl_lowres_s1024")]

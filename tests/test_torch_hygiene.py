@@ -8,6 +8,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -65,7 +66,16 @@ def test_importing_the_whole_port_loads_no_jax():
                  "reward.functional", "workloads.sdxl_rope_distill",
                  "workloads.sdxl_draft_plus", "workloads.sdxl_style_tokenizer",
                  "train.sdxl.rope_distill", "train.sdxl.draft_plus",
-                 "train.sdxl.style_tokenizer", "tools.bench.draft_plus_gap"):
+                 "train.sdxl.style_tokenizer", "tools.bench.draft_plus_gap",
+                 "utils.memory", "utils.safetensors", "utils.grid", "utils.video",
+                 "tools.quantize_model", "tools.inference_server",
+                 "tools.inference_client", "tools.snapshot_max_memory",
+                 "tools.bench.check_memory", "tools.bench.sdxl_quant",
+                 "tools.checkpoint.import_sdxl", "tools.checkpoint.change_dtype",
+                 "tools.checkpoint.to_safetensors", "tools.model.inspect_weights",
+                 "tools.model.expand_patch_embed", "tools.visualize.images_to_gif",
+                 "tools.data.create_buckets_cache", "tools.data.create_label2id",
+                 "tools.data.create_label2id_sfw"):
         assert f"vision_pt_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["modules"] if FORBIDDEN.match(m)]
     assert leaked == []
@@ -129,7 +139,10 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
     )
     from vision_pt_tpu_torch.config import TrainConfig
     from vision_pt_tpu_torch.models.sdxl import SDXLConfig, SDXLModel
+    from vision_pt_tpu_torch.tools.checkpoint.import_sdxl import run_import
     from vision_pt_tpu_torch.tools.inference_cli import main as inference_main
+    from vision_pt_tpu_torch.tools.inference_server import T2IModel
+    from vision_pt_tpu_torch.tools.quantize_model import quantize_file
     from vision_pt_tpu_torch.train.jit.class_to_image import run
     from vision_pt_tpu_torch.train.jit.latent_class_to_image import (
         run as latent_run,
@@ -147,6 +160,15 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
     train_config = {"model": config.model_dump(), "dataset": {"type": "synthetic"}}
     yml = tmp_path / "train.yml"
     yml.write_text(json.dumps(train_config))  # JSON is YAML
+    server_yml = tmp_path / "server.yml"
+    server_yml.write_text(json.dumps({"model": {"checkpoint_path": str(tmp_path / "w"),
+                                                "tokenizer": "word-hash"},
+                                      "dataset": {}}))
+    weights = tmp_path / "w.safetensors"
+    from safetensors.numpy import save_file
+
+    save_file({"model.diffusion_model.a.weight": np.ones((2, 2), np.float32)},
+              str(weights))
     for make in (
         lambda: resolve_device(None),
         lambda: JiTModel.new_with_config(config),
@@ -159,6 +181,9 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
         lambda: SDXLModel.from_config(SDXLConfig(checkpoint_path="")),
         lambda: inference_main(["--checkpoint-path", str(tmp_path / "missing"),
                                 "--tokenizer", "word-hash"]),
+        lambda: T2IModel(str(server_yml)),
+        lambda: quantize_file(str(weights), str(tmp_path / "out.safetensors")),
+        lambda: run_import(SDXLConfig(checkpoint_path=str(weights)), str(tmp_path)),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()

@@ -24,7 +24,7 @@ from torch import nn
 from ..ops.attention import dot_product_attention
 from ..ops.linear import Conv2d, Linear
 from ..ops.norm import LayerNorm
-from .sdxl.text_encoder import Embed
+from .sdxl.text_encoder import Embed, quick_gelu
 
 
 class CLIPVisionConfig(BaseModel):
@@ -42,7 +42,7 @@ class CLIPVisionConfig(BaseModel):
 
 def _act(name: str):
     if name == "quick_gelu":
-        return lambda x: x * torch.sigmoid(1.702 * x)
+        return quick_gelu
     return F.gelu
 
 

@@ -132,9 +132,13 @@ def load_tokenizers(spec: str):
                  for sub in ("tokenizer", "tokenizer_2"))
 
 
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
 def _act(name: str):
     if name == "quick_gelu":
-        return lambda x: x * torch.sigmoid(1.702 * x)
+        return quick_gelu
     if name == "gelu":
         return F.gelu
     raise ValueError(name)

@@ -37,11 +37,15 @@ def get_timestep_embedding(
     return emb
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
 _ACTIVATIONS = {
     "silu": F.silu,
     "swish": F.silu,
     # jax.nn.gelu's default is the tanh approximation
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu": gelu_tanh,
     "relu": F.relu,
     "mish": F.mish,
     "tanh": torch.tanh,
