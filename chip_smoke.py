@@ -1,5 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's JiT-B/16 class-to-image sampler and training step,
+its text-conditioned JiT sampler over the Qwen3-VL-2B text tower, its
+on-disk image feed (C loader, worker pool) into the training step, its
+perceptual and shortcut losses,
 its JiT variant trainers (U-JiT, Cross-JiT, IG, LoIG, TREAD) and the x-loss
 config, its latent-cache tool and latent JiT 1024^2 trainer, its SDXL 1024^2
 text-to-image sampler (bf16 and NF4), LoRA / QLoRA and flow-match trainers,
@@ -308,10 +311,53 @@ N = 8192), beside F.linear on the weight dequantized beforehand.
    ``snapshot_max_memory`` read equal ``torch.cuda.max_memory_allocated``;
    a profiled 2-step group of 8.
 
+22. text_sampler (after parity): text-conditioned JiT at full width: an
+   HF-style Qwen3-VL directory written from a seed on the card (a
+   ``config.json`` nesting ``text_config``; the 28-layer, 2048-wide text
+   tower, 1.72 B parameters, bf16 safetensors in 2 shards; norm scales
+   drawn, not ones), loaded through ``JiTModel`` with ``TextContextConfig``
+   (``TextEncoder.from_local``, fp32 as in the JAX package) and JiT-B/16
+   with context 2048, bf16; the Qwen word-hash tokenizer; 3 requests of
+   ``generate`` at 256^2, 8 prompts of 1-12 words, CFG 2, 20 steps: exactly
+   80 launches of #1 a request (blocks 0-3; the masked blocks take plain
+   attention) and none else; load, encode and request seconds, steps/s,
+   peak memory; a profiled 2-step request;
+23. text_parity: the tower at full width and vocabulary cut to 2 layers
+   (written from a seed on the host) and JiT-B/16 from seed 0, card
+   (kernels) against CPU (plain versions): the penultimate state of 2
+   prompts and their negatives in fp32 (the pipeline's tower) within 1e-4
+   and in bf16 within 2e-2 relative L2, and a 2-step CFG ``generate`` from
+   injected noise at PSNR >= 50 dB (fp32) and 30 dB (bf16); 8 launches of
+   #1 on the card; its CPU halves queued right after the build;
+24. losses: ``PerceptualLoss`` with SSIM and LPIPS (random VGG16 weights
+   written in the lpips package's layout) over 8 image pairs at 256^2, and
+   the shortcut durations, teacher targets and self-consistency loss over
+   the JiT-B/16 denoiser (fp32, seed 0, 32 unmasked context tokens, batch
+   4) with injected draws: card against CPU within 1e-4 relative; 36
+   launches of #1 (3 denoiser calls of 12 blocks);
+25. e2e_feed (after the CPU halves are in, so the worker process does not
+   share the host): 512 JPEGs with captions written from a seed (the JAX
+   package's e2e image set: 320-384 x 288-384, quality 85), a uint8
+   ``TextToImageBucket`` at 256^2, batch 64, through the C loader (the phase
+   fails if g++ and the libjpeg, libpng and libwebp headers are there and
+   it did not build or the bucket did not take it; without them it says so
+   and feeds through PIL); the host decode rate in-process; then
+   ``BatchWorkerPool`` (one worker per core but one, depth 3) into the
+   headline JiT-B/16 step (``_jit_train_setup``, bf16, fp32 parameters):
+   each batch copied to the card (an event waited on before its slot is
+   recycled), mapped from uint8 to [-1, 1] there; the first batches equal
+   the in-process ``get_batch`` of the same indices; 3 windows of 10 fed
+   steps: exactly 12 + 12 launches of #1 / #2 a step; images/s, consumer
+   wait, worker decode and copy seconds, the same step on a resident batch;
+   then a synthetic latent cache (512 items, 32 x 32 x 4, fp16) through
+   ``CachedLatentBucket`` and the pool into the latent step of the JAX
+   package's ``bench_latent_e2e`` (patch 4, S 74: no kernel), order and
+   content checked, steps/s.
+
 The parity phases' CPU halves (train_parity, parity, cache_latents' CPU
-encode, latent_parity, jit_variants_parity, sdxl_parity, sdxl_lora_parity,
-sdxl_flow_match_parity, sdxl_adapter_parity, sdxl_slice14_parity,
-cogview4_parity) run in one spawned worker process beside the card's
+encode, latent_parity, text_parity, losses, jit_variants_parity,
+sdxl_parity, sdxl_lora_parity, sdxl_flow_match_parity, sdxl_adapter_parity,
+sdxl_slice14_parity, cogview4_parity) run in one spawned worker process beside the card's
 phases (see ``CpuHalves``); the halves that need no card state are queued
 right after the build, the others when their card half runs, and each
 phase's comparison runs when both halves are in, before the kernels line.
@@ -5128,6 +5174,566 @@ def phase_slice14(tmp: str) -> dict[str, tuple[int, ...]]:
     return launches
 
 
+# ---------------------------------- text-conditioned JiT, the feed, the losses
+
+# 8 prompts of 1-12 words: the word-hash tokenizer gives each a word a token,
+# so the context is 12 tokens long, most rows right-padded with 151643
+TEXT_PROMPTS = ("a red fox in the snow", "lighthouse",
+                "two cats asleep on a blue sofa at night near a window",
+                "portrait of an old sailor", "a bowl of ramen, steam, top view",
+                "mountains", "a city street in the rain with neon signs",
+                "a small wooden boat on a calm lake")
+TEXT_NEGATIVE = "blurry, low quality"
+TEXT_LAUNCHES_PER_REQUEST = _expect({1: 4 * STEPS})  # blocks 0-3, 20 steps
+TEXT_PARITY_LAYERS = 2
+TEXT_PARITY_STEPS = 2
+TEXT_PARITY_FLOOR = {"float32": {"text": 1e-4, "psnr_db": PSNR_FLOOR_DB["float32"]},
+                     "bfloat16": {"text": 2e-2, "psnr_db": PSNR_FLOOR_DB["bfloat16"]}}
+TEXT_PARITY_LAUNCHES = _expect({1: 4 * TEXT_PARITY_STEPS})
+LOSSES_TOL = 1e-4
+LOSSES_BATCH, SHORTCUT_BATCH = 8, 4
+LOSSES_LAUNCHES = _expect({1: 3 * 12})  # 3 denoiser calls, 12 unmasked blocks
+FEED_IMAGES, FEED_WINDOWS, FEED_STEPS = 512, 3, 10
+FEED_HEADERS = ("/usr/include/jpeglib.h", "/usr/include/png.h", "/usr/include/webp/decode.h")
+
+
+def _qwen_config(layers: int):
+    import dataclasses
+
+    from vision_pt_tpu_torch.models.jit.text_encoder import QWEN3_VL_2B_TEXT_CONFIG
+
+    return dataclasses.replace(QWEN3_VL_2B_TEXT_CONFIG, num_hidden_layers=layers)
+
+
+def _write_qwen_tower(path: str, layers: int, seed: int, device: str) -> float:
+    """An HF-style Qwen3-VL directory (``config.json`` nesting the text
+    config, bf16 safetensors in 2 shards under ``model.language_model.``)
+    with random weights drawn on ``device`` from ``seed``: the linears and
+    the embedding at 1/sqrt(fan in), the norm scales in [0.5, 1.5). Written
+    once (a marker file); returns the seconds it took."""
+    import dataclasses
+
+    from safetensors.torch import save_file
+
+    from vision_pt_tpu_torch.models.lm.model import DecoderLM
+
+    done = os.path.join(path, ".complete")
+    if os.path.exists(done):
+        return 0.0
+    t0 = time.perf_counter()
+    os.makedirs(path, exist_ok=True)
+    config = _qwen_config(layers)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.device(device):
+        tower = DecoderLM(config, param_dtype=torch.bfloat16, generator=gen)
+        with torch.no_grad():
+            for name, p in tower.named_parameters():
+                if p.dim() == 1:
+                    p.uniform_(0.5, 1.5, generator=gen)
+    state = {f"model.language_model.{k}": v.cpu() for k, v in tower.state_dict().items()}
+    del tower
+    keys = sorted(state)
+    half = len(keys) // 2
+    for i, part in enumerate((keys[:half], keys[half:])):
+        save_file({k: state[k] for k in part},
+                  os.path.join(path, f"model-{i + 1:05d}-of-00002.safetensors"))
+    hf = {k: v for k, v in dataclasses.asdict(config).items()
+          if k not in ("arch", "partial_rotary_factor", "hidden_act")}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "qwen3_vl", "tie_word_embeddings": True,
+                   "text_config": {**hf, "model_type": "qwen3_vl_text"}}, f)
+    open(done, "w").close()
+    return time.perf_counter() - t0
+
+
+def _text_jit_config(tower: str, dtype: str):
+    from vision_pt_tpu_torch.models.jit import JiT_B_16_Config, JiTConfig, TextContextConfig
+
+    return JiTConfig(dtype=dtype, context_encoder=TextContextConfig(pretrained_model=tower),
+                     denoiser=JiT_B_16_Config(context_dim=2048))
+
+
+def phase_text_sampler(tmp: str) -> tuple[int, ...]:
+    """Text-conditioned JiT-B/16 over the full Qwen3-VL-2B text tower, loaded
+    from a directory through ``from_local``; returns the launches of the 3
+    timed requests."""
+    from vision_pt_tpu_torch.models.jit import JiTModel
+    from vision_pt_tpu_torch.models.jit.text_encoder import QwenWordHashTokenizer
+
+    tower = os.path.join(tmp, "qwen3_vl_2b_text")
+    write_s = _write_qwen_tower(tower, 28, 0, "cuda")
+    file_bytes = sum(os.path.getsize(os.path.join(tower, f)) for f in os.listdir(tower))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = JiTModel.new_with_config(_text_jit_config(tower, "bfloat16"), seed=0)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    encoder = model.text_encoder
+    # the directory has no tokenizer files; AutoTokenizer's answer is recorded
+    found = None if encoder.tokenizer is None else type(encoder.tokenizer).__name__
+    encoder.tokenizer = QwenWordHashTokenizer()
+    tower_params = sum(p.numel() for p in encoder.model.parameters())
+    prompts = list(TEXT_PROMPTS)
+
+    def request(seed, steps=STEPS):
+        return model.generate(prompt=prompts, negative_prompt=TEXT_NEGATIVE, width=256,
+                              height=256, num_inference_steps=steps, cfg_scale=2.0,
+                              seed=seed, return_arrays=True)
+
+    request(100)  # warm-up
+    encode_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = encoder.encode_prompts(prompts, TEXT_NEGATIVE, use_negative_prompts=True,
+                                     max_token_length=64)
+        torch.cuda.synchronize()
+        encode_s.append(time.perf_counter() - t0)
+    context_len = enc.positive_embeddings.shape[1]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    seconds, per_request = [], []
+    for i in range(3):
+        before = _counts()
+        t0 = time.perf_counter()
+        out = request(i)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        per_request.append(_diff(_counts(), before))
+        check(tuple(out.shape) == (len(prompts), 256, 256, 3), f"shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), "non-finite text sampler image")
+    launches = _counts()
+    emit("text_sampler", model="JiT-B/16 (context 2048) + Qwen3-VL-2B text tower "
+         "(random weights, seed 0)", tower_layers=encoder.model.config.num_hidden_layers,
+         tower_params=tower_params, tower_param_dtype="float32", tower_file_bytes=file_bytes,
+         tower_write_seconds=write_s, load_seconds=load_s, tokenizer="Qwen word-hash",
+         tokenizer_from_directory=found,
+         prompts=len(prompts), context_tokens=context_len, resolution=256, cfg=2.0,
+         steps=STEPS, compute="bfloat16", encode_seconds=encode_s,
+         request_seconds=seconds, steps_per_second=[STEPS / s for s in seconds],
+         launches_per_request=per_request, expected=TEXT_LAUNCHES_PER_REQUEST,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         cpu_count=os.cpu_count())
+    check(per_request == [TEXT_LAUNCHES_PER_REQUEST] * 3,
+          f"text sampler launches per request {per_request}, expected "
+          f"{TEXT_LAUNCHES_PER_REQUEST}")
+    profile("text_sampler_2_steps", lambda: request(7, steps=2))
+    del model, encoder, enc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _text_parity_run(dtype: str, device: str, work: str) -> dict:
+    """text_parity on ``device``: the 2-layer tower (written once on the host
+    from seed 1 into ``work``), JiT-B/16 from seed 0; a 2-step CFG generate
+    from injected noise in ``dtype``, and in the fp32 run only, the
+    penultimate states of the pipeline's fp32 tower and of the same tower in
+    bf16 (both towers are compared once)."""
+    from vision_pt_tpu_torch.models.jit import JiTModel
+    from vision_pt_tpu_torch.models.jit.text_encoder import (
+        QwenWordHashTokenizer,
+        TextEncoder,
+    )
+    from vision_pt_tpu_torch.ops.attention import attention_dtype
+
+    tower = os.path.join(work, f"qwen_parity_{device}")
+    _write_qwen_tower(tower, TEXT_PARITY_LAYERS, 1, "cpu")
+    prompts = list(TEXT_PROMPTS[:2])
+    init = np.random.default_rng(5).normal(size=(2, 256, 256, 3)).astype(np.float32)
+    model = JiTModel.new_with_config(_text_jit_config(tower, dtype), seed=0, device=device)
+    model.text_encoder.tokenizer = QwenWordHashTokenizer()
+    texts = {}
+    if dtype == "float32":
+        bf16_tower = TextEncoder.from_local(tower, dtype=torch.bfloat16, device=device)
+        bf16_tower.tokenizer = QwenWordHashTokenizer()
+        for name, encoder in (("float32", model.text_encoder), ("bfloat16", bf16_tower)):
+            enc = encoder.encode_prompts(prompts, TEXT_NEGATIVE, use_negative_prompts=True)
+            texts[name] = torch.cat([enc.positive_embeddings, enc.negative_embeddings]
+                                    ).float().cpu().numpy()
+        del bf16_tower
+    _reset_counts()
+    t0 = time.perf_counter()
+    with attention_dtype(None if dtype == "float32" else torch.bfloat16):
+        out = model.generate(prompt=prompts, negative_prompt=TEXT_NEGATIVE, width=256,
+                             height=256, num_inference_steps=TEXT_PARITY_STEPS,
+                             cfg_scale=2.0, execution_dtype=getattr(torch, dtype),
+                             initial_noise=init, return_arrays=True)
+    image = out.float().cpu().numpy()
+    return {"text": texts, "image": image, "launches": _counts(),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_text_parity(work: str) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for dtype in ("float32", "bfloat16"):
+        future = _HALVES.take(("text_parity", dtype), f"text_parity {dtype}",
+                              _text_parity_run, dtype, "cpu", work)
+        card = _text_parity_run(dtype, "cuda", work)
+        check(np.isfinite(card["image"]).all(), "non-finite text parity image")
+        check(card["launches"] == TEXT_PARITY_LAUNCHES,
+              f"text parity launches {card['launches']}, expected {TEXT_PARITY_LAUNCHES}")
+
+        def finish(host, where, dtype=dtype, card=card):
+            floor = TEXT_PARITY_FLOOR[dtype]
+            text = {k: _rel_l2(card["text"][k], host["text"][k]) for k in card["text"]}
+            text_floor = {k: TEXT_PARITY_FLOOR[k]["text"] for k in text}
+            value = psnr(card["image"], host["image"])
+            emit("text_parity", dtype=dtype, tower_layers=TEXT_PARITY_LAYERS,
+                 widths="full (Qwen3-VL-2B text tower, 151,936 tokens; JiT-B/16)",
+                 batch=2, cfg=2.0, steps=TEXT_PARITY_STEPS, **where,
+                 text_rel_l2=text, text_floor=text_floor,
+                 psnr_db=value, floor_db=floor["psnr_db"],
+                 launches_cuda=card["launches"], launches_cpu=host["launches"],
+                 seconds_cuda=card["seconds"], seconds_cpu=host["seconds"])
+            check(host["launches"] == _expect({}), f"text parity CPU launches {host['launches']}")
+            check(len(text) == (2 if dtype == "float32" else 0),
+                  f"text towers compared in the {dtype} run: {sorted(text)}")
+            check(all(text[k] <= text_floor[k] for k in text),
+                  f"text tower card-vs-CPU {text}")
+            check(value >= floor["psnr_db"],
+                  f"{dtype} text sampler card-vs-CPU PSNR {value:.2f} dB < {floor['psnr_db']}")
+
+        _HALVES.then(future, finish)
+        torch.cuda.empty_cache()
+
+
+def _write_lpips(path: str, seed: int) -> str:
+    """Random VGG16 convs and heads in the lpips package's layout (``.pth``),
+    drawn on the host from ``seed``; written once."""
+    if not os.path.exists(path):
+        from vision_pt_tpu_torch.ops.loss import perceptual
+
+        gen = torch.Generator().manual_seed(seed)
+        sd = {}
+        for k, (stage, idxs) in enumerate(zip(perceptual._VGG16_STAGES,
+                                              perceptual._VGG16_CONV_IDX)):
+            for (cin, cout), idx in zip(stage, idxs):
+                sd[f"net.slice{k + 1}.{idx}.weight"] = torch.randn(
+                    cout, cin, 3, 3, generator=gen) * (2.0 / (9 * cin)) ** 0.5
+                sd[f"net.slice{k + 1}.{idx}.bias"] = 0.05 * torch.randn(cout, generator=gen)
+            sd[f"lin{k}.model.1.weight"] = 0.2 * torch.rand(1, stage[-1][1], 1, 1,
+                                                            generator=gen)
+        torch.save(sd, f"{path}.{os.getpid()}.tmp")
+        os.replace(f"{path}.{os.getpid()}.tmp", path)
+    return path
+
+
+def _losses_run(device: str, work: str) -> dict:
+    """losses on ``device``: PerceptualLoss (SSIM + LPIPS) over 8 pairs at
+    256^2, and the shortcut durations (injected draws), teacher targets and
+    loss over JiT-B/16 in fp32."""
+    from vision_pt_tpu_torch.models.jit import JiT_B_16_Config
+    from vision_pt_tpu_torch.models.jit.denoiser import Denoiser
+    from vision_pt_tpu_torch.ops.attention import attention_dtype
+    from vision_pt_tpu_torch.ops.loss import perceptual, shortcut
+
+    rng = np.random.default_rng(11)
+    pred = rng.uniform(-1, 1, (LOSSES_BATCH, 256, 256, 3)).astype(np.float32)
+    target = np.clip(pred + rng.normal(0, 0.3, pred.shape), -1, 1).astype(np.float32)
+    loss = perceptual.PerceptualLoss({"ssim": 1.0, "lpips": 1.0},
+                                     lpips_weights_path=_write_lpips(
+                                         os.path.join(work, "lpips_vgg16.pth"), 3),
+                                     device=device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        values = loss(torch.from_numpy(pred).to(device), torch.from_numpy(target).to(device))
+    values = {k: float(v) for k, v in values.items()}
+    perceptual_s = time.perf_counter() - t0
+
+    b = SHORTCUT_BATCH
+    durations = shortcut.prepare_random_shortcut_durations(
+        None, b, device=device, exponent=torch.from_numpy(rng.integers(1, 7, b)),
+        raw=torch.from_numpy(rng.integers(0, 128, b)))
+    latents = torch.from_numpy(rng.normal(size=(b, 256, 256, 3)).astype(np.float32)).to(device)
+    context = torch.from_numpy(rng.normal(size=(b, 32, 768)).astype(np.float32)).to(device)
+    sizes = torch.full((b, 2), 256.0, device=device)
+    crop = torch.zeros(b, 2, device=device)
+    model = Denoiser(JiT_B_16_Config(), generator=torch.Generator().manual_seed(0),
+                     device=device).eval()
+
+    def denoiser(x, ctx, t, dt):  # the JiT denoiser has no duration input
+        return model(x, t, ctx, sizes, sizes, crop)
+
+    _reset_counts()
+    with attention_dtype(None):
+        targets = shortcut.prepare_self_consistency_targets(
+            denoiser, latents, context, durations.departure_timesteps,
+            2 * durations.shortcut_duration)
+        with torch.no_grad():
+            double = denoiser(latents, context, durations.departure_timesteps,
+                              2 * durations.shortcut_duration)
+        value = shortcut.loss_with_shortcut_self_consistency(*targets, double)
+    return {"perceptual": values, "perceptual_seconds": perceptual_s,
+            "durations": [t.cpu().numpy() for t in durations],
+            "targets": [t.float().cpu().numpy() for t in targets],
+            "velocity": shortcut.get_shortcut_target_velocity(*targets).cpu().numpy(),
+            "shortcut_loss": float(value), "launches": _counts()}
+
+
+def phase_losses(work: str) -> tuple[int, ...]:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    future = _HALVES.take("losses", "losses", _losses_run, "cpu", work)
+    card = _losses_run("cuda", work)
+    check(card["launches"] == LOSSES_LAUNCHES,
+          f"losses launches {card['launches']}, expected {LOSSES_LAUNCHES}")
+    check(all(np.isfinite(v) for v in card["perceptual"].values())
+          and np.isfinite(card["shortcut_loss"]), "non-finite loss")
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    def finish(host, where):
+        errors = {f"perceptual_{k}": rel(card["perceptual"][k], host["perceptual"][k])
+                  for k in card["perceptual"]}
+        errors["shortcut_loss"] = rel(card["shortcut_loss"], host["shortcut_loss"])
+        errors["first_shortcut"], errors["second_shortcut"] = (
+            _rel_l2(c, h) for c, h in zip(card["targets"], host["targets"]))
+        errors["target_velocity"] = _rel_l2(card["velocity"], host["velocity"])
+        emit("losses", batch={"perceptual": LOSSES_BATCH, "shortcut": SHORTCUT_BATCH},
+             resolution=256, dtype="float32", lpips="random VGG16, lpips layout",
+             denoiser="JiT-B/16 (seed 0), 32 context tokens", **where,
+             values_cuda={**card["perceptual"], "shortcut": card["shortcut_loss"]},
+             values_cpu={**host["perceptual"], "shortcut": host["shortcut_loss"]},
+             rel_error=errors, tol=LOSSES_TOL, perceptual_seconds_cuda=card[
+                 "perceptual_seconds"], launches_cuda=card["launches"],
+             launches_cpu=host["launches"])
+        for c, h in zip(card["durations"], host["durations"]):
+            check(np.array_equal(c, h), "shortcut durations differ between card and CPU")
+        check(host["launches"] == _expect({}), f"losses CPU launches {host['launches']}")
+        check(all(e <= LOSSES_TOL for e in errors.values()),
+              f"losses card-vs-CPU {errors} over {LOSSES_TOL}")
+
+    _HALVES.then(future, finish)
+    torch.cuda.empty_cache()
+    return card["launches"]
+
+
+def _write_feed_images(folder: str, n: int = FEED_IMAGES, seed: int = 0) -> list[dict]:
+    """The JAX package's e2e image set (``_ensure_e2e_image_set``): textured
+    gradients with noise at 320-384 x 288-384, JPEG quality 85, captions
+    ``bench class {i % 16}``, from numpy draws of ``seed``."""
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    widths, heights = [320, 352, 384, 336], [288, 384, 320, 352]
+    grids, items = {}, []
+    for i in range(n):
+        w, h = widths[i % 4], heights[(i // 4) % 4]
+        if (h, w) not in grids:
+            grids[(h, w)] = np.meshgrid(np.linspace(0, 4 * np.pi, w, dtype=np.float32),
+                                        np.linspace(0, 4 * np.pi, h, dtype=np.float32))
+        xs, ys = grids[(h, w)]
+        phase = rng.uniform(0, 2 * np.pi, size=3).astype(np.float32)
+        base = np.stack([127 + 100 * np.sin(xs * (1 + c * 0.3) + ys + phase[c])
+                         for c in range(3)], axis=-1)
+        noise = rng.normal(0, 12, size=(h, w, 3)).astype(np.float32)
+        path = os.path.join(folder, f"img_{i:05d}.jpg")
+        Image.fromarray(np.clip(base + noise, 0, 255).astype(np.uint8)).save(path, quality=85)
+        with open(path[:-4] + ".txt", "w") as f:
+            f.write(f"bench class {i % 16}")
+        items.append({"image": path, "caption": f"bench class {i % 16}"})
+    return items
+
+
+def _write_latent_feed(folder: str, n: int = FEED_IMAGES, size: int = 32, ch: int = 4):
+    """The JAX package's e2e latent cache (``_ensure_latent_cache``): fp16
+    mean and std per item, its manifest rows."""
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(0)
+    rows = []
+    for i in range(n):
+        name = f"lat_{i:05d}.npz"
+        np.savez(os.path.join(folder, name),
+                 mean=rng.standard_normal((size, size, ch)).astype(np.float16),
+                 std=(0.1 + 0.05 * rng.random((size, size, ch))).astype(np.float16))
+        rows.append({"file": name, "caption": f"bench class {i % 16}",
+                     "width": size * 8, "height": size * 8,
+                     "original_size": [size * 8] * 2, "target_size": [size * 8] * 2,
+                     "crop_coords_top_left": [0, 0], "scaling_factor": 0.13025})
+    return rows
+
+
+def phase_e2e_feed(tmp: str) -> dict[str, tuple[int, ...]]:
+    """On-disk JPEGs -> C loader in worker processes -> shared memory -> the
+    card -> the headline JiT-B/16 step; then cached latents into the latent
+    step. Returns the fed steps' launches."""
+    from vision_pt_tpu_torch.benchmarks import _jit_train_setup
+    from vision_pt_tpu_torch.data import native_image
+    from vision_pt_tpu_torch.data.latent_cache import CachedLatentBucket
+    from vision_pt_tpu_torch.data.text_to_image import TextToImageBucket
+    from vision_pt_tpu_torch.data.worker_pool import (
+        BatchWorkerPool,
+        infinite_indices,
+        pool_cpu_budget,
+        to_device,
+    )
+    from vision_pt_tpu_torch.models.jit import DenoiserConfig, JiT_B_16_Config
+
+    batch, side, depth, workers = TRAIN_BATCH, 256, 3, pool_cpu_budget()
+    # every checked batch comes from a worker (the schema probe is not
+    # yielded), and the last two from slots already used once
+    checked = depth + workers + 2
+    headers = {h: os.path.exists(h) for h in FEED_HEADERS}
+    toolchain = all(headers.values()) and shutil.which("g++") is not None
+    shm = shutil.disk_usage("/dev/shm")
+    t0 = time.perf_counter()
+    items = _write_feed_images(os.path.join(tmp, "e2e_jpegs"))
+    write_s = time.perf_counter() - t0
+    native = native_image.native_available()
+    emit("e2e_feed", case="host", headers=headers, gxx=shutil.which("g++"),
+         c_loader=native, c_loader_error=native_image.build_error(),
+         dev_shm_bytes={"total": shm.total, "free": shm.free},
+         slot_bytes=batch * side * side * 3, slots=depth + workers, workers=workers,
+         cpu_count=os.cpu_count(), images=len(items), write_seconds=write_s,
+         decode_path="C loader" if native else "PIL (no C loader)")
+    if toolchain:
+        check(native, f"the C loader did not build: {native_image.build_error()}")
+    # a slot written past the end of /dev/shm kills its worker with SIGBUS
+    check(shm.free > 1.2 * (depth + workers) * batch * side * side * 3,
+          f"/dev/shm has {shm.free} bytes free, too few for {depth + workers} slots")
+
+    bucket = TextToImageBucket(items=items, batch_size=batch, width=side, height=side,
+                               do_upscale=False, seed=0, output_dtype="uint8")
+    calls = [0]
+    load = native_image.load_cover_crop
+
+    def counted(*args):
+        calls[0] += 1
+        return load(*args)
+
+    native_image.load_cover_crop = counted
+    try:
+        for _ in range(2):
+            bucket.get_batch(0)  # page cache, thread pool
+        calls[0] = 0
+        t0 = time.perf_counter()
+        expected = [bucket.get_batch(i % bucket.num_batches) for i in range(checked)]
+        host_rate = checked * batch / (time.perf_counter() - t0)
+    finally:
+        native_image.load_cover_crop = load
+    if native:
+        check(calls[0] == checked * batch,
+              f"the bucket took the C loader for {calls[0]} of {checked * batch} images")
+
+    model, optimizer, step = _jit_train_setup(JiT_B_16_Config(), batch, side,
+                                              dtype=torch.bfloat16, param_dtype=torch.float32,
+                                              device="cuda")
+    copy_s = [0.0]
+
+    def fed(b):
+        t = time.perf_counter()
+        out = to_device(b, "cuda")
+        copy_s[0] += time.perf_counter() - t
+        return out
+
+    def normalize(img_u8):
+        return img_u8.float() / 127.5 - 1.0
+
+    pool = BatchWorkerPool(bucket.get_batch, infinite_indices(bucket.num_batches),
+                           num_workers=workers, depth=depth, probe_index=0)
+    try:
+        it = pool.iter_device(fed)
+        delivered = [next(it) for _ in range(checked)]
+        same = [all(np.array_equal(d[k].cpu().numpy(), e[k])
+                    for k in ("image", "original_size", "crop_coords_top_left"))
+                and d["caption"] == e["caption"] for d, e in zip(delivered, expected)]
+        check(all(same), f"fed batches differ from the in-process ones: {same}")
+        step(0, images=normalize(delivered[0]["image"]))  # warm-up
+        del delivered
+        torch.cuda.synchronize()
+        wait0, decode0, copy0 = pool.consumer_wait_s, pool.worker_decode_s, copy_s[0]
+        _reset_counts()
+        windows, losses, i = [], [], 1
+        t_all = time.perf_counter()
+        for _ in range(FEED_WINDOWS):
+            t0 = time.perf_counter()
+            for _ in range(FEED_STEPS):
+                losses.append(step(i, images=normalize(next(it)["image"])))
+                i += 1
+            torch.cuda.synchronize()
+            windows.append((time.perf_counter() - t0) / FEED_STEPS)
+        measured_s = time.perf_counter() - t_all
+        counts = _counts()
+        wait, decode = pool.consumer_wait_s - wait0, pool.worker_decode_s - decode0
+        copies = copy_s[0] - copy0
+        resident = normalize(next(it)["image"])
+    finally:
+        pool.close()
+    t0 = time.perf_counter()
+    for _ in range(FEED_STEPS):
+        step(i, images=resident)
+        i += 1
+    torch.cuda.synchronize()
+    device_step = (time.perf_counter() - t0) / FEED_STEPS
+    losses = [float(x) for x in losses]
+    steps = FEED_WINDOWS * FEED_STEPS
+    emit("e2e_feed", case="jit_b16_pixels", batch=batch, resolution=side,
+         decode_path="C loader" if native else "PIL", workers=workers, depth=depth,
+         slots=depth + workers, cpu_count=os.cpu_count(),
+         host_decode_images_per_second=host_rate,
+         seconds_per_step=windows, images_per_second=[batch / s for s in windows],
+         best_images_per_second=batch / min(windows),
+         resident_batch_images_per_second=batch / device_step,
+         consumer_wait_seconds=wait, worker_decode_seconds=decode,
+         host_to_device_seconds=copies, host_to_device_ms_per_batch=1e3 * copies / steps,
+         measured_seconds=measured_s, consumer_wait_share=wait / measured_s,
+         fed_steps=steps, checked_batches=checked, recycled_checked=checked - depth - workers,
+         launches=counts,
+         fwd_launches_per_step=counts[0] / steps, bwd_launches_per_step=counts[1] / steps,
+         losses=losses[-3:])
+    check(all(np.isfinite(losses)), f"non-finite fed loss {losses}")
+    check(counts == _expect({1: 12 * steps, 2: 12 * steps}),
+          f"fed step launches {counts} over {steps} steps, expected 12 + 12 a step")
+    del model, optimizer, step, resident
+    torch.cuda.empty_cache()
+
+    rows = _write_latent_feed(os.path.join(tmp, "e2e_latents"))
+    latents = CachedLatentBucket(rows, os.path.join(tmp, "e2e_latents"), batch_size=batch,
+                                 sample=True, seed=0)
+    config = DenoiserConfig(in_channels=4, out_channels=4, patch_size=4, hidden_size=768,
+                            depth=12, num_heads=12, bottleneck_dim=128, context_dim=768,
+                            context_start_block=4, rope_axes_dims=[16, 24, 24],
+                            rope_axes_lens=[256, 64, 64])
+    model, optimizer, step = _jit_train_setup(config, batch, 32, dtype=torch.bfloat16,
+                                              param_dtype=torch.float32, device="cuda")
+    expected = [latents.get_batch(i % latents.num_batches)["latents"]
+                for i in range(checked)]
+    pool = BatchWorkerPool(lambda i: {"latents": latents.get_batch(i)["latents"]},
+                           infinite_indices(latents.num_batches), num_workers=workers,
+                           depth=depth, probe_index=0)
+    try:
+        it = pool.iter_device(lambda b: to_device(b, "cuda"))
+        delivered = [next(it)["latents"] for _ in range(checked)]
+        check(all(np.array_equal(d.cpu().numpy(), e) for d, e in zip(delivered, expected)),
+              "fed latents differ from the in-process ones")
+        step(0, images=delivered[0])
+        del delivered
+        torch.cuda.synchronize()
+        _reset_counts()
+        wait0 = pool.consumer_wait_s
+        t0 = time.perf_counter()
+        for j in range(1, FEED_STEPS + 1):
+            loss = step(j, images=next(it)["latents"])
+        torch.cuda.synchronize()
+        latent_s = (time.perf_counter() - t0) / FEED_STEPS
+        latent_counts = _counts()
+        wait = pool.consumer_wait_s - wait0
+    finally:
+        pool.close()
+    emit("e2e_feed", case="jit_b_latent", batch=batch, latent="32 x 32 x 4 (fp16 cache)",
+         tokens=74, workers=workers, checked_batches=checked, seconds_per_step=latent_s,
+         steps_per_second=1 / latent_s, images_per_second=batch / latent_s,
+         consumer_wait_seconds=wait, launches=latent_counts, loss=float(loss))
+    check(np.isfinite(float(loss)), "non-finite latent loss")
+    check(latent_counts == _expect({}), f"latent feed launches {latent_counts} (S 74)")
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+    return {"e2e_feed": counts}
+
+
 def main(args: list[str]) -> int:
     if args not in ([], ["--kernels-only"]):
         print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
@@ -5152,13 +5758,17 @@ def main(args: list[str]) -> int:
 
 def _start_cpu_halves(work: str) -> None:
     """The worker, and the CPU halves that need no card work queued at once:
-    the JiT and latent parity steps, the JiT sampler parity and the JiT
-    variants' steps."""
+    text_parity and losses, the JiT and latent parity steps, the JiT sampler
+    parity and the JiT variants' steps."""
     global _HALVES
     _HALVES = CpuHalves(work)
     label2id = os.path.join(work, "label2id.json")
     with open(label2id, "w") as f:
         json.dump({f"c{i}": i for i in range(4)}, f)
+    for dtype in ("float32", "bfloat16"):
+        _HALVES.early_submit(("text_parity", dtype), f"text_parity {dtype}",
+                             _text_parity_run, dtype, "cpu", work)
+    _HALVES.early_submit("losses", "losses", _losses_run, "cpu", work)
     phases = {"jit": "train_parity", "latent": "latent_parity"}
     for model, dtype, depth in STEP_PARITY_CASES:
         _HALVES.early_submit((model, dtype), f"{phases[model]} {dtype}", _cpu_step,
@@ -5195,6 +5805,9 @@ def _run(args: list[str], started: float, smi: str, work: str) -> int:
     launches["trainer"] = phase_trainer(tmp)
     phase_train_parity(label2id)
     phase_parity(label2id)
+    launches["text_sampler"] = phase_text_sampler(tmp)
+    phase_text_parity(work)
+    launches["losses"] = phase_losses(work)
     launches["cache_latents"] = phase_cache_latents(tmp)
     launches["latent_trainer"] = phase_latent_trainer(tmp)
     phase_latent_parity(tmp)
@@ -5215,6 +5828,7 @@ def _run(args: list[str], started: float, smi: str, work: str) -> int:
     launches.update(phase_cogview4_sampler())
     launches.update(phase_inference_server(sdxl_tmp))
     _HALVES.drain()
+    launches.update(phase_e2e_feed(tempfile.mkdtemp(dir=work)))
     kernels = []
     # each kernel's launches are those of its main path: the training step
     # for the packed kernels (the JiT variants' trainers, parity steps and

@@ -75,7 +75,11 @@ def test_importing_the_whole_port_loads_no_jax():
                  "tools.checkpoint.to_safetensors", "tools.model.inspect_weights",
                  "tools.model.expand_patch_embed", "tools.visualize.images_to_gif",
                  "tools.data.create_buckets_cache", "tools.data.create_label2id",
-                 "tools.data.create_label2id_sfw"):
+                 "tools.data.create_label2id_sfw", "models.jit.text_encoder",
+                 "ops.loss", "ops.loss.shortcut", "ops.loss.perceptual",
+                 "ops.timestep", "ops.timestep.schedule", "data.native_image",
+                 "data.worker_pool", "data.datapool", "data.text_to_image",
+                 "tools.data.download"):
         assert f"vision_pt_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["modules"] if FORBIDDEN.match(m)]
     assert leaked == []
@@ -138,7 +142,9 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
         JiTModel,
     )
     from vision_pt_tpu_torch.config import TrainConfig
+    from vision_pt_tpu_torch.models.jit import TextContextConfig
     from vision_pt_tpu_torch.models.sdxl import SDXLConfig, SDXLModel
+    from vision_pt_tpu_torch.ops.loss.perceptual import LPIPS, PerceptualLoss
     from vision_pt_tpu_torch.tools.checkpoint.import_sdxl import run_import
     from vision_pt_tpu_torch.tools.inference_cli import main as inference_main
     from vision_pt_tpu_torch.tools.inference_server import T2IModel
@@ -173,6 +179,10 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
         lambda: resolve_device(None),
         lambda: JiTModel.new_with_config(config),
         lambda: JiTModel(config),
+        lambda: JiTModel(config.model_copy(update={"context_encoder": TextContextConfig(
+            pretrained_model=str(tmp_path))})),
+        lambda: LPIPS(params={"convs": [], "lins": []}),
+        lambda: PerceptualLoss({"lpips": 1.0}, lpips_weights_path=str(tmp_path / "w.pth")),
         lambda: JiTModel.from_pretrained(config, str(tmp_path / "missing.safetensors")),
         lambda: Trainer(TrainConfig.model_validate(train_config)),
         lambda: run(str(yml)),

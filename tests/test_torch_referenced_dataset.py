@@ -2,9 +2,8 @@
 against the JAX package's, on the CPU: ``compose_caption`` under one seed,
 and over one synthetic folder (images with metadata JSONs naming a reference
 image and tag groups) and seed the same batches (captions, size
-conditioning, crop coordinates, pixels and reference images), exactly. The
-JAX side decodes through PIL (its C decoder switched off), as the port
-always does.
+conditioning, crop coordinates, pixels and reference images), exactly: with
+both C loaders switched off (PIL on both sides) and with both on.
 """
 
 import numpy as np
@@ -13,6 +12,7 @@ import pytest
 from tests.test_torch_ip_adapter import write_images
 from vision_pt_tpu.data import native_image
 from vision_pt_tpu.data import referenced_text_to_image as jref
+from vision_pt_tpu_torch.data import native_image as tnative
 from vision_pt_tpu_torch.data import referenced_text_to_image as ref
 from vision_pt_tpu_torch.data.transforms import ColorChannelSwap, PaddedResize
 
@@ -41,9 +41,7 @@ def test_padded_resize_and_channel_swap_match_jax():
     np.testing.assert_array_equal(ColorChannelSwap()(arr), jtransforms.ColorChannelSwap()(arr))
 
 
-@pytest.mark.parametrize("reference_size,background", [(224, 0), (32, 255)])
-def test_batches_match_jax(tmp_path, monkeypatch, reference_size, background):
-    monkeypatch.setattr(native_image, "native_available", lambda: False)
+def _same_batches(tmp_path, reference_size, background):
     write_images(tmp_path / "images", count=5, reference_folder=tmp_path / "refs")
     # an image without metadata and one whose metadata names no reference
     # are left out on both sides
@@ -69,3 +67,27 @@ def test_batches_match_jax(tmp_path, monkeypatch, reference_size, background):
             seen += got["caption"]
     assert len(seen) == 16
     assert all(c.startswith("1girl, character ") for c in seen)
+
+
+@pytest.mark.parametrize("reference_size,background", [(224, 0), (32, 255)])
+def test_batches_match_jax(tmp_path, monkeypatch, reference_size, background):
+    monkeypatch.setattr(native_image, "native_available", lambda: False)
+    monkeypatch.setattr(tnative, "native_available", lambda: False)
+    _same_batches(tmp_path, reference_size, background)
+
+
+def test_batches_match_jax_with_both_c_loaders(tmp_path, monkeypatch):
+    """Both packages build the same ``native/image_loader.cpp`` (each into
+    its own library) and take it for every PNG of the folder."""
+    assert tnative.native_available(), tnative.build_error()
+    assert native_image.native_available()
+    calls = {"port": 0, "jax": 0}
+    for side, module in (("port", tnative), ("jax", native_image)):
+        def counted(*args, side=side, load=module.load_cover_crop):
+            calls[side] += 1
+            return load(*args)
+        monkeypatch.setattr(module, "load_cover_crop", counted)
+    _same_batches(tmp_path, 224, 0)
+    assert calls["port"] == calls["jax"] == 16  # 2 epochs of 8 items
+    image = next((tmp_path / "images").glob("*.png"))
+    assert tnative.probe_size(image) == native_image.probe_size(image)

@@ -2,8 +2,9 @@
 text_to_image}.py``) against the JAX package's, on the CPU: the same buckets
 and assignments for the configs' parameters, and over one synthetic folder
 and seed the same batches (captions, size conditioning, crop coordinates and
-pixels), exactly. The JAX side decodes through PIL
-(``use_native_loader=False``), as the port always does.
+pixels), exactly. Both sides decode through PIL here
+(``use_native_loader=False``); ``tests/test_torch_feed.py`` holds the C
+loader's path and the uint8 output.
 """
 
 import json
@@ -126,9 +127,10 @@ def _assert_same_batches(ours, theirs, epochs=2):
 @pytest.mark.parametrize("do_upscale", [False, True])
 def test_batches_match_jax(tmp_path, do_upscale):
     folder = write_folder(tmp_path / "images")
-    cfg = {**CONFIG, "folder": str(folder), "do_upscale": do_upscale}
+    cfg = {**CONFIG, "folder": str(folder), "do_upscale": do_upscale,
+           "use_native_loader": False}
     ours = TextToImageDatasetConfig.model_validate(cfg).get_dataset()
-    theirs = JDatasetConfig.model_validate({**cfg, "use_native_loader": False}).get_dataset()
+    theirs = JDatasetConfig.model_validate(cfg).get_dataset()
     _assert_same_batches(ours, theirs)
     batch = next(iter(ours))
     assert batch["image"].dtype == np.float32 and batch["image"].ndim == 4
@@ -143,14 +145,15 @@ def test_batches_match_jax(tmp_path, do_upscale):
 def test_imagesize_cache_serves_the_same_batches(tmp_path):
     folder = write_folder(tmp_path / "images")
     cache = tmp_path / "sizes.jsonl"
-    cfg = {**CONFIG, "folder": str(folder), "imagesize_cache_path": str(cache)}
+    cfg = {**CONFIG, "folder": str(folder), "imagesize_cache_path": str(cache),
+           "use_native_loader": False}
     first = TextToImageDatasetConfig.model_validate(cfg).get_dataset()
     assert cache.exists() and len(cache.read_text().splitlines()) == 7
     # an image added later is not walked: the cache lists the folder
     Image.new("RGB", (64, 64)).save(folder / "late.png")
     (folder / "late.txt").write_text("late")
     # the port's cache is read by the JAX package as it is
-    theirs = JDatasetConfig.model_validate({**cfg, "use_native_loader": False}).get_dataset()
+    theirs = JDatasetConfig.model_validate(cfg).get_dataset()
     again = TextToImageDatasetConfig.model_validate(cfg).get_dataset()
     _assert_same_batches(again, theirs, epochs=1)
     _assert_same_batches(again, first, epochs=1)

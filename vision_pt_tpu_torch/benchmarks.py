@@ -35,17 +35,19 @@ def time_steps(fn: Callable[[int], object], steps: int = 10,
 class TrainSetup(NamedTuple):
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
-    step: Callable[[int], torch.Tensor]  # step(i) -> the detached loss
+    # step(i, images=None) -> the detached loss; images default to the fixed batch
+    step: Callable[..., torch.Tensor]
 
 
 def _jit_train_setup(config, batch: int, size: int, *, dtype, param_dtype,
                      device="cuda") -> TrainSetup:
     """The JAX package's headline training step: a JiT ``Denoiser`` of
     ``config`` (weights from seed 0), AdamW 1e-4 (optax's defaults), random
-    NHWC images and ``CONTEXT_LEN`` unmasked context tokens, the sigmoid
-    timestep draw and flow-matching v-loss. ``step(i)`` draws its timesteps
-    and noise from a generator seeded ``1000 + i`` and takes one optimizer
-    step."""
+    NHWC images of ``config.in_channels`` and ``CONTEXT_LEN`` unmasked
+    context tokens, the sigmoid timestep draw and flow-matching v-loss.
+    ``step(i, images=None)`` draws its timesteps and noise from a generator
+    seeded ``1000 + i`` and takes one optimizer step, on ``images`` (a fed
+    batch of the same shape, on the device) or the fixed batch."""
     from .models.jit.denoiser import Denoiser
     from .ops.loss.flow_match import prepare_scaled_noised_latents
     from .ops.timestep.sampling import scale_shift_sigmoid_randn
@@ -55,13 +57,15 @@ def _jit_train_setup(config, batch: int, size: int, *, dtype, param_dtype,
                      generator=torch.Generator().manual_seed(0), device=device)
     optimizer = get_optimizer("adamw", list(model.parameters()), lr=1e-4)
     gen = torch.Generator(device=device).manual_seed(1)
-    images = torch.randn(batch, size, size, 3, generator=gen, device=device)
+    fixed = torch.randn(batch, size, size, config.in_channels, generator=gen,
+                        device=device)
     context = torch.randn(batch, CONTEXT_LEN, config.context_dim, generator=gen,
                           device=device).to(dtype or torch.float32)
     sizes = torch.full((batch, 2), float(size), device=device)
     crop = torch.zeros(batch, 2, device=device)
 
-    def step(i: int) -> torch.Tensor:
+    def step(i: int, images: torch.Tensor | None = None) -> torch.Tensor:
+        images = fixed if images is None else images
         g = torch.Generator(device=device).manual_seed(1000 + i)
         t = scale_shift_sigmoid_randn(g, batch, device=device)
         noisy, _ = prepare_scaled_noised_latents(g, images, t)

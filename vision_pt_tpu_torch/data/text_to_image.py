@@ -3,17 +3,19 @@
 
 The folder walk pairs images with ``.txt`` captions or ``.json`` metadata;
 image sizes come from the headers; each image goes to its nearest bucket;
-an item is decoded, cover-resized (bicubic) and randomly cropped, with SDXL's
-size conditioning (``original_size``, ``target_size``,
-``crop_coords_top_left``). Batches are NHWC float32 in [-1, 1], one shape per
-bucket. Every draw comes from a generator of (seed, epoch, index), so the
-same folder and seed give the JAX package's batches. The image-size cache is
-JSONL or parquet.
+an item is decoded, cover-resized and randomly cropped, with SDXL's size
+conditioning (``original_size``, ``target_size``, ``crop_coords_top_left``).
+Batches are NHWC, one shape per bucket: float32 in [-1, 1], or with
+``output_dtype="uint8"`` the raw RGB8 for the consumer to normalize on the
+device (4x fewer host-to-device bytes). Every draw comes from a generator of
+(seed, epoch, index), so the same folder and seed give the JAX package's
+batches. The image-size cache is JSONL or parquet.
 
-Images decode through PIL. The JAX package's C decoder
-(``native/image_loader.cpp``) is not ported (ROADMAP Queue 1 item 6):
-``use_native_loader`` is accepted and every image takes the PIL path, which
-is the JAX package's own path where its decoder is absent.
+With ``use_native_loader`` (the default) JPEG, PNG and WebP images take the
+C loader (``data/native_image.py``: decode, cover-resize and crop in one
+call, as the JAX package's do); other files, an image the bucket would have
+to upscale without ``do_upscale``, and every image where the loader cannot
+be built take PIL (bicubic).
 """
 
 from __future__ import annotations
@@ -104,7 +106,8 @@ class TextToImageBucket(Bucket):
 
     def __init__(self, items: list[dict], batch_size: int, width: int,
                  height: int, do_upscale: bool, num_repeats: int = 1,
-                 caption_processors: CaptionProcessorList = [], seed: int = 0):
+                 caption_processors: CaptionProcessorList = [], seed: int = 0,
+                 use_native_loader: bool = True, output_dtype: str = "float32"):
         super().__init__(items, batch_size, num_repeats)
         self.width = int(width)
         self.height = int(height)
@@ -112,18 +115,52 @@ class TextToImageBucket(Bucket):
         self.caption_processors = caption_processors
         self.resize = ObjectCoverResize(self.width, self.height, do_upscale)
         self.seed = seed
+        self.use_native_loader = use_native_loader
+        if output_dtype not in ("float32", "uint8"):
+            raise ValueError(f"output_dtype must be float32 or uint8, not {output_dtype!r}")
+        self.output_dtype = output_dtype
+
+    def _load_native(self, path, rng) -> tuple | None:
+        """(crop, cover height, cover width, top, left) from the C loader,
+        or None for the PIL path."""
+        from . import native_image
+
+        if not (self.use_native_loader and native_image.supports(path)
+                and native_image.native_available()):
+            return None
+        size = native_image.probe_size(path)
+        if size is None:
+            return None
+        w, h = size
+        if max(self.width / w, self.height / h) > 1.0 and not self.do_upscale:
+            return None  # PIL's path keeps the no-upscale semantics
+        cw, ch = native_image.cover_dims(w, h, self.width, self.height)
+        top = int(rng.integers(0, max(ch - self.height, 0) + 1))
+        left = int(rng.integers(0, max(cw - self.width, 0) + 1))
+        rgb = native_image.load_cover_crop(path, self.width, self.height, left, top)
+        if rgb is None:
+            return None
+        if self.output_dtype == "float32":
+            rgb = rgb.astype(np.float32) / 127.5 - 1.0
+        return rgb, ch, cw, top, left
 
     def load_item(self, idx: int) -> dict:
         item = self.get_item(idx)
         rng = self.item_rng(idx, self.seed)
-        with Image.open(item["image"]) as pil:
-            arr = to_array(self.resize(pil))
-        orig_h, orig_w = arr.shape[:2]
-        crop, (top, left) = random_crop(arr, self.height, self.width, rng)
+        native = self._load_native(item["image"], rng)
+        if native is not None:
+            crop, orig_h, orig_w, top, left = native
+        else:
+            with Image.open(item["image"]) as pil:
+                resized = self.resize(pil)
+                arr = (np.asarray(resized.convert("RGB"), dtype=np.uint8)
+                       if self.output_dtype == "uint8" else to_array(resized))
+            orig_h, orig_w = arr.shape[:2]
+            crop, (top, left) = random_crop(arr, self.height, self.width, rng)
         caption = apply_caption_processors(item["caption"],
                                            self.caption_processors, rng)
         return {
-            "image": crop.astype(np.float32),
+            "image": crop if self.output_dtype == "uint8" else crop.astype(np.float32),
             "caption": caption,
             "original_size": np.asarray([orig_h, orig_w], dtype=np.int32),
             "target_size": np.asarray([self.height, self.width], dtype=np.int32),
@@ -144,7 +181,7 @@ class TextToImageDatasetConfig(AspectRatioBucketConfig):
     caption_processors: CaptionProcessorList = []
     imagesize_cache_path: str | None = None
     seed: int = 0
-    use_native_loader: bool = True  # accepted; images decode through PIL
+    use_native_loader: bool = True  # the C loader (data/native_image.py)
 
     # -------------------------------------------------- imagesize cache
 
@@ -258,7 +295,8 @@ class TextToImageDatasetConfig(AspectRatioBucketConfig):
                 items=items, batch_size=self.batch_size, width=width,
                 height=height, do_upscale=self.do_upscale,
                 num_repeats=self.num_repeats,
-                caption_processors=self.caption_processors, seed=self.seed)
+                caption_processors=self.caption_processors, seed=self.seed,
+                use_native_loader=self.use_native_loader)
             bucket.load_workers = max(1, self.num_workers)
             buckets.append(bucket)
         return buckets

@@ -9,6 +9,8 @@ asks for another.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 from PIL import Image
@@ -19,11 +21,12 @@ from .class_encoder import ClassEncoder
 from .config import ClassContextConfig, JiTConfig
 from .convert import port_to_reference, reference_to_port
 from .denoiser import Denoiser
+from .text_encoder import TextEncoder
 
 
 class JiTModel:
-    """The denoiser and its class encoder, on one device. The variants of
-    ``extension/`` set ``denoiser_class``."""
+    """The denoiser and its class encoder or Qwen3 text encoder, on one
+    device. The variants of ``extension/`` set ``denoiser_class``."""
 
     denoiser_class: type[torch.nn.Module] = Denoiser
 
@@ -37,27 +40,35 @@ class JiTModel:
             dtype = config.torch_dtype if config.torch_dtype != torch.float32 else None
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        if not isinstance(config.context_encoder, ClassContextConfig):
-            raise NotImplementedError(
-                "text context encoder is not ported yet: ROADMAP Queue 1 "
-                "item 6 (models/jit/text_encoder.py)"
-            )
         self.denoiser = self.denoiser_class(
             config.denoiser, dtype=dtype, param_dtype=param_dtype,
             generator=generator, device=self.device,
         ).eval()
-        self.class_encoder = ClassEncoder(
-            label2id=config.context_encoder.label2id,
-            embedding_dim=config.denoiser.context_dim,
-            splitter=config.context_encoder.splitter,
-            do_mask_padding=config.context_encoder.do_mask_padding,
-            param_dtype=param_dtype, generator=generator,
-        ).to(self.device).eval()
+        self.class_encoder = self.text_encoder = None
+        if isinstance(config.context_encoder, ClassContextConfig):
+            self.class_encoder = ClassEncoder(
+                label2id=config.context_encoder.label2id,
+                embedding_dim=config.denoiser.context_dim,
+                splitter=config.context_encoder.splitter,
+                do_mask_padding=config.context_encoder.do_mask_padding,
+                param_dtype=param_dtype, generator=generator,
+            ).to(self.device).eval()
+        else:
+            # a local directory holds the weights; a repo id cannot be fetched
+            pretrained = config.context_encoder.pretrained_model
+            if os.path.isdir(pretrained):
+                self.text_encoder = TextEncoder.from_local(pretrained, device=self.device)
+            else:
+                self.text_encoder = TextEncoder.from_remote(pretrained)
 
     # ---------------------------------------------------------- checkpoint
 
     def _submodules(self) -> dict[str, torch.nn.Module]:
-        return {"denoiser": self.denoiser, "class_encoder": self.class_encoder}
+        """The checkpointed modules: the text tower is never saved."""
+        mods = {"denoiser": self.denoiser}
+        if self.class_encoder is not None:
+            mods["class_encoder"] = self.class_encoder
+        return mods
 
     def _rope_head_dim(self) -> int | None:
         """Head dim of the RoPE deinterleave permutation (``convert.py``);
@@ -129,8 +140,17 @@ class JiTModel:
                                    negative_prompt: PromptType,
                                    max_token_length: int = 64,
                                    do_cfg: bool = False):
-        """Positive (+ negative under CFG) class embeddings and masks,
+        """Positive (+ negative under CFG) context embeddings and masks,
         batch-concatenated."""
+        if self.text_encoder is not None:
+            out = self.text_encoder.encode_prompts(
+                prompts, negative_prompts=negative_prompt, use_negative_prompts=do_cfg,
+                max_token_length=max_token_length,
+            )
+            if not do_cfg:
+                return out.positive_embeddings, out.positive_attention_mask
+            return (torch.cat([out.positive_embeddings, out.negative_embeddings]),
+                    torch.cat([out.positive_attention_mask, out.negative_attention_mask]))
         emb, mask = self.class_encoder.encode_prompts(
             prompts, max_token_length=max_token_length
         )
