@@ -58,13 +58,30 @@ without a result line:
    forward and 12 backward kernel launches per step; one profiled step;
 6. trainer: the port's entry point (``train.jit.class_to_image.run``) on
    ``configs/jit/synthetic_class_to_image.yml`` widened to JiT-B/16, 256^2,
-   batch 64, bf16, 4 steps, with clipping, EMA, a cosine schedule, a
+   batch 64, bf16, 6 steps, with clipping, EMA, a cosine schedule, a
    safetensors save and a 4-step preview; 4 forward and 4 backward launches
-   per step; the saved file must load back through ``JiTModel.from_pretrained``;
-   the last step runs under the profiler. Then the same run with train-state
-   checkpointing, stopped by a SIGTERM during step 2 (it must save step 2
-   and stop), and resumed: steps 3-4 within 1e-3 of the unbroken run's
-   losses;
+   per step (blocks 0-3, before the shipped context_start_block 4),
+   ``trainer.deterministic`` (torch's deterministic algorithms, so a second
+   run gives the same bits); the saved file must load back through
+   ``JiTModel.from_pretrained``; the fourth step runs under the profiler.
+   Then the same run with train-state checkpointing, stopped by a SIGTERM
+   during step 2 (it must save step 2 and stop), and resumed: steps 3-6
+   within 1e-3 of the unbroken run's losses;
+6b. mesh_trainer (after inference_server, beside the worker's last CPU
+   halves): the trainer phase's config under ``torchrun
+   --standalone --nproc_per_node 1 -m vision_pt_tpu_torch.train.jit.class_to_image``
+   with ``trainer.mesh`` {data 1, fsdp 1, tensor 1, seq 1},
+   ``distributed_init`` and a ``profile_dir`` (steps 1-2): the group must be
+   NCCL, every step's loss within 1e-5 relative of the trainer phase's, the
+   saved model and EMA files equal to its files, and the chrome trace must
+   hold as many launches of #1 and of #2 a profiled step as the trainer
+   phase counted a step (4 + 4); s/step of both runs as the trainer logs it;
+6c. ring (after mesh_trainer): ``ops.ring_attention.ring_attention`` over the seq axis of a
+   one-rank NCCL mesh (no point-to-point send runs with one rank) at B 2,
+   S 4096, H 16, D 64, bf16, kv_lens (4096, 1000): forward and backward
+   against plain attention in fp32 on the same inputs within the bf16 limit,
+   the short row's key gradients past kv_len exactly 0; its device ms
+   forward and backward beside #7 / #8's on the same inputs;
 7. train_parity: one training step's loss and gradients, same weights, batch
    and injected draws, on the card (kernels) and on the CPU (plain versions
    of the same path), batch 2, in fp32, bf16 and fp16 (the fp16 loss scaled
@@ -74,14 +91,14 @@ without a result line:
    card (kernel) and on the CPU (plain versions), batch 1, CFG, 2 steps;
    PSNR at least 50 dB in fp32 (under ``attention_dtype(None)``) and 30 dB
    in bf16;
-9. cache_latents: the port's caching tool (``tools.data.cache_latents.run``)
+9. cache_latents (after attention_probes): the port's caching tool (``tools.data.cache_latents.run``)
    on the card over 64 synthetic 1024^2 images with captions of 1-4 of four
    classes, batch 2, the SDXL VAE at full width with random weights from a
    seed, fp32 inputs, an fp16 store, the convolutions' TF32 flag as the run
    leaves it (phase 8 turns it off; the phase line states it);
-   the first batch's cached mean and std within 1e-2 relative L2 of the
-   same images encoded on the CPU in fp32, a limit that must fail the
-   first image flipped left-right; no kernel launches (the VAE's attention
+   the first image's cached mean and std within 1e-2 relative L2 of the
+   same image encoded on the CPU in fp32, a limit that must fail the image
+   flipped left-right; no kernel launches (the VAE's attention
    is a plain product);
 9b. latent_trainer: the port's latent entry point
    (``train.jit.latent_class_to_image.run``) on
@@ -98,10 +115,10 @@ without a result line:
 11. sdxl_sampler: SDXL-base at full width (UNet 320/640/1280, context 2048,
    CLIP-L + bigG, the VAE), random weights from a seed, built on the card,
    bf16 compute with fp32 parameters, through the CLI's ``run``
-   (``tools.inference_cli``) at 1024^2, batch 1, CFG 5, 20 steps, with the
+   (``tools.inference_cli``) at 1024^2, batch 1, CFG 5, 5 steps, with the
    word-hash tokenizer: a warm and a timed request in bf16, then again after
-   ``quantize_inplace(..., "bnb_nf4")`` with the CLI's keys; exactly 1,400
-   flash launches per request, and 2,800 of kernel #9 under NF4 (0 without);
+   ``quantize_inplace(..., "bnb_nf4")`` with the CLI's keys; exactly 350
+   flash launches per request, and 700 of kernel #9 under NF4 (0 without);
    a profiled 2-step request each; the image finite and not constant;
 12. sdxl_parity: full widths at reduced depth (layers_per_block 1, one
    transformer per stage), 512^2, bf16, one UNet call and a 2-step CFG
@@ -120,12 +137,12 @@ without a result line:
    (``tools.bench.attention_pairing_probe``, ``tools.bench.attention_roofline``,
    the roofline's training step with 5 steps a window), each printing its
    JSON line; #10 and #11 launch exactly as their timing asks;
-15. sdxl_lora_trainer: the SDXL entry point (``train.sdxl.text_to_image.run``)
-   on ``configs/sdxl/text_to_image_lora.yml`` at full width and depth, 1024^2,
+15. sdxl_lora_trainer (after cogview4_parity): the SDXL entry point
+   (``train.sdxl.text_to_image.run``) on ``configs/sdxl/text_to_image_lora.yml`` at full width and depth, 1024^2,
    batch 2, RAdamScheduleFree and per-layer recompute as shipped; cut to
-   random weights, the word-hash tokenizer, 2 synthetic images (4 steps) and
-   a 2-step preview, each cut listed in the phase line; s/step over steps
-   2-4, peak memory, losses; exactly 140 launches of #7 and 70 of #8 a step;
+   random weights, the word-hash tokenizer, 2 synthetic images (2 steps) and
+   a 2-step preview, each cut listed in the phase line; s/step of step 2,
+   peak memory, losses; exactly 140 launches of #7 and 70 of #8 a step;
    a LoRA file of the 700 adapted linears;
 16. sdxl_qlora_trainer: the same for ``text_to_image_qlora_nf4.yml`` (AdamW8bit)
    on a random-weight checkpoint whose UNet linears ``quantize_state_dict``
@@ -152,24 +169,25 @@ without a result line:
 17b. sdxl_flow_match_parity: sdxl_lora_parity's model with the flow-match
    config's LoRA, from an image (batch 1, FLOW_MATCH_PARITY_CUT) with
    injected VAE noise, timestep and noise:
-   the LoRA step under sdxl_lora_parity's floors and wrong kernels, a 2-step
+   the LoRA step under sdxl_lora_parity's floors and wrong kernels, a 1-step
    CFG ``SDXLFlowMatch.generate`` from injected latents within 7.5e-2
-   relative L2 (6 launches of #7), the step's fp32 witness, and the step
+   relative L2 (3 launches of #7), the step's fp32 witness, and the step
    with LoHa adapters over the UNet NF4 (84 launches of #9);
 17d. cogview4_sampler: CogView4-6B at full width (the 28-layer DiT, 32 x
    128 heads; the 40-layer GLM-4-9B text tower; the 16-channel VAE), random
    weights from seed 0 drawn on the card, bf16 parameters and compute, the
    GLM word-hash tokenizer, through the compare tool's ``compare``
-   (``tools.cogview4_quant_compare``) at 1024^2, batch 1, CFG 5, 20 steps,
+   (``tools.cogview4_quant_compare``) at 1024^2, batch 1, CFG 5, 5 steps,
    over its settings bf16, NF4 and int8: per setting a fresh model, a
    2-step warm request, the timed request and a profiled 2-step one;
-   exactly 560 launches of #7 a request (28 a denoiser call), 1,120 of #9
+   exactly 140 launches of #7 a request (28 a denoiser call), 280 of #9
    under NF4 (the shared feed-forward over the text stream's 2 x 16 rows),
    none else; 168 quantized linears under NF4 and int8, 0 in the text
    encoder; the image finite and not constant; then, on the bf16 model, a
    2-step request with the DiT's blocks offloaded in 4 groups to pinned
    host memory: the same latents bit for bit at a lower peak;
-17e. cogview4_parity: full widths, 2 DiT and 2 GLM layers, 512^2 (S 1040,
+17e. cogview4_parity (after sdxl_slice14_parity): full widths, 2 DiT and
+   2 GLM layers, 512^2 (S 1040,
    still #7), bf16: the text embeddings, one denoiser call and a 2-step CFG
    generate from injected latents, card (kernels) against CPU (plain
    versions), within 2e-2, 2e-2 and 7.5e-2 relative L2; the denoiser floor
@@ -184,14 +202,14 @@ without a result line:
    ``train.sdxl.prompt_free_self`` on ``configs/sdxl/text_to_image_lora.yml``'s
    trainer settings with the adapter's model (``IPAdapterConfig()`` /
    ``PFGConfig()`` defaults over those towers) and no LoRA, SDXL-base at
-   full width and depth, 1024^2, batch 2, 4 steps, no preview:
+   full width and depth, 1024^2, batch 2, 2 steps, no preview:
    exactly 140 + 69 launches of #7 / #8 a step (no backward through the
    first self-attention, which comes before every adapter and image
    token); exactly the 144 (IP) and 2
    (PFG) adapter and projector tensors trained and changed (fp64
    fingerprints of every parameter, the tower's too); the adapter file saved
-   and loaded back equal; then one timed 20-step CFG-5 1024^2 request with a
-   reference image, exactly 1,400 launches of #7; one more IP step
+   and loaded back equal; then one timed 5-step CFG-5 1024^2 request with a
+   reference image, exactly 350 launches of #7; one more IP step
    profiled after the timed ones;
 17g. adapter_entry_points: ``ip_adapter_self``, ``ip_adapter_kyara`` and
    ``prompt_free_ref`` one step each at sdxl_parity's depth, 512^2 (6 + 2
@@ -202,9 +220,9 @@ without a result line:
    SDXL_LORA_PARITY_FLOOR with the card's plain versions as the witness, and
    against the card's plain run within ADAPTER_KERNEL_FLOOR, the
    dropped-tile #7 / #8 failing the floors (3 + 2 launches); its fp32
-   witness within SDXL_FP32_WITNESS_FLOOR; a 2-step CFG-5 sample with a
+   witness within SDXL_FP32_WITNESS_FLOOR; a 1-step CFG-5 sample with a
    reference image from injected latents and step noise within
-   max(7.5e-2, 1.5 x the card's plain versions' error) relative L2 (6
+   max(7.5e-2, 1.5 x the card's plain versions' error) relative L2 (3
    launches of #7);
 17i. slice14_towers, rope_distill_trainer, draft_plus_trainer,
    style_tokenizer_trainer (after sdxl_adapter_parity): towers written once
@@ -213,10 +231,10 @@ without a result line:
    ``draft_plus`` and ``style_tokenizer`` on
    ``configs/sdxl/text_to_image_lora.yml``'s trainer settings (its LoRA for
    the first two, none for the style tokenizer) at SDXL-base's full width
-   and depth, 1024^2, batch 2, 3 steps (steps 2-3 timed): RoPE distillation
+   and depth, 1024^2, batch 2, 2 steps (step 2 timed): RoPE distillation
    with the workload's defaults (#7 240, #8 80 a step; a 2-step preview, 140),
-   DRaFT+ over the PickScore tower (25 sampler steps, truncation 1, CFG 5:
-   #7 1,890, #8 70 a step; its first, untimed step profiled, device-only), the style
+   DRaFT+ over the PickScore tower (10 sampler steps, truncation 1, CFG 5:
+   #7 840, #8 70 a step; its first, untimed step profiled, device-only), the style
    tokenizer's StyleTokenizerConfig() over the timm tower on the referenced
    images with ``<|style|>`` in every caption (#7 140, #8 70; a 2-step
    preview with a reference image, 140); exactly the LoRA tensors (or the 4
@@ -299,10 +317,10 @@ N = 8192), beside F.linear on the weight dequantized beforehand.
    sdxl_qlora_trainer saved, served on 127.0.0.1:0 from a thread and driven
    from threads through ``tools.inference_client.generate_image``: /health,
    a seeded request at the server's defaults (768 x 1024, 25 steps, CFG
-   6.5), 8 seedless 1024^2 requests (CFG 5, 20 steps) queued while it runs,
+   6.5), 8 seedless 1024^2 requests (CFG 5, 5 steps) queued while it runs,
    which the batcher folds into one call (sampler calls [1, 8]), and a
    malformed body (422); untimed 2-step warm-ups of both shapes first. The
-   group launches #7 1,400 times and #9 never (16 x 77 context rows, over
+   group launches #7 350 times and #9 never (16 x 77 context rows, over
    the kernel's 1,024), the default request #7 250 and #9 3,500 times; every
    response a webp of its size, finite and not constant; the seeded
    response's bytes those of the same ``generate`` made directly and encoded
@@ -328,7 +346,7 @@ N = 8192), beside F.linear on the weight dequantized beforehand.
    prompts and their negatives in fp32 (the pipeline's tower) within 1e-4
    and in bf16 within 2e-2 relative L2, and a 2-step CFG ``generate`` from
    injected noise at PSNR >= 50 dB (fp32) and 30 dB (bf16); 8 launches of
-   #1 on the card; its CPU halves queued right after the build;
+   #1 on the card; its CPU halves queued before the build;
 24. losses: ``PerceptualLoss`` with SSIM and LPIPS (random VGG16 weights
    written in the lpips package's layout) over 8 image pairs at 256^2, and
    the shortcut durations, teacher targets and self-consistency loss over
@@ -359,12 +377,15 @@ encode, latent_parity, text_parity, losses, jit_variants_parity,
 sdxl_parity, sdxl_lora_parity, sdxl_flow_match_parity, sdxl_adapter_parity,
 sdxl_slice14_parity, cogview4_parity) run in one spawned worker process beside the card's
 phases (see ``CpuHalves``); the halves that need no card state are queued
-right after the build, the others when their card half runs, and each
+before the build and run beside it, the others when their card half runs
+(cache_latents runs right after attention_probes, so its half follows the
+early ones with no gap in the worker's queue), and each
 phase's comparison runs when both halves are in, before the kernels line.
 The SDXL LoRA, flow-match, adapter and slice-14 parity phases run before
-their trainers, and cogview4_parity before cogview4_sampler, so their CPU
-halves overlap the trainers and samplers; a ``cpu_halves`` line gives every
-job's span.
+their trainers, and every phase that submits a CPU half (cogview4_parity
+the last) before the SDXL LoRA, QLoRA and flow-match trainers, so the
+worker's jobs overlap the trainers and samplers with no wait for the next
+submission; a ``cpu_halves`` line gives every job's span.
 
 Every kernel launch counter is set to 0 just before a path is driven and read
 just after. Then the ``{"kernels": [...]}`` line, the card's name and power
@@ -1372,9 +1393,14 @@ def phase_train_step() -> tuple[int, ...]:
     return counts
 
 
-def phase_trainer(tmp: str) -> tuple[int, ...]:
+TRAINER_STEPS = 6  # 2 epochs of 3 batches
+
+
+def phase_trainer(tmp: str) -> tuple[tuple[int, ...], dict]:
     """The port's entry point on the synthetic config at JiT-B/16 width;
-    returns the kernel launches of the whole run (steps and preview)."""
+    returns the kernel launches of the whole run (steps and preview), and
+    the config, losses, launches, step times and saved files that
+    ``mesh_trainer`` holds its run against."""
     import yaml
 
     from vision_pt_tpu_torch.models.jit import JiT_B_16_Config, JiTConfig, JiTModel
@@ -1391,7 +1417,7 @@ def phase_trainer(tmp: str) -> tuple[int, ...]:
     model_cfg["denoiser"] = JiT_B_16_Config().model_dump()
     model_cfg["dtype"] = "bfloat16"
     model_cfg["max_token_length"] = 64
-    cfg["dataset"].update(num_items=2 * TRAIN_BATCH, image_size=256,
+    cfg["dataset"].update(num_items=TRAINER_STEPS // 2 * TRAIN_BATCH, image_size=256,
                           batch_size=TRAIN_BATCH)
     cfg["scheduler"]["args"]["num_warmup_steps"] = 1
     cfg["saving"]["strategy"] = {"per_epochs": None}  # the final save only
@@ -1399,6 +1425,11 @@ def phase_trainer(tmp: str) -> tuple[int, ...]:
     cfg["preview"]["callbacks"][0]["save_dir"] = os.path.join(tmp, "preview")
     cfg["preview"]["data"]["data"][0].update(width=256, height=256)
     cfg["tracker"]["log_dir"] = os.path.join(tmp, "logs")
+    # torch's deterministic algorithms: the class embedding's backward sums
+    # its 64 x 64 rows without atomics, so mesh_trainer's run in another
+    # process can give this run's bits (two runs without it differ in that
+    # table's last bits, and Adam carries the difference everywhere)
+    cfg["trainer"]["deterministic"] = True
     path = os.path.join(tmp, "trainer.yml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
@@ -1439,28 +1470,31 @@ def phase_trainer(tmp: str) -> tuple[int, ...]:
     expected = trainer.model.model.state_dict()
     reloaded = all(torch.equal(v, expected[k]) for k, v in loaded.state_dict().items())
     emit("trainer", config="configs/jit/synthetic_class_to_image.yml",
-         model="JiT-B/16", resolution=256, batch=TRAIN_BATCH,
+         model="JiT-B/16", resolution=256, batch=TRAIN_BATCH, deterministic=True,
          steps=trainer.global_step, run_seconds=seconds,
          step_seconds=step_seconds, losses=losses,
          launches_per_step=per_step, run_launches=counts, saved=saved,
          previews=len(previews), reloaded=reloaded,
          qk_logit_bound=[r.get("train/qk_logit_bound") for r in records
                          if "train/loss" in r])
-    check(trainer.global_step == 4 and len(losses) == 4
+    check(trainer.global_step == TRAINER_STEPS and len(losses) == TRAINER_STEPS
           and all(np.isfinite(losses)), f"trainer losses {losses}")
-    check(per_step == [_expect({1: 4, 2: 4})] * 4,
+    check(per_step == [_expect({1: 4, 2: 4})] * TRAINER_STEPS,
           f"launches per step {per_step}, expected 4 + 4 packed, no flash")
     check(len(saved) == 2 and len(previews) == 1 and reloaded,
           f"saved {saved}, previews {previews}, reloaded {reloaded}")
     del trainer, loaded
     torch.cuda.empty_cache()
     _trainer_resume(tmp, cfg, losses)
-    return counts
+    run = {"cfg": cfg, "losses": losses, "per_step": per_step,
+           "step_seconds": step_seconds, "out": os.path.join(tmp, "out"),
+           "step_time": [r["train/step_time"] for r in records if "train/step_time" in r]}
+    return counts, run
 
 
 def _trainer_resume(tmp: str, cfg: dict, unbroken: list[float]) -> None:
     """The trainer run again with train-state checkpointing, stopped by a
-    SIGTERM during step 2, then resumed from its checkpoint: steps 3-4 must
+    SIGTERM during step 2, then resumed from its checkpoint: steps 3-6 must
     give the unbroken run's losses within RESUME_REL_TOL."""
     import signal
 
@@ -1507,8 +1541,8 @@ def _trainer_resume(tmp: str, cfg: dict, unbroken: list[float]) -> None:
          rel_gap=gaps, tolerance=RESUME_REL_TOL, seconds=seconds)
     check(preempted and stopped_at == 2 and saved == [2],
           f"SIGTERM in step 2: stopped at {stopped_at}, checkpoints {saved}")
-    check(resumed.global_step == 4 and len(resumed_losses) == 2
-          and max(gaps) <= RESUME_REL_TOL,
+    check(resumed.global_step == TRAINER_STEPS
+          and len(resumed_losses) == TRAINER_STEPS - 2 and max(gaps) <= RESUME_REL_TOL,
           f"resumed losses {resumed_losses} against {unbroken[2:]}")
     del resumed
     torch.cuda.empty_cache()
@@ -1517,6 +1551,166 @@ def _trainer_resume(tmp: str, cfg: dict, unbroken: list[float]) -> None:
 # a resumed run's losses against the unbroken run's: the same arithmetic on
 # the same card; the slack covers kernels whose reductions may reorder
 RESUME_REL_TOL = 1e-3
+
+# the mesh run's losses against the trainer phase's: one rank, so the same
+# arithmetic in another process
+MESH_LOSS_RTOL = 1e-5
+MESH_PROFILE_STEPS = 2
+
+
+def _trace_launches(path: str) -> tuple[int, int]:
+    """Launches of #1 and #2 in a chrome trace of the trainer's profiler:
+    #1 is the packed forward (``attn_fwd_``), #2 a pair of kernels (dq, then
+    dk / dv), counted by its dq kernel."""
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    return (sum("attn_fwd_" in n for n in names),
+            sum("attn_bwd_dq_" in n for n in names))
+
+
+def phase_mesh_trainer(tmp: str, no_mesh: dict) -> dict:
+    """The trainer phase's config through ``torchrun`` with the mesh, the
+    distributed init and the profiler; its losses, files and launches
+    against the trainer phase's run."""
+    import yaml
+    from safetensors.torch import load_file
+
+    torch.cuda.empty_cache()  # the card for the torchrun process
+    work = os.path.join(tmp, "mesh")
+    cfg = json.loads(json.dumps(no_mesh["cfg"]))
+    cfg["trainer"].update(mesh={"data": 1, "fsdp": 1, "tensor": 1, "seq": 1},
+                          distributed_init=True, profile_dir=os.path.join(work, "profile"),
+                          profile_steps=MESH_PROFILE_STEPS)
+    cfg["saving"]["callbacks"][0]["save_dir"] = os.path.join(work, "out")
+    cfg["preview"]["callbacks"][0]["save_dir"] = os.path.join(work, "preview")
+    cfg["tracker"]["log_dir"] = os.path.join(work, "logs")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "trainer.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    command = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "vision_pt_tpu_torch.train.jit.class_to_image",
+               "--config", path]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+    log = os.path.join(work, "run.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.run(command, cwd=ROOT, env=env, stdout=f,
+                              stderr=subprocess.STDOUT, timeout=600)
+    seconds = time.perf_counter() - t0
+    with open(log) as f:
+        text = f.read()
+    check(proc.returncode == 0, f"torchrun exit {proc.returncode}: {text[-3000:]}")
+    group = re.search(r"\[distributed\] (\w+) group: rank (\d+) of (\d+), device (\S+)",
+                      text)
+    with open(os.path.join(work, "logs", "verify_run.metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    step_time = [r["train/step_time"] for r in records if "train/step_time" in r]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, no_mesh["losses"])]
+    trace = os.path.join(work, "profile", "trace_rank0.json")
+    fwd, bwd = _trace_launches(trace) if os.path.exists(trace) else (0, 0)
+    saved = sorted(os.listdir(os.path.join(work, "out")))
+    theirs = sorted(os.listdir(no_mesh["out"]))
+    equal = {}
+    for ours_name, theirs_name in zip(saved, theirs):
+        a = load_file(os.path.join(work, "out", ours_name))
+        b = load_file(os.path.join(no_mesh["out"], theirs_name))
+        equal[ours_name] = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    no_mesh_fwd, no_mesh_bwd = no_mesh["per_step"][0][:2]
+    emit("mesh_trainer", command=" ".join(command[1:]), config="the trainer phase's",
+         mesh=cfg["trainer"]["mesh"], group=group.groups() if group else None,
+         run_seconds=seconds, losses=losses, losses_no_mesh=no_mesh["losses"],
+         rel_gap=gaps, tolerance=MESH_LOSS_RTOL,
+         step_time=step_time, step_time_no_mesh=no_mesh["step_time"],
+         seconds_per_step=float(np.mean(step_time[1:])),
+         seconds_per_step_no_mesh=float(np.mean(no_mesh["step_time"][1:])),
+         trace=os.path.basename(trace), profiled_steps=MESH_PROFILE_STEPS,
+         trace_launches={"fwd": fwd, "bwd": bwd},
+         launches_per_step_no_mesh={"fwd": no_mesh_fwd, "bwd": no_mesh_bwd},
+         saved=saved, saved_no_mesh=theirs, files_equal=equal)
+    check(group is not None and group.group(1) == "nccl"
+          and group.groups()[1:3] == ("0", "1"), f"process group {group and group.groups()}")
+    check(len(losses) == len(no_mesh["losses"]) == TRAINER_STEPS
+          and max(gaps) <= MESH_LOSS_RTOL,
+          f"mesh losses {losses} against {no_mesh['losses']}")
+    check(no_mesh_fwd > 0 and no_mesh_bwd > 0 and fwd == MESH_PROFILE_STEPS * no_mesh_fwd
+          and bwd == MESH_PROFILE_STEPS * no_mesh_bwd,
+          f"the trace's #1 / #2 launches {fwd} / {bwd} over {MESH_PROFILE_STEPS} "
+          f"steps, the trainer phase's {no_mesh_fwd} / {no_mesh_bwd} a step")
+    check(len(saved) == len(theirs) == 2 and all(equal.values()),
+          f"saved {saved} against {theirs}: equal {equal}")
+    return {"fwd": fwd, "bwd": bwd}
+
+
+RING_SHAPE = (2, 4096, 16, 64)  # B, S, H, D
+RING_KV_LENS = (4096, 1000)
+
+
+def phase_ring() -> dict:
+    """Ring attention over a one-rank NCCL seq group against plain
+    attention, and its device time beside #7 / #8 on the same inputs."""
+    import torch.distributed as dist
+
+    from vision_pt_tpu_torch.ops.attention import plain_attention
+    from vision_pt_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_with_lse,
+    )
+    from vision_pt_tpu_torch.ops.ring_attention import ring_attention
+    from vision_pt_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"data": 1, "fsdp": 1, "tensor": 1, "seq": 1})
+    backend = dist.get_backend()
+    seq = mesh["seq"]
+    b, s, h, d = RING_SHAPE
+    dtype, tol = torch.bfloat16, ATTN_TOL[torch.bfloat16]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v, do = (_bshd(gen, b, s, h, d, dtype) for _ in range(4))
+    lens = torch.tensor(RING_KV_LENS, device="cuda", dtype=torch.int32)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = ring_attention(*leaves, seq, kv_lens=lens)
+    grads = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    ref = plain_attention(*ref_leaves, kv_lens=lens)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, do.float())
+    err, share, ok = _agree([_compare(o, r, tol) for o, r in
+                             zip((out, *grads), (ref, *ref_grads))])
+    short = RING_KV_LENS[1]
+    zero_past = bool((grads[1][1, short:] == 0).all() and (grads[2][1, short:] == 0).all())
+    del ref_leaves, ref, ref_grads
+    torch.cuda.empty_cache()
+
+    def forward():
+        return ring_attention(q, k, v, seq, kv_lens=lens)
+
+    def forward_backward():
+        o = ring_attention(*leaves, seq, kv_lens=lens)
+        return torch.autograd.grad(o, leaves, do)
+
+    flash_out, flash_lse = flash_attention_with_lse(q, k, v, lens)
+    ring_fwd = device_timing(forward, 3)
+    ring_fwd_bwd = device_timing(forward_backward, 3)
+    flash_fwd = device_timing(lambda: flash_attention_with_lse(q, k, v, lens), 10)
+    flash_bwd = device_timing(
+        lambda: flash_attention_bwd(q, k, v, flash_out, flash_lse, do, lens), 10)
+    emit("ring", shape=list(RING_SHAPE), dtype=str(dtype), kv_lens=list(RING_KV_LENS),
+         group_backend=backend, seq_ranks=seq.size(),
+         point_to_point="none: one rank holds every block",
+         reference="plain_attention in fp32 on the same inputs", max_abs_err=err,
+         limit_share=share, tolerance=tol, key_grads_zero_past_kv_len=zero_past,
+         ms_forward=ring_fwd.median, ms_forward_backward=ring_fwd_bwd.median,
+         flash_ms_forward=flash_fwd.median, flash_ms_backward=flash_bwd.median,
+         flash_ms_forward_backward=flash_fwd.median + flash_bwd.median)
+    check(backend == "nccl" and seq.size() == 1, f"seq group {backend}, {seq.size()} ranks")
+    check(ok and zero_past, f"ring attention against plain: max err {err}, "
+          f"limit share {share}, key gradients past kv_len zero: {zero_past}")
+    del q, k, v, do, leaves, out, grads, flash_out, flash_lse
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err}
 
 
 def _cpu_step(model: str, dtype: str, label2id: str, loss_scale: float,
@@ -1903,7 +2097,9 @@ NF4_EDGE_SHAPES = tuple((m, k, n) for m in (1, 37, 1024) for k in (128, 5120)
 # with M and N (ops/quant/nf4_matmul.py:plan): both sides of each boundary
 NF4_SPLIT_SHAPES = tuple((m, 2048, 1280) for m in (1, 64, 65, 128, 129, 256, 257,
                                                    1024))  # and M 154: the path
-SDXL_SIDE, SDXL_STEPS, SDXL_CFG, SDXL_TOKENS = 1024, 20, 5.0, 75
+# 5 steps a timed request (the JAX bench's 20 cut so the time limit holds
+# mesh_trainer and ring too; the launch counts follow)
+SDXL_SIDE, SDXL_STEPS, SDXL_CFG, SDXL_TOKENS = 1024, 5, 5.0, 75
 # per UNet call at 1024^2 with CFG: 70 self-attentions take flash (10 at
 # S 4096 with 10 heads, 60 at S 1024 with 20), and the to_k / to_v of the 70
 # cross-attentions (154 rows) take kernel #9 once the UNet is NF4
@@ -2032,7 +2228,7 @@ def phase_nf4_timing() -> dict:
 def phase_sdxl_sampler() -> dict:
     """SDXL-base at full width, random weights from a seed, bf16 compute
     with fp32 parameters, built on the card; through the CLI's ``run`` at
-    1024^2, batch 1, CFG 5, 20 steps: one warm and one timed request in
+    1024^2, batch 1, CFG 5, SDXL_STEPS steps: one warm and one timed request in
     bf16, then again with the UNet NF4 (the CLI's keys), each followed by a
     profiled 2-step request. Returns the timed requests' kernel launches."""
     from vision_pt_tpu_torch.models.sdxl import SDXLConfig, SDXLModel, WordHashTokenizer
@@ -2238,7 +2434,10 @@ def phase_sdxl_parity() -> None:
 
 # ---------------------------------- SDXL LoRA / QLoRA training
 
-SDXL_TRAIN_IMAGES, SDXL_TRAIN_STEPS = 2, 4  # num_repeats 4, batch 2: 4 steps
+# num_repeats 2, batch 2: 2 steps, the second timed (the shipped configs
+# repeat 4 times; cut to leave room for mesh_trainer and ring in the time
+# limit)
+SDXL_TRAIN_IMAGES, SDXL_TRAIN_STEPS = 2, 2
 # each SDXL training config: its file, its entry module under
 # ``vision_pt_tpu_torch.train.sdxl``, its preview's steps (None: as shipped),
 # and the launches of a training step and of the preview. A step at 1024^2,
@@ -2357,7 +2556,7 @@ def _sdxl_train_config(tmp: str, label: str, checkpoint: str | None) -> tuple[st
     with open(os.path.join(work, "preview.yml"), "w") as f:
         yaml.safe_dump(preview, f)
     cfg["model"].update(checkpoint_path=checkpoint, tokenizer="word-hash")
-    cfg["dataset"]["folder"] = os.path.join(tmp, "images")
+    cfg["dataset"].update(folder=os.path.join(tmp, "images"), num_repeats=SDXL_TRAIN_STEPS)
     cfg["num_train_epochs"] = 1
     cfg["tracker"]["log_dir"] = os.path.join(work, "logs")
     cfg["saving"]["callbacks"][0]["save_dir"] = os.path.join(work, "out")
@@ -2371,7 +2570,7 @@ def _sdxl_train_config(tmp: str, label: str, checkpoint: str | None) -> tuple[st
             "port's quantize tool (tools.quantize_model.quantize_file)",
             "word-hash tokenizer (the repository has no CLIP vocabulary)",
             f"{SDXL_TRAIN_IMAGES} synthetic 1024^2 images with captions, "
-            f"num_repeats 4, batch 2: 1 epoch of {SDXL_TRAIN_STEPS} steps",
+            f"num_repeats {SDXL_TRAIN_STEPS}, batch 2: 1 epoch of {SDXL_TRAIN_STEPS} steps",
             "output paths in a temporary directory",
             f"preview: the first prompt of {cfg['preview']['data']['path']}, "
             + (f"{spec['preview_steps']} steps" if spec["preview_steps"] is not None
@@ -2453,7 +2652,7 @@ def phase_sdxl_trainer(tmp: str, label: str) -> tuple[int, ...]:
          gradient_checkpointing=trainer.config.trainer.gradient_checkpointing,
          checkpoint=written, steps=trainer.global_step, run_seconds=seconds,
          step_seconds=step_seconds,
-         seconds_per_step_2_to_4=sum(timed) / max(len(timed), 1),
+         seconds_per_step_after_first=sum(timed) / max(len(timed), 1),
          peak_memory_bytes=max(peaks) if peaks else None, losses=losses,
          launches_per_step=per_step, expected_per_step=spec["launches"],
          run_launches=counts, adapter_params=adapters, lora_file_keys=len(lora),
@@ -2486,13 +2685,14 @@ def phase_sdxl_trainer(tmp: str, label: str) -> tuple[int, ...]:
 # inference_server: the port's server (tools.inference_server) on the QLoRA
 # trainer's NF4 file and LoRA, over loopback HTTP. A seeded request at the
 # server's defaults (768 x 1024, 25 steps, CFG 6.5) runs alone; 8 seedless
-# 1024^2 requests (CFG 5, 20 steps) queued while it runs form one group.
+# 1024^2 requests (CFG 5, SERVER_GROUP_STEPS steps) queued while it runs form one group.
 # Launches: the group's UNet calls (B 16) take #7 in all 70 self-attentions
 # (10 at S 4096, 60 at S 1024) and #9 never (16 x 77 = 1,232 context rows,
 # over the kernel's 1,024); the default request takes #7 only in stage 2
 # (S 3,072; stage 3's S 768 is under MIN_FLASH_SEQ) and #9 in the 140 to_k /
 # to_v products over 2 x 77 rows
-SERVER_GROUP, SERVER_GROUP_STEPS, SERVER_GROUP_CFG = 8, 20, 5.0
+# the group's steps: 5, to leave room for mesh_trainer and ring
+SERVER_GROUP, SERVER_GROUP_STEPS, SERVER_GROUP_CFG = 8, 5, 5.0
 SERVER_GROUP_LAUNCHES = _expect({7: 70 * SERVER_GROUP_STEPS})
 SERVER_DEFAULT_LAUNCHES = _expect({7: 10 * 25, 9: 140 * 25})
 SERVER_SEED = 1234
@@ -2719,6 +2919,9 @@ SDXL_FP32_WITNESS_FLOOR = 1e-3
 
 
 PARITY_SIDE = 512  # the SDXL parity phases' resolution
+# the flow-match and adapter parity samples' steps: 2, so the sampler's
+# state from one step to the next is compared too
+PARITY_SAMPLE_STEPS = 2
 
 
 def _parity_config(dtype: str, peft: dict, **model) -> dict:
@@ -3073,12 +3276,13 @@ def phase_sdxl_lora_parity() -> None:
 # sdxl_flow_match_parity: sdxl_lora_parity's model, built once, with the
 # flow-match config's LoRA (rank 8 on attn1 / attn2 / .ff.), from an image
 # (batch 1): the LoRA step (#7 / #8 3 + 3, as sdxl_lora_parity),
-# a 2-step CFG generate from injected latents (#7 3 a UNet call), the fp32
+# a PARITY_SAMPLE_STEPS-step CFG generate from injected latents (#7 3 a UNet
+# call), the fp32
 # witness of the step, and the step with LoHa over the UNet NF4 (#9 84, as
 # sdxl_lora_parity's NF4 step; the LoHa product itself is dense)
 FLOW_MATCH_PARITY_LAUNCHES = {"lora": _expect({7: 3, 8: 3}),
                               "loha_nf4": _expect({7: 3, 8: 3, 9: 84}),
-                              "generate": _expect({7: 6})}
+                              "generate": _expect({7: 3 * PARITY_SAMPLE_STEPS})}
 FLOW_MATCH_PARITY_LATENTS_FLOOR = SDXL_PARITY_FLOOR["latents"]
 # its model is sdxl_parity's depth already, so it is cut to the first of the
 # two samples it held: its CPU steps took 31-36 s (LoRA), 15-25 s (the fp32
@@ -3144,10 +3348,11 @@ def phase_sdxl_flow_match_parity() -> dict[str, tuple[int, ...]]:
         phase, "lora", SDXLForFlowMatchingTraining, config, card, batch, draws,
         FLOW_MATCH_PARITY_LAUNCHES["lora"], 2 * 70, adapters_type="lora", **common)}
 
-    # (c) the sampler, 2 Euler steps with CFG 4 from the same latents
+    # (c) the sampler, PARITY_SAMPLE_STEPS Euler steps with CFG 4 from the same latents
     init = rng.normal(size=(1, side // 8, side // 8, 4)).astype(np.float32)
     request = dict(prompt=[SDXL_PROMPT[0]], negative_prompt=[SDXL_PROMPT[1]], width=side,
-                   height=side, num_inference_steps=2, cfg_scale=4.0, latents=init)
+                   height=side, num_inference_steps=PARITY_SAMPLE_STEPS, cfg_scale=4.0,
+                   latents=init)
     future = _HALVES.submit(f"{phase} generate", _cpu_twin_generate,
                             SDXLForFlowMatchingTraining, config, request,
                             ship=_HALVES.ship(card))
@@ -3159,7 +3364,8 @@ def phase_sdxl_flow_match_parity() -> dict[str, tuple[int, ...]]:
 
     def finish(host_out, where):
         err = _rel_l2(card_out[0], host_out[0])
-        emit(phase, case="generate", resolution=side, steps=2, cfg=4.0, **where,
+        emit(phase, case="generate", resolution=side, steps=PARITY_SAMPLE_STEPS, cfg=4.0,
+             **where,
              latents_rel_l2=err, floor=FLOW_MATCH_PARITY_LATENTS_FLOOR,
              launches_cuda=card_out[2], launches_cpu=host_out[2],
              seconds_cuda=card_out[1], seconds_cpu=host_out[1])
@@ -4112,7 +4318,8 @@ def phase_tread_timing() -> dict:
 
 # ---------------------------------- CogView4 sampling
 
-COGVIEW4_SIDE, COGVIEW4_STEPS, COGVIEW4_CFG = 1024, 20, 5.0
+# 5 steps a timed request: the time limit holds mesh_trainer and ring too
+COGVIEW4_SIDE, COGVIEW4_STEPS, COGVIEW4_CFG = 1024, 5, 5.0
 COGVIEW4_LAYERS, COGVIEW4_OFFLOAD_GROUPS = 28, 4
 # per denoiser call at 1024^2 with CFG, every one of the 28 joint
 # self-attentions (B 2, 4096 image + 16 text tokens, 32 x 128) takes #7;
@@ -4195,9 +4402,9 @@ def phase_cogview4_sampler() -> dict:
     """CogView4-6B at full width (the 28-layer DiT, the 40-layer GLM-4-9B
     tower, the 16-channel VAE), random weights from seed 0 drawn on the card,
     bf16 parameters and compute, the GLM word-hash tokenizer, through the
-    quant-compare tool's ``compare`` at 1024^2, CFG 5, 20 steps, over its
+    quant-compare tool's ``compare`` at 1024^2, CFG 5, COGVIEW4_STEPS steps, over its
     default settings (bf16, NF4, int8): per setting a fresh model, a 2-step
-    warm request, the timed 20-step request and a profiled 2-step one; the
+    warm request, the timed request and a profiled 2-step one; the
     bf16 model also runs the offload check. Returns the timed requests'
     launches."""
     from vision_pt_tpu_torch.models.cogview4 import CogView4Config
@@ -4380,8 +4587,8 @@ SMALL_TOWERS = {"clip": {**CLIP_L14, "hidden_size": 128, "intermediate_size": 51
 # self-attention comes before every adapter and image token, so autograd
 # runs no backward through it. The image tokens (4 keys), PFG's longer
 # context (2 x 241 rows), CLIP (S 257) and the ViT (S 785) all stay on plain
-# attention, as the JAX gate sends them; a 20-step CFG request takes #7
-# 1,400 times
+# attention, as the JAX gate sends them; a CFG request takes #7 70 times
+# a step
 ADAPTER_FAMILIES = {
     "ip_adapter": dict(entry="ip_adapter_ref", others=("ip_adapter_self", "ip_adapter_kyara"),
                        workload="sdxl_ip_adapter.SDXLIPAdapterSelfTraining", tower="clip",
@@ -4394,8 +4601,9 @@ ADAPTER_STEP_LAUNCHES = _expect({7: 140, 8: 69})
 ADAPTER_REQUEST_LAUNCHES = _expect({7: 70 * SDXL_STEPS})
 # sdxl_adapter_parity: sdxl_lora_parity's model and floors; a step takes
 # #7 3 times and #8 2 (stage 2's self-attentions at S 1024, the first one
-# without a backward), a 2-step CFG sample #7 6 times
-ADAPTER_PARITY_LAUNCHES = {"step": _expect({7: 3, 8: 2}), "generate": _expect({7: 6})}
+# without a backward), a PARITY_SAMPLE_STEPS-step CFG sample #7 3 times a step
+ADAPTER_PARITY_LAUNCHES = {"step": _expect({7: 3, 8: 2}),
+                           "generate": _expect({7: 3 * PARITY_SAMPLE_STEPS})}
 # the adapter gradients sit far from the self-attentions, so #7 / #8 dropping
 # their last key tile moves them by less than the two devices' bf16
 # roundings (0.031-0.033 against card-vs-CPU 0.031-0.036, batch 2, NVIDIA
@@ -4474,7 +4682,7 @@ def _adapter_train_config(tmp: str, name: str, model: dict, folder: str,
                           reduced: bool) -> tuple[str, list]:
     """configs/sdxl/text_to_image_lora.yml's trainer settings (bucket settings,
     optimizer, saving, recompute) with the adapter's model, no LoRA and no
-    preview; full: 4 steps; reduced: sdxl_parity's depth at 512^2, 1 step.
+    preview; full: SDXL_TRAIN_STEPS steps; reduced: sdxl_parity's depth at 512^2, 1 step.
     Returns the path and the cuts."""
     import yaml
 
@@ -4501,8 +4709,9 @@ def _adapter_train_config(tmp: str, name: str, model: dict, folder: str,
         cuts += ["layers_per_block 1, one transformer per stage, 512^2 buckets",
                  f"{SDXL_TRAIN_IMAGES} synthetic images, num_repeats 1: 1 step"]
     else:
-        cuts += [f"{SDXL_TRAIN_IMAGES} synthetic 1024^2 images, num_repeats 4, batch 2: "
-                 f"1 epoch of {SDXL_TRAIN_STEPS} steps"]
+        cfg["dataset"]["num_repeats"] = SDXL_TRAIN_STEPS
+        cuts += [f"{SDXL_TRAIN_IMAGES} synthetic 1024^2 images, num_repeats "
+                 f"{SDXL_TRAIN_STEPS}, batch 2: 1 epoch of {SDXL_TRAIN_STEPS} steps"]
     path = os.path.join(work, "config.yml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
@@ -4590,10 +4799,10 @@ def _adapter_params(family: str, names) -> set[str]:
 
 def phase_adapter_trainer(tmp: str, family: str, towers: dict) -> dict[str, tuple[int, ...]]:
     """``train.sdxl.ip_adapter_ref`` / ``prompt_free_self`` at SDXL-base's full
-    width and depth, 1024^2, batch 2, 4 steps, over the full-size tower; the
+    width and depth, 1024^2, batch 2, SDXL_TRAIN_STEPS steps, over the full-size tower; the
     adapter file saved, loaded back and compared; exactly the adapter's and
     projector's parameters changed; for the IP-Adapter one more step,
-    profiled; then one timed 20-step CFG-5 request with a reference image.
+    profiled; then one timed SDXL_STEPS-step CFG-5 request with a reference image.
     Returns the run's and the request's launches."""
     from safetensors.torch import load_file
 
@@ -4633,7 +4842,7 @@ def phase_adapter_trainer(tmp: str, family: str, towers: dict) -> dict[str, tupl
         batch = trainer.model.prepare_batch(next(iter(trainer.train_dataset)))
         profile(f"{phase}_step", lambda: trainer.train_step(batch, trainer._next_generator()))
 
-    # the request: 20 steps, CFG 5, 1024^2, a reference image
+    # the request: SDXL_STEPS steps, CFG 5, 1024^2, a reference image
     reference = {"ip_adapter": "reference_images", "prompt_free": "reference_image"}[family]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4653,7 +4862,8 @@ def phase_adapter_trainer(tmp: str, family: str, towers: dict) -> dict[str, tupl
          optimizer=trainer.config.optimizer.name,
          gradient_checkpointing=trainer.config.trainer.gradient_checkpointing,
          steps=trainer.global_step, run_seconds=out["seconds"],
-         step_seconds=out["step_seconds"], seconds_per_step_2_to_4=sum(timed) / max(len(timed), 1),
+         step_seconds=out["step_seconds"],
+         seconds_per_step_after_first=sum(timed) / max(len(timed), 1),
          peak_memory_bytes=out["peak"], losses=losses, launches_per_step=out["per_step"],
          expected_per_step=ADAPTER_STEP_LAUNCHES, run_launches=out["run_launches"],
          trained_params=len(out["trained"]), changed_params=len(out["changed"]),
@@ -4739,7 +4949,7 @@ def phase_sdxl_adapter_parity(tmp: str, towers: dict) -> dict[str, tuple[int, ..
     image dropped) under SDXL_LORA_PARITY_FLOOR with the card's plain
     versions as the witness, and within ADAPTER_KERNEL_FLOOR of the card's
     plain run, both failing the dropped-tile #7 / #8; its fp32 witness; a
-    2-step CFG-5 ``generate`` with a reference image from injected latents
+    PARITY_SAMPLE_STEPS-step CFG-5 ``generate`` with a reference image from injected latents
     and step noise within max(SDXL_PARITY_FLOOR["latents"], 1.5 x the card's
     plain versions' error). Returns the card runs' launches."""
     import importlib
@@ -4762,7 +4972,8 @@ def phase_sdxl_adapter_parity(tmp: str, towers: dict) -> dict[str, tuple[int, ..
              "timesteps": torch.tensor([400], dtype=torch.int32),
              "noise": torch.from_numpy(rng.normal(size=latent).astype(np.float32))}
     init = rng.normal(size=latent).astype(np.float32)
-    step_noise = [rng.normal(size=latent).astype(np.float32) for _ in range(2)]
+    step_noise = [rng.normal(size=latent).astype(np.float32)
+                  for _ in range(PARITY_SAMPLE_STEPS)]
     launches = {}
     for family, spec in ADAPTER_FAMILIES.items():
         module, name = spec["workload"].split(".")
@@ -4790,7 +5001,8 @@ def phase_sdxl_adapter_parity(tmp: str, towers: dict) -> dict[str, tuple[int, ..
         reference = {"ip_adapter": "reference_images",
                      "prompt_free": "reference_image"}[family]
         request = dict(prompt=batch["caption"], negative_prompt=[SDXL_PROMPT[1]],
-                       width=side, height=side, num_inference_steps=2, cfg_scale=SDXL_CFG,
+                       width=side, height=side, num_inference_steps=PARITY_SAMPLE_STEPS,
+                       cfg_scale=SDXL_CFG,
                        latents=init, step_noise=step_noise,
                        **{reference: _reference_image(3)})
         future = _HALVES.submit(f"{phase} {family}_generate", _cpu_twin_generate,
@@ -4808,7 +5020,7 @@ def phase_sdxl_adapter_parity(tmp: str, towers: dict) -> dict[str, tuple[int, ..
             plain_err = _rel_l2(outputs["cuda_plain"][0], host_out[0])
             floor = max(SDXL_PARITY_FLOOR["latents"],
                         SDXL_LORA_PARITY_FLOOR["witness"] * plain_err)
-            emit(phase, case=f"{family}_generate", resolution=side, steps=2,
+            emit(phase, case=f"{family}_generate", resolution=side, steps=PARITY_SAMPLE_STEPS,
                  cfg=SDXL_CFG, **where, latents_rel_l2=err, witness_rel_l2=plain_err,
                  card_vs_plain=_rel_l2(outputs["cuda"][0], outputs["cuda_plain"][0]),
                  floor=floor, launches_cuda=outputs["cuda"][2],
@@ -4864,7 +5076,10 @@ PICKSCORE_H14 = {"projection_dim": 1024,
                  "vision_config": dict(hidden_size=1280, intermediate_size=5120,
                                        num_hidden_layers=32, num_attention_heads=16,
                                        image_size=224, patch_size=14, hidden_act="gelu")}
-SLICE_STEPS = 3  # 2 images, num_repeats 3, batch 2
+SLICE_STEPS = 2  # 2 images, num_repeats 2, batch 2
+# DRaFT+'s sampler in its trainer phase: 10 steps, not the workload's 25
+# (with SLICE_STEPS, to leave room for mesh_trainer and ring)
+DRAFT_SAMPLER_STEPS = 10
 STYLE_PREFIX = "<|style|>, "
 # the three entry points at 1024^2, batch 2, recompute (70 self-attentions at
 # S >= 1024 a UNet call):
@@ -4872,9 +5087,9 @@ STYLE_PREFIX = "<|style|>, "
 #   recompute) + 20 (low-res student at 512^2: stage 2's 10 self-attentions
 #   reach S 1024) + 10 (low-res teacher); #8 70 + 10; its 2-step CFG preview
 #   #7 140;
-# - DRaFT+: 24 sampler steps without autograd (70 each), the last one's
-#   forward and recompute, its reference call without the adapters: #7 1,890,
-#   #8 70 (the UNet at B 4: 2 captions under CFG);
+# - DRaFT+: DRAFT_SAMPLER_STEPS - 1 sampler steps without autograd (70
+#   each), the last one's forward and recompute, its reference call without
+#   the adapters: #7 840, #8 70 (the UNet at B 4: 2 captions under CFG);
 # - the style tokenizer: #7 140, #8 70: the pooled embedding of encoder 2
 #   carries the style rows into the time embedding, so the gradient reaches
 #   the first self-attention too (an IP-Adapter step's #8 is 69); its 2-step
@@ -4883,7 +5098,8 @@ SLICE_TRAINERS = {
     "rope_distill": dict(entry="rope_distill", launches=_expect({7: 240, 8: 80}),
                          preview=_expect({7: 2 * 70}), peft=True,
                          metrics=("l2_loss", "distill_loss", "lowres_distill_loss")),
-    "draft_plus": dict(entry="draft_plus", launches=_expect({7: 25 * 70 + 2 * 70, 8: 70}),
+    "draft_plus": dict(entry="draft_plus",
+                       launches=_expect({7: DRAFT_SAMPLER_STEPS * 70 + 2 * 70, 8: 70}),
                        preview=None, peft=True,
                        metrics=("reward", "reward_loss", "draft_reg_loss")),
     "style_tokenizer": dict(entry="style_tokenizer", launches=_expect({7: 140, 8: 70}),
@@ -4922,7 +5138,7 @@ SLICE_WORKLOADS = {"rope_distill": "sdxl_rope_distill.SDXLRoPEDistillTraining",
 def _slice_config(tmp: str, name: str, model: dict, folder: str, peft: bool,
                   preview: list | None, **dataset) -> tuple[str, list]:
     """configs/sdxl/text_to_image_lora.yml's trainer settings with ``model``,
-    its LoRA (or none), 3 steps and ``preview`` (or none). Returns the path
+    its LoRA (or none), SLICE_STEPS steps and ``preview`` (or none). Returns the path
     and the cuts."""
     import yaml
 
@@ -4973,7 +5189,7 @@ def phase_slice_trainer(tmp: str, name: str, model: dict, folder: str, frozen,
                         expected_trained, reference: str | None = None,
                         **dataset) -> tuple[int, ...]:
     """``train.sdxl.<name>`` at SDXL-base's full width and depth, 1024^2, batch
-    2, 3 steps (steps 2-3 timed): launches per step, what changed (the
+    2, SLICE_STEPS steps (the first not timed): launches per step, what changed (the
     trained tensors only: ``frozen(workload)`` and the whole training tree
     fingerprinted), the logged metrics finite; DRaFT+'s first step profiled.
     Returns the run's launches."""
@@ -5004,7 +5220,7 @@ def phase_slice_trainer(tmp: str, name: str, model: dict, folder: str, frozen,
          gradient_checkpointing=trainer.config.trainer.gradient_checkpointing,
          steps=trainer.global_step, run_seconds=out["seconds"],
          step_seconds=out["step_seconds"],
-         seconds_per_step_2_to_3=sum(timed) / max(len(timed), 1),
+         seconds_per_step_after_first=sum(timed) / max(len(timed), 1),
          peak_memory_bytes=out["peak"], metrics=logged, launches_per_step=out["per_step"],
          expected_per_step=spec["launches"], preview_launches=previews,
          expected_preview=spec["preview"] or _expect({}), run_launches=out["run_launches"],
@@ -5159,7 +5375,7 @@ def phase_slice14(tmp: str) -> dict[str, tuple[int, ...]]:
         "rope_distill_trainer": phase_slice_trainer(
             tmp, "rope_distill", {}, images, lambda w: [], lora_only),
         "draft_plus_trainer": phase_slice_trainer(
-            tmp, "draft_plus", {"reward_models": [{
+            tmp, "draft_plus", {"total_steps": DRAFT_SAMPLER_STEPS, "reward_models": [{
                 "type": "pickscore", "weights_path": towers["pickscore"],
                 "tokenizer": "word-hash"}]}, images, towers_of, lora_only),
         "style_tokenizer_trainer": phase_slice_trainer(
@@ -5742,12 +5958,14 @@ def main(args: list[str]) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     started = time.perf_counter()
-    smi = phase_device()
     global _HALVES
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if not args:
+            # the worker's queue is the run's critical path, and its first
+            # jobs need no kernel: they start beside the build
             _start_cpu_halves(work)
+        smi = phase_device()
         return _run(args, started, smi, work)
     finally:
         if _HALVES is not None:
@@ -5802,13 +6020,15 @@ def _run(args: list[str], started: float, smi: str, work: str) -> int:
     launches["train_step"] = phase_train_step()
     launches["short_path"] = phase_short_path()
     launches["attention_probes"] = phase_attention_probes()
-    launches["trainer"] = phase_trainer(tmp)
+    # early on the card's path, so its CPU half follows the early-queued
+    # jobs with no idle gap in the worker
+    launches["cache_latents"] = phase_cache_latents(tmp)
+    launches["trainer"], no_mesh = phase_trainer(tmp)
     phase_train_parity(label2id)
     phase_parity(label2id)
     launches["text_sampler"] = phase_text_sampler(tmp)
     phase_text_parity(work)
     launches["losses"] = phase_losses(work)
-    launches["cache_latents"] = phase_cache_latents(tmp)
     launches["latent_trainer"] = phase_latent_trainer(tmp)
     phase_latent_parity(tmp)
     launches.update(phase_jit_variants_trainer(tmp))
@@ -5818,15 +6038,21 @@ def _run(args: list[str], started: float, smi: str, work: str) -> int:
     phase_sdxl_parity()
     phase_sdxl_lora_parity()
     launches.update(phase_sdxl_flow_match_parity())
+    # every phase that submits a CPU half runs before the SDXL trainers, so
+    # the worker is never left waiting for its next job
+    launches.update(phase_adapters(tempfile.mkdtemp(dir=work)))
+    launches.update(phase_slice14(tempfile.mkdtemp(dir=work)))
+    phase_cogview4_parity()
     sdxl_tmp = tempfile.mkdtemp(dir=work)
     for label in ("lora", "qlora", "flow_match"):
         launches[f"sdxl_{label}_trainer"] = phase_sdxl_trainer(sdxl_tmp, label)
-    launches.update(phase_adapters(tempfile.mkdtemp(dir=work)))
-    launches.update(phase_slice14(tempfile.mkdtemp(dir=work)))
     launches["optimizers"] = phase_optimizers()
-    phase_cogview4_parity()
     launches.update(phase_cogview4_sampler())
     launches.update(phase_inference_server(sdxl_tmp))
+    # last on the card's path: the worker's queue ends last, and every
+    # phase before these submits its CPU halves earlier
+    phase_mesh_trainer(tmp, no_mesh)
+    phase_ring()
     _HALVES.drain()
     launches.update(phase_e2e_feed(tempfile.mkdtemp(dir=work)))
     kernels = []

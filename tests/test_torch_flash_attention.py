@@ -204,5 +204,5 @@ def test_flash_backend_takes_no_mask(flash_calls):
                                     backend="flash")
     out = tattn.dot_product_attention(q, k, v, backend="flash", is_causal=True)
     assert out.dtype == torch.float32 and len(flash_calls) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="sequence_parallel"):
         tattn.dot_product_attention(q, k, v, backend="ring")

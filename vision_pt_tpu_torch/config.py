@@ -87,6 +87,10 @@ class TrainerConfig(BaseModel):
     # torch.set_float32_matmul_precision; None leaves torch's setting alone
     fp32_matmul_precision: Literal["highest", "high", "medium"] | None = None
     allow_tf32: bool = False  # True lets fp32 matmuls on the card use TF32
+    # torch.use_deterministic_algorithms (warn-only) while ``train`` runs:
+    # ops with an atomic-add backward (an embedding's, an index's) sum in a
+    # fixed order, so two runs of one config give the same bits
+    deterministic: bool = False
 
     use_ema: bool = False
     ema_decay: float = 0.9999

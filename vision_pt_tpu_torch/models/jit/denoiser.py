@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ...ops.attention import dot_product_attention
+from ...ops.attention import dot_product_attention, get_sequence_parallel
 from ...ops.linear import Linear
 from ...ops.norm import FP32RMSNorm, get_norm_layer
 from ...ops.patch import patchify, pixel_shuffle_nhwc
@@ -155,7 +155,15 @@ def _rms_rope(x: torch.Tensor, norm: FP32RMSNorm, rope_freqs: torch.Tensor):
 
 
 class Attention(nn.Module):
-    """Self-attention with QKNorm + RoPE; q/k/v stay (B, S, H, D)."""
+    """Self-attention with QKNorm + RoPE; q/k/v stay (B, S, H, D). The head
+    count comes from the projections' width, so under tensor parallelism
+    (``to_q``/``to_k``/``to_v`` split by columns) each rank attends over its
+    own heads."""
+
+    supports_tensor_parallel = True
+    # QKNorm gains see only this rank's heads there: their gradients are
+    # summed over the tensor ranks
+    tensor_partial = ("q_norm", "k_norm")
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = True,
                  qk_norm: bool = True, attn_dropout: float = 0.0,
@@ -179,7 +187,7 @@ class Attention(nn.Module):
 
     def _split_heads(self, x: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
-        return x.reshape(b, s, self.num_heads, self.head_dim)
+        return x.reshape(b, s, -1, self.head_dim)
 
     def qk_logit_bound(self) -> torch.Tensor | None:
         """Upper bound on |attention logit| under QKNorm:
@@ -218,12 +226,14 @@ class Attention(nn.Module):
         b, s, _ = hidden_states.shape
         q, k, v = self._project_qkv(hidden_states, rope_freqs)
         if (key_mask is None and MIN_PACKED_SEQ <= s <= MAX_SHORT_SEQ
-                and _on_cuda(hidden_states)):
-            # packed (B, S, H*D) kernel; QKNorm bounds the logits, so the
-            # kernel may skip the softmax max subtraction
+                and _on_cuda(hidden_states)
+                # under sequence parallelism the ring owns the dispatch
+                and get_sequence_parallel() is None):
+            # packed (B, S, H*D) kernel over this rank's heads; QKNorm bounds
+            # the logits, so the kernel may skip the softmax max subtraction
             attn = short_attention_packed(
                 q.reshape(b, s, -1), k.reshape(b, s, -1), v.reshape(b, s, -1),
-                self.num_heads, kv_lens, bounded=self.q_norm is not None,
+                q.shape[2], kv_lens, bounded=self.q_norm is not None,
             )
             return self.to_o(attn.to(hidden_states.dtype))
         if kv_lens is not None:
@@ -237,6 +247,8 @@ class Attention(nn.Module):
 
 class SwiGLU(nn.Module):
     """SwiGLU MLP with the 2/3 width rule."""
+
+    supports_tensor_parallel = True  # elementwise over the hidden features
 
     def __init__(self, dim: int, hidden_dim: int, use_bias: bool = True, *,
                  dtype=None, param_dtype=torch.float32, generator=None):

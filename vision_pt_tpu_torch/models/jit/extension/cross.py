@@ -39,6 +39,8 @@ def _cross_mask(query_mask, key_mask):
 class CrossAttention(Attention):
     """Cross-attention with separate query and key rotary tables."""
 
+    supports_tensor_parallel = False  # not held under a mesh (ROADMAP Queue 1 item 5)
+
     def forward(self, hidden_states, key_value_states, query_rope_freqs,
                 key_rope_freqs, query_mask=None, key_mask=None):
         b, sq, _ = hidden_states.shape

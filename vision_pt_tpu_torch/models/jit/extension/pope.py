@@ -120,6 +120,9 @@ class PopeAttention(Attention):
     ``pope_bias`` (H, D), fp32 whatever the parameter dtype. q/k run at
     2 * head_dim (scale (2 * head_dim) ** -0.5), v at head_dim."""
 
+    # pope_bias holds every head: not split with the projections' columns
+    supports_tensor_parallel = False
+
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.pope_bias = nn.Parameter(

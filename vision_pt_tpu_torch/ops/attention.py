@@ -14,7 +14,10 @@ CPU); ``auto`` picks it on the card for long unmasked sequences, as the JAX
 package does on the TPU. The ``short`` backend is
 ``ops.short_attention.short_attention`` (kernels #3/#4 on the card, plain
 versions on the CPU; suffix ``kv_lens`` only); ``auto`` never picks it, as in
-the JAX package. The ``ring`` backend is not ported yet and raises.
+the JAX package. Inside ``sequence_parallel(mesh)`` an eligible
+self-attention (no mask, not causal, Sq == Sk divisible by the seq axis)
+under ``auto`` or ``ring`` goes round the seq ranks
+(``ops.ring_attention``); ``ring`` outside it raises.
 """
 
 from __future__ import annotations
@@ -33,9 +36,6 @@ AttentionImplementation = Literal[
 
 _DEFAULT_ATTENTION_DTYPE: torch.dtype | None = torch.bfloat16
 _SENTINEL = object()
-_NOT_PORTED = {
-    "ring": "ROADMAP Queue 1 item 5, multi-GPU (ops/ring_attention.py)",
-}
 
 # Gate of the flash kernels, kept at the JAX package's value. It was tuned on
 # a TPU and is not yet measured on an H100.
@@ -45,6 +45,48 @@ MIN_FLASH_SEQ = 1024
 def _on_cuda(x: torch.Tensor) -> bool:
     """Where the flash kernels can run (the JAX gate's ``_on_tpu()``)."""
     return x.is_cuda
+
+
+# ---------------------------------------------------------------- seq parallel
+# The active (mesh, seq axis, batch axes) while ``sequence_parallel`` is
+# entered: eligible self-attention then goes round the seq ranks.
+_SEQ_PARALLEL: tuple[object, str, tuple[str, ...]] | None = None
+# calls that took the ring, so a test can see the path was taken (a silent
+# fallback would give the same numbers)
+_RING_DISPATCH_COUNT = 0
+
+
+@contextlib.contextmanager
+def sequence_parallel(mesh, axis_name: str = "seq",
+                      batch_axes: tuple[str, ...] = ("data", "fsdp")):
+    """Scoped ring-attention dispatch over ``mesh`` (a ``DeviceMesh``); a
+    no-op when its seq axis has one rank. ``batch_axes`` names the axes the
+    batch rows are already split over (the trainer's ``shard_batch``)."""
+    global _SEQ_PARALLEL
+    prev = _SEQ_PARALLEL
+    names = mesh.mesh_dim_names or ()
+    if axis_name in names and mesh[axis_name].size() > 1:
+        _SEQ_PARALLEL = (mesh, axis_name, tuple(a for a in batch_axes if a in names))
+    try:
+        yield
+    finally:
+        _SEQ_PARALLEL = prev
+
+
+def get_sequence_parallel():
+    """The active (mesh, axis_name, batch_axes), or None."""
+    return _SEQ_PARALLEL
+
+
+def ring_dispatch_count() -> int:
+    """How many attention calls took the ring so far (process-global; take a
+    before / after difference)."""
+    return _RING_DISPATCH_COUNT
+
+
+def _ring_eligible(q, k, mask, is_causal, n: int) -> bool:
+    return (mask is None and not is_causal and q.shape[1] == k.shape[1]
+            and q.shape[1] % n == 0)
 
 
 def set_default_attention_dtype(dtype: torch.dtype | None) -> None:
@@ -198,6 +240,31 @@ def dot_product_attention(
 
     if backend in ("eager", "sdpa"):
         backend = "xla"
+    sp = _SEQ_PARALLEL
+    if backend in ("auto", "ring") and sp is not None:
+        mesh, axis, batch_axes = sp
+        n = mesh[axis].size()
+        eligible = _ring_eligible(q, k, mask, is_causal, n)
+        if backend == "ring" and not eligible:
+            raise ValueError(
+                "backend='ring' needs self-attention (Sq == Sk, divisible by "
+                f"the seq axis ({n})), no mask, non-causal; got "
+                f"Sq={q.shape[1]} Sk={k.shape[1]} mask={mask is not None} "
+                f"causal={is_causal}"
+            )
+        if eligible:
+            from .ring_attention import ring_attention_sharded
+
+            global _RING_DISPATCH_COUNT
+            _RING_DISPATCH_COUNT += 1
+            out = ring_attention_sharded(q, k, v, mesh, axis, kv_lens=kv_lens,
+                                         scale=scale, batch_axes=batch_axes)
+            return out.to(orig_dtype)
+    elif backend == "ring":
+        raise ValueError(
+            "backend='ring' requires an active sequence_parallel(...) "
+            "context (see ops.attention.sequence_parallel)"
+        )
     if backend == "auto":
         flash_ok = (
             mask is None
@@ -207,11 +274,6 @@ def dot_product_attention(
             and _on_cuda(q)
         )
         backend = "flash" if flash_ok else "xla"
-    if backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"attention backend {backend!r} is not ported yet: "
-            f"{_NOT_PORTED[backend]}"
-        )
     if backend == "flash":
         if mask is not None:
             raise ValueError(

@@ -27,6 +27,10 @@ class ModelForTraining(ABC):
     model_config_class: type[BaseModel]
 
     _current_step: int = 0
+    # the draws with one row per sample, which a ``trainer.mesh`` run takes
+    # this rank's rows of with the batch; None: the workload does not run
+    # under a mesh (ROADMAP Queue 1 item 5)
+    mesh_draws: tuple[str, ...] | None = None
 
     def __init__(self, config: TrainConfig, device: torch.device) -> None:
         self.config = config

@@ -178,6 +178,17 @@ def is_schedule_free(name: str) -> bool:
     return "schedulefree" in name.lower() or "schedule_free" in name.lower()
 
 
+# the optimizers whose update is held against one device under a mesh
+# (torch's, elementwise and DTensor-aware); the others raise there
+MESH_OPTIMIZERS = ("adamw", "adam", "sgd")
+
+
+def resolve_name(name: str) -> str:
+    """The JAX package's optimizer name for a config name."""
+    key = _ALIASES.get(name.lower(), name.lower())
+    return key.removeprefix("optax.contrib.").removeprefix("optax.")
+
+
 def get_optimizer(name: str, params, args: dict | None = None,
                   lr: float = 1e-3,
                   lr_schedule: Callable[[int], float] | None = None
@@ -187,8 +198,7 @@ def get_optimizer(name: str, params, args: dict | None = None,
     schedule-free, which follows ``lr_schedule`` when given."""
     args = _translate_args(dict(args or {}))
     args["lr"] = args.get("lr", lr)
-    key = _ALIASES.get(name.lower(), name.lower())
-    key = key.removeprefix("optax.contrib.").removeprefix("optax.")
+    key = resolve_name(name)
     if key in ("schedule_free_adamw", "schedule_free_radam"):
         return ScheduleFreeAdamW(params, lr_schedule=lr_schedule, **args)
     if key in ("adamw8bit", "adam8bit"):

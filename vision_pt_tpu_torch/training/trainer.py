@@ -1,6 +1,5 @@
 """Trainer: the epoch/step loop with gradient accumulation, clipping, EMA,
-saving, previews and trackers (port of ``vision_pt_tpu/training/trainer.py``,
-single device).
+saving, previews and trackers (port of ``vision_pt_tpu/training/trainer.py``).
 
 The update matches the JAX package's optax chain step for step:
 - ``gradient_accumulation_steps`` k is ``optax.MultiSteps``: the running mean
@@ -21,22 +20,46 @@ parameters (``eval_params``), swapped in and back. Train-state checkpoints
 (``trainer.checkpointing``) hold the trainable, the optimizer, the EMA, the
 accumulation window, the step, epoch and generator counters and the
 workload's host generators; SIGTERM finishes the current step, saves and
-stops. Multi-device runs and profiling are not ported yet and raise.
+stops.
+
+Multi-device runs (``trainer.mesh``, ``trainer.distributed_init``) compute
+the one-device step: every rank reads the whole batch and draws the whole
+batch's timesteps and noise from the trainer's generator, then takes its
+rows (``shard_batch`` over data x fsdp); the model is placed by
+``parallel.shard_module``; a seq axis puts self-attention on the ring for
+the step. Rank 0 alone writes trackers, saved models, previews and train
+states, between barriers; saved tensors are gathered whole first.
+``trainer.profile_dir`` traces steps [1, 1 + ``profile_steps``) with
+``torch.profiler``, one chrome trace per rank. ``trainer.deterministic``
+(the port's own) runs the loop under torch's deterministic algorithms.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
+import os
 import signal
 import time
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from tqdm import tqdm
 
 from ..config import TrainConfig
 from ..data.bucket import prefetch_iterator
+from ..parallel.mesh import (
+    batch_mean,
+    full_parameters,
+    global_norm,
+    make_mesh,
+    reduce_replicated_grads,
+    shard_batch,
+    shard_module,
+)
 from ..preview import PreviewStrategy, get_preview_callback
 from ..saving import ModelSavingStrategy, get_saving_callback
 from ..utils import resolve_device
@@ -44,33 +67,55 @@ from ..utils.logging import get_trackers
 from . import ema as ema_lib
 from .checkpoint import TrainStateCheckpointer
 from .model import ModelForTraining
-from .optimizer import get_optimizer, is_schedule_free
+from .optimizer import MESH_OPTIMIZERS, get_optimizer, is_schedule_free, resolve_name
 from .scheduler import get_lr_schedule
 
 
-def _global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
-    return torch.nn.utils.get_total_norm(tensors, norm_type=2.0)
+def initialize_distributed(device: torch.device) -> torch.device:
+    """The process group from the ``torchrun`` environment (RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK): NCCL on
+    ``cuda:LOCAL_RANK`` for a CUDA device, gloo on the CPU; raises when the
+    group cannot be built. Returns the device this rank trains on."""
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        if device.type == "cuda":
+            dist.init_process_group("nccl", device_id=device)
+        else:
+            dist.init_process_group("gloo")
+    print(f"[distributed] {dist.get_backend()} group: rank {dist.get_rank()} of "
+          f"{dist.get_world_size()}, device {device}", flush=True)
+    return device
+
+
+def is_main_process() -> bool:
+    """True on the rank that owns saving, preview and tracker output."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def barrier(name: str) -> None:
+    """Every rank waits here (around rank 0's writes); ``name`` says which."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 class Trainer:
-    """Runs a registered workload on one device: CUDA unless ``device`` says
-    otherwise (the tests pass ``device="cpu"``)."""
+    """Runs a registered workload: on CUDA unless ``device`` says otherwise
+    (the tests pass ``device="cpu"``), on one device or, with
+    ``trainer.mesh``, on every rank of the process group."""
 
     def __init__(self, config: TrainConfig,
                  device: str | torch.device | None = None):
         self.config = config
         self.device = resolve_device(device)
         tcfg = config.trainer
-        for unported, what in (
-            (tcfg.mesh is not None, "trainer.mesh (multi-GPU): ROADMAP Queue 1 item 5"),
-            (tcfg.distributed_init,
-             "trainer.distributed_init (multi-GPU): ROADMAP Queue 1 item 5"),
-            (tcfg.profile_dir is not None,
-             "trainer.profile_dir (profiling): ROADMAP Queue 1 item 1"),
-        ):
-            if unported:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if tcfg.distributed_init:
+            self.device = initialize_distributed(self.device)
         self._configure_precision()
+        self.mesh = None
+        if tcfg.mesh is not None:
+            self.mesh = make_mesh(tcfg.mesh)
 
         self.model: ModelForTraining | None = None
         self.model_class: type[ModelForTraining] | None = None
@@ -81,7 +126,8 @@ class Trainer:
         self.optimizer: torch.optim.Optimizer | None = None
         self.lr_schedule: Callable[[int], float] | None = None
         self.ema_state: dict[str, torch.Tensor] | None = None
-        self.trackers = get_trackers(config.tracker)
+        # one writer: the other ranks keep no trackers
+        self.trackers = get_trackers(config.tracker) if is_main_process() else []
 
         self.saving_strategy = None
         self.saving_callbacks = []
@@ -97,6 +143,7 @@ class Trainer:
         self._schedule_free = False
         self.checkpointer: TrainStateCheckpointer | None = None
         self._preempted = False
+        self._profiler = None
 
     # ------------------------------------------------------------ setup
 
@@ -124,6 +171,10 @@ class Trainer:
             raise RuntimeError("register_train_dataset_class first")
         dataset_config = self.train_dataset_class.model_validate(self.config.dataset)
         self.train_dataset = dataset_config.get_dataset()
+        # every rank reads the whole batch and takes its rows in the step
+        # (the JAX package strides hosts over the batch order instead)
+        if self.mesh is not None and hasattr(self.train_dataset, "host_index"):
+            self.train_dataset.host_index, self.train_dataset.host_count = 0, 1
         self.steps_per_epoch = len(self.train_dataset)
         self.preview_args = []
         if self.config.preview is not None:
@@ -136,6 +187,13 @@ class Trainer:
         self.model.setup_model()
         self.setup_peft_if_needed()
         self.model.after_setup_model()
+        if self.mesh is not None:
+            if self.model.mesh_draws is None or self.config.peft is not None:
+                raise NotImplementedError(
+                    f"{type(self.model).__name__}"
+                    f"{' with PEFT' if self.config.peft is not None else ''} under "
+                    "trainer.mesh is not ported: ROADMAP Queue 1 item 5")
+            shard_module(self.model.trainable(), self.mesh)
 
     def setup_peft_if_needed(self):
         """Adapter surgery on the trainable, optional adapter weights to
@@ -185,6 +243,15 @@ class Trainer:
         trainable = self.model.trainable()
         self._params = [p for p in trainable.parameters() if p.requires_grad]
         opt_args = {k: v for k, v in args.items() if k not in ("lr", "learning_rate")}
+        if self.mesh is not None:
+            if resolve_name(cfg.optimizer.name) not in MESH_OPTIMIZERS:
+                raise NotImplementedError(
+                    f"optimizer {cfg.optimizer.name!r} under trainer.mesh is not "
+                    "held against one device: ROADMAP Queue 1 item 5")
+            if any(isinstance(p, DTensor) for p in self._params):
+                # one parameter at a time: the foreach kernels take no mix
+                # of sharded and whole parameters
+                opt_args["foreach"] = False
         # schedule-free takes the schedule itself (optax's two counts)
         self._schedule_free = is_schedule_free(cfg.optimizer.name)
         self.optimizer = get_optimizer(
@@ -264,7 +331,9 @@ class Trainer:
                       "mini_step": self._mini_step,
                       "host_rng": self.model.get_host_rng_state()},
             extra={"accumulation": self._acc},
+            write=is_main_process(),
         )
+        barrier("save_train_state")
         if path is not None:
             print(f"[checkpoint] wrote {path}")
 
@@ -315,7 +384,7 @@ class Trainer:
             grads = [g.clamp(-c, c) for g in grads]
         if tcfg.clip_grad_norm is not None:
             c = tcfg.clip_grad_norm
-            scale = c / torch.clamp_min(_global_norm(grads), c)
+            scale = c / torch.clamp_min(global_norm(grads), c)
             grads = [g * scale.to(g.dtype) for g in grads]
         for p, g in zip(self._params, grads):
             p.grad = g
@@ -326,19 +395,47 @@ class Trainer:
         self.optimizer.step()
         self._updates += 1
 
+    def _seq_parallel_scope(self):
+        """Ring-attention dispatch around a step when the mesh's seq axis has
+        more than one rank."""
+        if self.mesh is not None and self.mesh["seq"].size() > 1:
+            from ..ops.attention import sequence_parallel
+
+            return sequence_parallel(self.mesh)
+        return contextlib.nullcontext()
+
+    def _local_rows(self, batch: dict, draws: dict) -> tuple[dict, dict]:
+        """This rank's rows of the batch and of the per-sample draws."""
+        other = set(draws) - set(self.model.mesh_draws)
+        if other:
+            raise NotImplementedError(
+                f"draws {sorted(other)} under trainer.mesh are not ported: "
+                "ROADMAP Queue 1 item 5")
+        return shard_batch(batch, self.mesh), shard_batch(draws, self.mesh)
+
     def train_step(self, batch: dict, generator: torch.Generator,
                    at_accum_boundary: bool = True):
         """One micro-step: draws, loss, backward, and the update when the
-        accumulation window closes. Returns the loss and the metrics."""
+        accumulation window closes. Returns the loss and the metrics (under
+        a mesh, their means over the batch ranks)."""
         trainable = self.model.trainable()
         draws = self.model.draw_randoms(batch, generator)
-        loss, metrics = self.model.compute_loss(trainable, batch, draws)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if self.mesh is not None:
+            batch, draws = self._local_rows(batch, draws)
+        with self._seq_parallel_scope():
+            loss, metrics = self.model.compute_loss(trainable, batch, draws)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        metrics = dict(metrics)
+        if self.mesh is not None:
+            reduce_replicated_grads(trainable)
+            names = [k for k, v in metrics.items()
+                     if isinstance(v, torch.Tensor) and v.dim() == 0]
+            loss, *values = batch_mean([loss, *(metrics[k] for k in names)], self.mesh)
+            metrics.update(zip(names, values))
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self._params]
-        metrics = dict(metrics)
-        metrics["grad_norm"] = _global_norm(grads)
+        metrics["grad_norm"] = global_norm(grads)
         accum = self.config.trainer.gradient_accumulation_steps
         if accum > 1:
             # optax.MultiSteps: a running mean of the micro-step gradients
@@ -378,7 +475,8 @@ class Trainer:
                               cfg.num_train_epochs)
             skip_steps = self.global_step - start_epoch * self.steps_per_epoch
         total = self.steps_per_epoch * (cfg.num_train_epochs - start_epoch)
-        pbar = tqdm(total=total, desc="train", initial=skip_steps)
+        pbar = tqdm(total=total, desc="train", initial=skip_steps,
+                    disable=not is_main_process())
         self._preempted = False
         restore_sigterm = self._install_preemption_handler()
         try:
@@ -388,6 +486,7 @@ class Trainer:
                 self._handle_preemption()
         finally:
             restore_sigterm()
+            self._stop_profile()
         if not completed:
             return
         pbar.close()
@@ -410,6 +509,7 @@ class Trainer:
 
             for batch in prefetch_iterator(epoch_iter):
                 self.model.before_train_step()
+                self._maybe_profile()
                 step_t0 = time.perf_counter()
                 generator = self._next_generator()
                 arrays = self.model.prepare_batch(batch)
@@ -445,6 +545,38 @@ class Trainer:
             self.model.after_train_epoch()
         return True
 
+    def _maybe_profile(self):
+        """``torch.profiler`` over steps [1, 1 + profile_steps) when
+        ``profile_dir`` is set (step 0 holds the first calls' set-up); on the
+        card the trace holds the device's kernels."""
+        cfg = self.config.trainer
+        if cfg.profile_dir is None:
+            return
+        if self.global_step == 1 and self._profiler is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            activity = (ProfilerActivity.CUDA if self.device.type == "cuda"
+                        else ProfilerActivity.CPU)
+            self._profiler = profile(activities=[activity])
+            self._profiler.start()
+        elif self._profiler is not None and self.global_step >= 1 + cfg.profile_steps:
+            self._stop_profile()
+
+    def _stop_profile(self):
+        """Close the trace and write this rank's chrome trace."""
+        if self._profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        os.makedirs(self.config.trainer.profile_dir, exist_ok=True)
+        path = os.path.join(self.config.trainer.profile_dir,
+                            f"trace_rank{rank}.json")
+        self._profiler.export_chrome_trace(path)
+        self._profiler = None
+        print(f"[profiler] trace written to {path}")
+
     # ------------------------------------------------------------ callbacks
 
     def call_saving_callbacks(self):
@@ -454,7 +586,10 @@ class Trainer:
             self._save_model(self.current_epoch + 1, self.global_step)
 
     def _state_dict_to_save(self) -> dict[str, torch.Tensor]:
-        state_dict = self.model.get_state_dict_to_save()
+        """The model's file contents; every rank gathers its sharded
+        parameters whole for it."""
+        with full_parameters(self.model.trainable()):
+            state_dict = self.model.get_state_dict_to_save()
         for old, new in (self.config.saving.rename_key_map or {}).items():
             state_dict = {k.replace(old, new): v for k, v in state_dict.items()}
         return state_dict
@@ -485,7 +620,7 @@ class Trainer:
             state_dict = self._state_dict_to_save()
         finally:
             self._restore_params(original)
-        for cb in self.saving_callbacks:
+        for cb in self.saving_callbacks if is_main_process() else []:
             path = cb.save(state_dict, epoch, steps, metadata=metadata)
             print(f"[saving] wrote {path}")
         if self.ema_state is not None:
@@ -494,11 +629,12 @@ class Trainer:
             original = ema_lib.swap_in_ema_params(trainable, self.ema_state)
             ema_sd = self._state_dict_to_save()
             ema_lib.restore_params(trainable, original)
-            for cb in self.saving_callbacks:
+            for cb in self.saving_callbacks if is_main_process() else []:
                 template = cb.save_name_template
                 cb.save_name_template = "ema_" + template
                 cb.save(ema_sd, epoch, steps, metadata=metadata)
                 cb.save_name_template = template
+        barrier("save_model")
         self.model.after_save_model()
 
     def call_preview_callbacks(self):
@@ -511,14 +647,17 @@ class Trainer:
         original = self._swap_in_schedule_free_eval_params()
         try:
             for i, args in enumerate(self.preview_args):
+                # every rank samples (sharded parameters need them all);
+                # rank 0 writes
                 images = self.model.preview_step(args, i)
-                for cb in self.preview_callbacks:
+                for cb in self.preview_callbacks if is_main_process() else []:
                     cb.preview(images, self.current_epoch + 1, self.global_step, i)
                 for tracker in self.trackers:
                     for j, img in enumerate(images):
                         tracker.log_image(f"preview/{i}_{j}", img, self.global_step)
         finally:
             self._restore_params(original)
+        barrier("preview")
         self.model.after_preview()
 
     # ------------------------------------------------------------ entry
@@ -531,9 +670,14 @@ class Trainer:
             print("sanity check passed")
             return
         self.model.sanity_check()
+        was = (torch.are_deterministic_algorithms_enabled(),
+               torch.is_deterministic_algorithms_warn_only_enabled())
+        if self.config.trainer.deterministic:
+            torch.use_deterministic_algorithms(True, warn_only=True)
         try:
             self.training_loop()
         finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
             for tracker in self.trackers:
                 tracker.finish()
         print(f"training finished in {time.time() - start:.1f}s")

@@ -50,6 +50,7 @@ class JiTForClassToImageTraining(ModelForTraining):
     model_class: type[JiTModel] = JiTModel
     model_config: JiTConfigForTraining
     model_config_class = JiTConfigForTraining
+    mesh_draws = ("timesteps", "noise")
 
     def setup_model(self):
         cfg = self.model_config

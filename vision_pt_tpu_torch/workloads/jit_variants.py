@@ -42,6 +42,7 @@ class JiTConfigForArbTraining(JiTConfigForTraining):
 class JiTForArbClassToImageTraining(JiTForClassToImageTraining):
     """ARB variant: the batch provides per-sample size conditioning, and
     optional multi-resolution lowres losses are added."""
+    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
 
     model_config: JiTConfigForArbTraining
     model_config_class = JiTConfigForArbTraining
@@ -102,6 +103,7 @@ class UJiTConfigForTraining(JiTConfigForTraining):
 
 
 class JiTForUJiTTraining(JiTForClassToImageTraining):
+    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
     model_class = UJiTModel
     model_config_class = UJiTConfigForTraining
 
@@ -123,6 +125,7 @@ class CrossJiTConfigForTraining(JiTConfigForTraining):
 
 
 class JiTForCrossTraining(JiTForClassToImageTraining):
+    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
     model_class = CrossJiTModel
     model_config_class = CrossJiTConfigForTraining
 
@@ -140,6 +143,7 @@ class JiTForIGTraining(JiTForClassToImageTraining):
     """Internal-guidance training: the main head's target is the image plus
     ``ig_scale`` times the detached gap between the two heads; the
     intermediate head is trained toward the clean image."""
+    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
 
     model_class = IGJiTModel
     model_config_class = IGJiTConfigForTraining
@@ -173,6 +177,7 @@ class LoIGJiTConfigForTraining(JiTConfigForTraining):
 class JiTForLoIGTraining(JiTForClassToImageTraining):
     """Low-rank internal guidance: both heads are trained toward the clean
     image."""
+    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
 
     model_class = LoIGJiTModel
     model_config_class = LoIGJiTConfigForTraining
@@ -203,6 +208,7 @@ class TreadJiTConfigForTraining(JiTConfigForTraining):
 class JiTForTreadTraining(JiTForClassToImageTraining):
     """TREAD token-routing training; the routing runs only in the training
     step, with the permutation drawn beside the timesteps and noise."""
+    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
 
     model_class = JiTWithTreadModel
     model_config_class = TreadJiTConfigForTraining
