@@ -154,6 +154,16 @@ without a result line:
    8, RAdamScheduleFree and recompute as shipped, its 16-step CFG-4 preview
    as shipped; cut as sdxl_lora_trainer; 140 launches of #7 and 70 of #8 a
    step, 16 x 70 of #7 in the preview, a LoRA file of 2,100 tensors;
+16c. sdxl_mesh_trainer (after the SDXL trainers, before inference_server,
+   which deletes the NF4 file): the sdxl_lora_trainer and sdxl_qlora_trainer
+   configs (both under ``trainer.deterministic``) under ``torchrun
+   --standalone --nproc_per_node 1``, the two runs side by side, with
+   ``trainer.mesh`` {data 1, fsdp 1}, ``distributed_init`` and a
+   ``profile_dir`` (step 1): the group must be NCCL rank 0 of 1, each loss
+   within 1e-5 relative of its no-mesh run's, the LoRA file equal to its
+   file, and the chrome trace must hold that run's per-step launches of #7,
+   #8 and #9 (140 / 70 / 0 and 140 / 70 / 280); s/step and the peak memory
+   over the steps of both runs;
 17. sdxl_lora_parity: one LoRA training step (nonzero lora_up, a cached
    latent, batch 1: SDXL_LORA_PARITY_CUT, injected draws) of sdxl_parity's
    model at 512^2, card (kernels) against
@@ -1558,15 +1568,18 @@ MESH_LOSS_RTOL = 1e-5
 MESH_PROFILE_STEPS = 2
 
 
-def _trace_launches(path: str) -> tuple[int, int]:
-    """Launches of #1 and #2 in a chrome trace of the trainer's profiler:
-    #1 is the packed forward (``attn_fwd_``), #2 a pair of kernels (dq, then
-    dk / dv), counted by its dq kernel."""
+def _trace_launches(path: str) -> tuple[int, int, int]:
+    """Launches of the attention forward, its backward and the NF4 kernel
+    in a chrome trace of the trainer's profiler: the forward (#1 in JiT, #7
+    in SDXL: their template ``attn_fwd_``), the backward (#2 / #8: a pair,
+    dq then dk / dv, counted by its dq kernel) and #9 (``nf4_matmul_``,
+    followed by a reduce kernel when it splits K)."""
     with open(path) as f:
         names = [e.get("name", "") for e in json.load(f)["traceEvents"]
                  if e.get("cat") == "kernel"]
     return (sum("attn_fwd_" in n for n in names),
-            sum("attn_bwd_dq_" in n for n in names))
+            sum("attn_bwd_dq_" in n for n in names),
+            sum("nf4_matmul_kernel" in n for n in names))
 
 
 def phase_mesh_trainer(tmp: str, no_mesh: dict) -> dict:
@@ -1611,7 +1624,7 @@ def phase_mesh_trainer(tmp: str, no_mesh: dict) -> dict:
     step_time = [r["train/step_time"] for r in records if "train/step_time" in r]
     gaps = [abs(a - b) / abs(b) for a, b in zip(losses, no_mesh["losses"])]
     trace = os.path.join(work, "profile", "trace_rank0.json")
-    fwd, bwd = _trace_launches(trace) if os.path.exists(trace) else (0, 0)
+    fwd, bwd, _ = _trace_launches(trace) if os.path.exists(trace) else (0, 0, 0)
     saved = sorted(os.listdir(os.path.join(work, "out")))
     theirs = sorted(os.listdir(no_mesh["out"]))
     equal = {}
@@ -2556,6 +2569,8 @@ def _sdxl_train_config(tmp: str, label: str, checkpoint: str | None) -> tuple[st
     with open(os.path.join(work, "preview.yml"), "w") as f:
         yaml.safe_dump(preview, f)
     cfg["model"].update(checkpoint_path=checkpoint, tokenizer="word-hash")
+    if label in SDXL_MESH_LABELS:
+        cfg.setdefault("trainer", {})["deterministic"] = True
     cfg["dataset"].update(folder=os.path.join(tmp, "images"), num_repeats=SDXL_TRAIN_STEPS)
     cfg["num_train_epochs"] = 1
     cfg["tracker"]["log_dir"] = os.path.join(work, "logs")
@@ -2575,14 +2590,19 @@ def _sdxl_train_config(tmp: str, label: str, checkpoint: str | None) -> tuple[st
             f"preview: the first prompt of {cfg['preview']['data']['path']}, "
             + (f"{spec['preview_steps']} steps" if spec["preview_steps"] is not None
                else f"as shipped ({preview[0]['num_steps']} steps)")]
+    if label in SDXL_MESH_LABELS:
+        cuts.append("trainer.deterministic: true, as in sdxl_mesh_trainer, which "
+                    "compares its adapter file with this run's bit for bit")
     return path, cuts
 
 
-def phase_sdxl_trainer(tmp: str, label: str) -> tuple[int, ...]:
+def phase_sdxl_trainer(tmp: str, label: str) -> tuple[tuple[int, ...], dict]:
     """The port's SDXL entry point (``train.sdxl.text_to_image.run``, or
     ``train.sdxl.flow_match.run`` for the flow-match config) on the shipped
     LoRA, QLoRA or flow-match config at full width and depth, 1024^2, its
-    cuts listed in the phase line; returns the kernel launches of the run."""
+    cuts listed in the phase line; returns the kernel launches of the run,
+    and the config, losses, launches, step times, peak memory and saved
+    files that ``sdxl_mesh_trainer`` holds its runs against."""
     import importlib
 
     from vision_pt_tpu_torch.training.trainer import Trainer
@@ -2677,7 +2697,167 @@ def phase_sdxl_trainer(tmp: str, label: str) -> tuple[int, ...]:
                                                             trainer._next_generator()))
     del trainer, tree
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"config": path, "out": os.path.join(work, "out"), "losses": losses,
+                    "per_step": per_step,
+                    "step_seconds": step_seconds, "peak_memory_bytes": max(peaks)}
+
+
+# sdxl_mesh_trainer: the LoRA and QLoRA trainer phases' configs through
+# torchrun under the mesh {data 1, fsdp 1} (one NCCL rank: the card is one
+# H100), the distributed init and the profiler, which traces the second step
+# alone (the epoch's preview runs after the trace is closed)
+SDXL_MESH_LABELS = ("lora", "qlora")
+SDXL_MESH_PROFILE_STEPS = 1
+# the command the phase runs under torchrun: the entry point's CLI, then this
+# rank's peak device memory over the training steps, taken as the no-mesh
+# phase takes it (reset at the first step, read after each)
+SDXL_MESH_SCRIPT = """import sys
+
+import torch
+
+from vision_pt_tpu_torch.train.sdxl.text_to_image import main
+from vision_pt_tpu_torch.training.trainer import Trainer
+
+peaks, inner = [], Trainer.train_step
+
+
+def measured(self, *args, **kwargs):
+    if not peaks:
+        torch.cuda.reset_peak_memory_stats()
+    out = inner(self, *args, **kwargs)
+    peaks.append(torch.cuda.max_memory_allocated())
+    return out
+
+
+Trainer.train_step = measured
+try:
+    main(sys.argv[1:], standalone_mode=False)
+finally:
+    print(f"[peak_memory] {max(peaks, default=0)}", flush=True)
+"""
+
+
+def _sdxl_mesh_start(tmp: str, label: str, no_mesh: dict, script: str):
+    """Start one config of ``sdxl_mesh_trainer`` under torchrun; returns
+    what ``_sdxl_mesh_result`` reads."""
+    import yaml
+
+    work = os.path.join(tmp, f"mesh_{label}")
+    os.makedirs(work, exist_ok=True)
+    with open(no_mesh["config"]) as f:
+        cfg = yaml.safe_load(f)
+    cfg["trainer"].update(mesh={"data": 1, "fsdp": 1}, distributed_init=True,
+                          profile_dir=os.path.join(work, "profile"),
+                          profile_steps=SDXL_MESH_PROFILE_STEPS, deterministic=True)
+    cfg["tracker"]["log_dir"] = os.path.join(work, "logs")
+    cfg["saving"]["callbacks"][0]["save_dir"] = os.path.join(work, "out")
+    cfg["preview"]["callbacks"][0]["save_dir"] = os.path.join(work, "preview")
+    path = os.path.join(work, "config.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    command = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", script, "--config", path]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+    log = open(os.path.join(work, "run.log"), "w")
+    proc = subprocess.Popen(command, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    return {"proc": proc, "log": log, "work": work, "cfg": cfg, "command": command,
+            "t0": time.perf_counter()}
+
+
+def _sdxl_mesh_result(started: dict, no_mesh: dict) -> dict:
+    """Wait for a run ``_sdxl_mesh_start`` began (killed past 600 s); its exit
+    code, group, losses, step times, peak memory, trace launches and files
+    against ``no_mesh``."""
+    from safetensors.torch import load_file
+
+    proc, work = started["proc"], started["work"]
+    try:
+        proc.wait(timeout=max(1.0, 600 - (time.perf_counter() - started["t0"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    started["log"].close()
+    seconds = time.perf_counter() - started["t0"]
+    with open(os.path.join(work, "run.log")) as f:
+        text = f.read()
+    out = {"command": " ".join(started["command"][1:]), "exit": proc.returncode,
+           "log_tail": text[-3000:] if proc.returncode else None, "run_seconds": seconds}
+    if proc.returncode:
+        return out
+    group = re.search(r"\[distributed\] (\w+) group: rank (\d+) of (\d+), device (\S+)",
+                      text)
+    peak = re.search(r"\[peak_memory\] (\d+)", text)
+    trained = re.search(r"training finished in ([0-9.]+)s", text)
+    logs = os.path.join(work, "logs")
+    with open(os.path.join(logs, os.listdir(logs)[0])) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    step_time = [r["train/step_time"] for r in records if "train/step_time" in r]
+    trace = os.path.join(work, "profile", "trace_rank0.json")
+    traced = _trace_launches(trace) if os.path.exists(trace) else (0, 0, 0)
+    # the traced step, by the no-mesh run's counts
+    expected = tuple(SDXL_MESH_PROFILE_STEPS * no_mesh["per_step"][1][n - 1]
+                     for n in (7, 8, 9))
+    saved = sorted(os.listdir(os.path.join(work, "out")))
+    theirs = sorted(os.listdir(no_mesh["out"]))
+    equal = {}
+    for ours_name, theirs_name in zip(saved, theirs):
+        a = load_file(os.path.join(work, "out", ours_name))
+        b = load_file(os.path.join(no_mesh["out"], theirs_name))
+        equal[ours_name] = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    return {**out, "mesh": started["cfg"]["trainer"]["mesh"],
+            "group": group.groups() if group else None,
+            "train_seconds": float(trained.group(1)) if trained else None,
+            "losses": losses, "losses_no_mesh": no_mesh["losses"],
+            "rel_gap": [abs(a - b) / abs(b) for a, b in zip(losses, no_mesh["losses"])],
+            "step_time": step_time, "step_time_no_mesh": no_mesh["step_seconds"],
+            "peak_memory_bytes": int(peak.group(1)) if peak else None,
+            "peak_memory_bytes_no_mesh": no_mesh["peak_memory_bytes"],
+            "trace": os.path.basename(trace), "profiled_steps": SDXL_MESH_PROFILE_STEPS,
+            "trace_launches": dict(zip(("#7", "#8", "#9"), traced)),
+            "expected_launches": dict(zip(("#7", "#8", "#9"), expected)),
+            "saved": saved, "saved_no_mesh": theirs, "files_equal": equal}
+
+
+def phase_sdxl_mesh_trainer(tmp: str, no_mesh: dict[str, dict]) -> dict:
+    """The sdxl_lora_trainer and sdxl_qlora_trainer phases' configs (the
+    QLoRA one on the NF4 file that phase wrote) through ``torchrun`` with
+    the mesh, the distributed init and the profiler, the two runs side by
+    side (each process's start and load overlap the other's steps); each
+    run's losses, adapter file and #7 / #8 / #9 launches against those
+    phases' runs."""
+    torch.cuda.empty_cache()  # the card for the torchrun processes
+    script = os.path.join(tmp, "sdxl_mesh_entry.py")
+    with open(script, "w") as f:
+        f.write(SDXL_MESH_SCRIPT)
+    t0 = time.perf_counter()
+    started = {label: _sdxl_mesh_start(tmp, label, no_mesh[label], script)
+               for label in SDXL_MESH_LABELS}
+    runs = {label: _sdxl_mesh_result(run, no_mesh[label]) for label, run in started.items()}
+    emit("sdxl_mesh_trainer", configs={k: SDXL_TRAIN_CONFIGS[k]["path"] for k in runs},
+         cuts="the sdxl_lora_trainer / sdxl_qlora_trainer phases' (their files, 1024^2, "
+              "batch 2, 2 steps), trainer.deterministic: true in both; the two torchrun "
+              "runs side by side, so their host-bound step times share the host",
+         tolerance=MESH_LOSS_RTOL, runs=runs, runs_seconds=time.perf_counter() - t0)
+    for label, r in runs.items():
+        check(r["exit"] == 0, f"sdxl_mesh_trainer {label}: torchrun exit {r['exit']}: "
+                              f"{r['log_tail']}")
+        group = r["group"]
+        check(group is not None and group[0] == "nccl" and group[1:3] == ("0", "1"),
+              f"sdxl_mesh_trainer {label}: process group {group}")
+        check(len(r["losses"]) == len(r["losses_no_mesh"]) == SDXL_TRAIN_STEPS
+              and max(r["rel_gap"]) <= MESH_LOSS_RTOL,
+              f"sdxl_mesh_trainer {label}: losses {r['losses']} against "
+              f"{r['losses_no_mesh']}")
+        check(r["expected_launches"]["#7"] > 0 and r["expected_launches"]["#8"] > 0
+              and r["trace_launches"] == r["expected_launches"],
+              f"sdxl_mesh_trainer {label}: the trace's launches {r['trace_launches']}, "
+              f"the no-mesh run's {r['expected_launches']}")
+        check(len(r["saved"]) == len(r["saved_no_mesh"]) == 1 and all(r["files_equal"].values()),
+              f"sdxl_mesh_trainer {label}: saved {r['saved']} against {r['saved_no_mesh']}: "
+              f"equal {r['files_equal']}")
+    return runs
 
 
 # ---------------------------------- the inference server
@@ -6044,8 +6224,12 @@ def _run(args: list[str], started: float, smi: str, work: str) -> int:
     launches.update(phase_slice14(tempfile.mkdtemp(dir=work)))
     phase_cogview4_parity()
     sdxl_tmp = tempfile.mkdtemp(dir=work)
+    sdxl_runs = {}
     for label in ("lora", "qlora", "flow_match"):
-        launches[f"sdxl_{label}_trainer"] = phase_sdxl_trainer(sdxl_tmp, label)
+        launches[f"sdxl_{label}_trainer"], sdxl_runs[label] = phase_sdxl_trainer(sdxl_tmp,
+                                                                                  label)
+    # before inference_server, which deletes the NF4 file the QLoRA run reads
+    phase_sdxl_mesh_trainer(sdxl_tmp, sdxl_runs)
     launches["optimizers"] = phase_optimizers()
     launches.update(phase_cogview4_sampler())
     launches.update(phase_inference_server(sdxl_tmp))

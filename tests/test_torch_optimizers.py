@@ -237,14 +237,16 @@ def _trainers_match(tmp_path, name, args):
 def test_trainer_applies_the_schedule_to_8bit_adam_as_optax(tmp_path):
     """The port's Trainer with AdamW8bit (clip 1.0, cosine with warmup) on
     the tiny JiT trainer; its clipped gradients, replayed through the JAX
-    package's ``adamw8bit`` under the JAX schedule, give the same parameters
-    (1e-6) and the same int8 moments. (Two trainers cannot be compared
-    directly: gradients 1e-6 apart move an int8 code where it sits at a
-    rounding edge, and a second moment rounded to 0 makes that element's
-    step m / eps.)"""
+    package's ``adamw8bit`` under the JAX schedule in the JAX layout (a
+    linear's kernel (in, out), a conv's (kh, kw, in, out): the blocks run
+    over that order), give the same parameters (1e-6) and the same int8
+    moments. (Two trainers cannot be compared directly: gradients 1e-6
+    apart move an int8 code where it sits at a rounding edge, and a second
+    moment rounded to 0 makes that element's step m / eps.)"""
     from tests import test_torch_training as tt
     from vision_pt_tpu.training import scheduler as jscheduler
     from vision_pt_tpu_torch.config import TrainConfig
+    from vision_pt_tpu_torch.parallel.mesh import flax_perms
 
     label2id = tmp_path / "label2id.json"
     label2id.write_text(__import__("json").dumps({f"c{i}": i for i in range(4)}))
@@ -255,12 +257,15 @@ def test_trainer_applies_the_schedule_to_8bit_adam_as_optax(tmp_path):
     trainer.register_model_class(tt.JiTForClassToImageTraining)
     trainer.before_train()
     params = trainer._params
-    init = [p.detach().numpy().copy() for p in params]
+    perms = [flax_perms(trainer.model.trainable())[p] for p in params]
+    assert (1, 0) in perms  # the linears
+    init = [np.transpose(p.detach().numpy(), perm).copy() for p, perm in zip(params, perms)]
     replay = []
     step = trainer.optimizer.step
 
     def recording():
-        replay.append([p.grad.numpy().copy() for p in params])
+        replay.append([np.transpose(p.grad.numpy(), perm).copy()
+                       for p, perm in zip(params, perms)])
         step()
 
     trainer.optimizer.step = recording
@@ -272,8 +277,9 @@ def test_trainer_applies_the_schedule_to_8bit_adam_as_optax(tmp_path):
     jparams, state = _run_optax(joptim8bit.adamw8bit(learning_rate=schedule),
                                 init, replay)
     inner = state[0]
-    for i, (p, jp) in enumerate(zip(params, jparams)):
-        np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp), rtol=0, atol=1e-6)
+    for i, (p, jp, perm) in enumerate(zip(params, jparams, perms)):
+        np.testing.assert_allclose(np.transpose(p.detach().numpy(), perm), np.asarray(jp),
+                                   rtol=0, atol=1e-6)
         np.testing.assert_array_equal(trainer.optimizer.state[p]["m_q"].numpy(),
                                       np.asarray(inner.m_q[i]))
         np.testing.assert_array_equal(trainer.optimizer.state[p]["v_q"].numpy(),

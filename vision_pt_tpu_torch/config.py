@@ -95,7 +95,7 @@ class TrainerConfig(BaseModel):
     use_ema: bool = False
     ema_decay: float = 0.9999
 
-    # multi-device layout and process-group setup; not ported yet
+    # multi-device layout (parallel.mesh.MeshConfig) and process-group setup
     mesh: dict | None = None
     distributed_init: bool = False
 
@@ -106,7 +106,7 @@ class TrainerConfig(BaseModel):
     log_every_n_steps: int = 1
 
     debug_nans: bool = False  # anomaly detection in the backward
-    profile_dir: str | None = None  # not ported yet
+    profile_dir: str | None = None  # a chrome trace per rank of the profiled steps
     profile_steps: int = 5
 
 

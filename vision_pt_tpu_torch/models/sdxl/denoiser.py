@@ -146,6 +146,7 @@ class TransformerBlock(nn.Module):
 
     self_attention_class = SelfAttention
     cross_attention_class = CrossAttention
+    fsdp_unit = True  # gathered alone under FSDP (parallel.mesh)
 
     def __init__(self, hidden_dim: int, num_heads: int, head_dim: int,
                  context_dim: int = 2048, *, dtype=None,
@@ -243,6 +244,8 @@ class Upsample(nn.Module):
 
 class ResidualBlock(nn.Module):
     """GroupNorm/SiLU/conv x2 with the global condition added between."""
+
+    fsdp_unit = True  # gathered alone under FSDP (parallel.mesh)
 
     def __init__(self, hidden_dim: int, embedding_dim: int, out_channels: int,
                  kernel_size: int = 3, num_norm_groups: int = 32, *, dtype=None,

@@ -206,6 +206,8 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
+    fsdp_unit = True  # gathered alone under FSDP (parallel.mesh)
+
     def __init__(self, config: CLIPTextConfig, *, dtype=None,
                  param_dtype=torch.float32, generator=None):
         super().__init__()

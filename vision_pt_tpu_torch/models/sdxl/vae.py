@@ -219,6 +219,8 @@ class VAE(nn.Module):
     """AutoencoderKL (SDXL config; scaling 0.13025)."""
 
     shift_factor = VAE_SHIFT_FACTOR
+    # one FSDP unit (parallel.mesh), gathered by these as by a forward
+    fsdp_forward_methods = ("encode", "decode")
 
     def __init__(self, block_out_channels=(128, 256, 512, 512), in_channels=3,
                  out_channels=3, latent_channels=4, layers_per_block=2,

@@ -188,14 +188,24 @@ def tensor_partition_spec(path: str, shape: tuple[int, ...], mesh,
 
 def _flax_perm(module: nn.Module, param: torch.Tensor) -> tuple[int, ...]:
     """Dims of ``param`` in the order of its flax counterpart: a Linear
-    kernel is (in, out), a conv kernel (kh, kw, in, out)."""
+    kernel (and a module that declares ``flax_kernel``, a LoRA factor) is
+    (in, out), a conv kernel (kh, kw, in, out)."""
     from ..ops.linear import Conv2d, Linear
 
-    if isinstance(module, (Linear, nn.Linear)) and param.dim() == 2:
+    if ((isinstance(module, (Linear, nn.Linear)) or getattr(module, "flax_kernel", False))
+            and param.dim() == 2):
         return (1, 0)
     if isinstance(module, (Conv2d, nn.Conv2d)) and param.dim() == 4:
         return (2, 3, 1, 0)
     return tuple(range(param.dim()))
+
+
+def flax_perms(module: nn.Module) -> dict[nn.Parameter, tuple[int, ...]]:
+    """{parameter: the dims of its flax counterpart's layout} over
+    ``module``; the layout the JAX package's whole-array rules (the FSDP
+    spec, the 8-bit moments' blocks) see."""
+    return {p: _flax_perm(sub, p) for sub in module.modules()
+            for p in sub.parameters(recurse=False)}
 
 
 def fsdp_shard_dim(module: nn.Module, param: torch.Tensor, mesh,
@@ -273,11 +283,30 @@ def _tensor_parallel(module: nn.Module, mesh, kind: str) -> None:
     distribute_module(module, mesh, partition, inputs, outputs)
 
 
+def _top_units(module: nn.Module) -> list[nn.Module]:
+    """The children of ``module`` holding parameters, looking through
+    containers (``ModuleList`` / ``ModuleDict``), whose forward never runs."""
+    units = []
+    for child in module.children():
+        if isinstance(child, (nn.ModuleList, nn.ModuleDict)):
+            units += _top_units(child)
+        elif any(True for _ in child.parameters()):
+            units.append(child)
+    return units
+
+
 def _fsdp_units(module: nn.Module) -> list[nn.Module]:
-    """The modules whose forward FSDP hooks: each direct child holding
-    parameters, and the module itself when it holds parameters of its own."""
-    units = [child for child in module.children()
-             if any(True for _ in child.parameters())]
+    """The modules whose forward FSDP hooks, innermost first: every
+    submodule that declares ``fsdp_unit`` (a transformer or residual block,
+    a text tower's layer: one is gathered at a time), each child holding
+    parameters (through containers), and the module itself when it holds
+    parameters of its own. A unit's ``fsdp_forward_methods`` (a VAE's
+    ``encode`` / ``decode``) gather like its forward."""
+    top = _top_units(module)
+    units = [sub for sub in reversed(list(module.modules()))
+             if getattr(sub, "fsdp_unit", False) and sub not in top and sub is not module
+             and any(True for _ in sub.parameters())]
+    units += top
     if any(True for _ in module.parameters(recurse=False)):
         units.append(module)
     return units
@@ -316,12 +345,14 @@ def shard_module(module: nn.Module, mesh, axis: str = "fsdp",
             else:
                 shard_dims[p] = dim
     if shard_dims:
-        from torch.distributed.fsdp import fully_shard
+        from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
         dp_mesh = mesh["data", axis]
         for unit in _fsdp_units(module):
             fully_shard(unit, mesh=dp_mesh, ignored_params=set(replicated),
                         shard_placement_fn=lambda p: Shard(shard_dims[p]))
+            for method in getattr(unit, "fsdp_forward_methods", ()):
+                register_fsdp_forward_method(unit, method)
     module._mesh_grads = (replicated, tensor_partial, mesh)
 
 
@@ -343,6 +374,8 @@ def batch_mean(tensors: list[torch.Tensor], mesh) -> list[torch.Tensor]:
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (under no_grad a view: writes reach
+    it), else ``t``."""
     from torch.distributed.tensor import DTensor
 
     return t.to_local() if isinstance(t, DTensor) else t
@@ -409,17 +442,26 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     return total.sqrt()
 
 
+def reshard(module: nn.Module) -> None:
+    """Free every gathered FSDP group under ``module``: a forward outside
+    training (a preview) leaves the root groups gathered, and a later
+    forward would read those copies, not the sharded parameters the
+    optimizer or a swap has written since."""
+    from torch.distributed.fsdp import FSDPModule
+
+    for sub in module.modules():
+        if isinstance(sub, FSDPModule):
+            sub.reshard()
+
+
 @contextlib.contextmanager
 def full_parameters(module: nn.Module):
     """Inside, every DTensor parameter of ``module`` is replaced by its full
     tensor (gathered: every rank enters); the sharded ones come back after.
     For reading the weights whole (saving); no forward runs inside."""
-    from torch.distributed.fsdp import FSDPModule
     from torch.distributed.tensor import DTensor
 
-    for sub in module.modules():  # FSDP's state_dict hook leaves a sharded group be
-        if isinstance(sub, FSDPModule):
-            sub.reshard()
+    reshard(module)  # FSDP's state_dict hook leaves a sharded group be
     swapped = [(sub, name, p) for sub in module.modules()
                for name, p in sub._parameters.items() if isinstance(p, DTensor)]
     for sub, name, p in swapped:

@@ -25,7 +25,10 @@ def _tensor(value) -> torch.Tensor:
 
 
 class _Factor(nn.Module):
-    """One LoRA factor: ``weight`` and an optional ``bias``."""
+    """One LoRA factor: ``weight`` and an optional ``bias``; the JAX
+    package holds the weight transposed, as a flax kernel."""
+
+    flax_kernel = True
 
     def __init__(self, weight: torch.Tensor, bias: torch.Tensor | None = None):
         super().__init__()

@@ -31,6 +31,8 @@ class ModelForTraining(ABC):
     # this rank's rows of with the batch; None: the workload does not run
     # under a mesh (ROADMAP Queue 1 item 5)
     mesh_draws: tuple[str, ...] | None = None
+    # the mesh axes it runs over; another axis of size > 1 raises
+    mesh_axes: tuple[str, ...] = ("data", "fsdp", "tensor", "seq")
 
     def __init__(self, config: TrainConfig, device: torch.device) -> None:
         self.config = config

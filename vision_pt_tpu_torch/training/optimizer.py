@@ -27,6 +27,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..parallel.mesh import _local
+
 # torch / bitsandbytes / schedule-free name -> the JAX package's optimizer name
 _ALIASES: dict[str, str] = {
     "torch.optim.adamw": "adamw",
@@ -129,16 +131,18 @@ class ScheduleFreeAdamW(StateKeepsDtype, torch.optim.Optimizer):
 
     @torch.no_grad()
     def step(self, closure=None):
+        # elementwise: a sharded parameter (a DTensor) updates its own shard,
+        # its z and nu sharded alike
         for group in self.param_groups:
             b1, b2 = group["betas"]
-            for p in group["params"]:
-                if p.grad is None:
+            for param in group["params"]:
+                if param.grad is None:
                     continue
-                state = self._state(p)
+                state = self._state(param)
                 n = state["step_count"]
-                g = p.grad
+                p, g = _local(param), _local(param.grad)
                 # the base transform: rms scaling, decay, the rate at count n - 1
-                nu = state["nu"]
+                nu = _local(state["nu"])
                 nu.copy_((1 - b2) * g**2 + b2 * nu)
                 bias = float(np.float32(1) - np.float32(b2) ** np.float32(n))
                 nu_hat = nu / torch.tensor(bias, dtype=nu.dtype)
@@ -146,7 +150,7 @@ class ScheduleFreeAdamW(StateKeepsDtype, torch.optim.Optimizer):
                 if group["weight_decay"]:
                     u = u + group["weight_decay"] * p
                 u = u * torch.tensor(-self.schedule(n - 1), dtype=u.dtype)
-                z_old = state["z"]
+                z_old = _local(state["z"])
                 z = (z_old + u).to(z_old.dtype)
                 # the average's weight from the rate at count n
                 lr = torch.tensor(self.schedule(n), dtype=state["max_lr"].dtype)
@@ -158,7 +162,8 @@ class ScheduleFreeAdamW(StateKeepsDtype, torch.optim.Optimizer):
                 x = (1.0 - ck) * prev_x + ck * z
                 new_p = b1 * x + (1.0 - b1) * z
                 p.copy_(p + (new_p - p))
-                state.update(z=z, step_count=n + 1, weight_sum=total, max_lr=max_lr)
+                z_old.copy_(z)
+                state.update(step_count=n + 1, weight_sum=total, max_lr=max_lr)
 
     @torch.no_grad()
     def eval_params(self) -> dict[torch.Tensor, torch.Tensor]:
@@ -178,9 +183,12 @@ def is_schedule_free(name: str) -> bool:
     return "schedulefree" in name.lower() or "schedule_free" in name.lower()
 
 
-# the optimizers whose update is held against one device under a mesh
-# (torch's, elementwise and DTensor-aware); the others raise there
-MESH_OPTIMIZERS = ("adamw", "adam", "sgd")
+# the optimizers whose update is held against one device under a mesh:
+# torch's and schedule-free (elementwise on each shard), the 8-bit Adams
+# (their blocks and absmax taken over the whole array); the optax rules
+# raise there
+MESH_OPTIMIZERS = ("adamw", "adam", "sgd", "schedule_free_adamw", "schedule_free_radam",
+                   "adamw8bit", "adam8bit")
 
 
 def resolve_name(name: str) -> str:
@@ -191,11 +199,13 @@ def resolve_name(name: str) -> str:
 
 def get_optimizer(name: str, params, args: dict | None = None,
                   lr: float = 1e-3,
-                  lr_schedule: Callable[[int], float] | None = None
-                  ) -> torch.optim.Optimizer:
+                  lr_schedule: Callable[[int], float] | None = None,
+                  layouts: dict | None = None) -> torch.optim.Optimizer:
     """A torch optimizer over ``params`` for a config name. ``lr`` is the
     initial rate; the Trainer overwrites it before each step, except for
-    schedule-free, which follows ``lr_schedule`` when given."""
+    schedule-free, which follows ``lr_schedule`` when given. ``layouts``
+    ({parameter: the dims of the JAX package's layout}) sets the order the
+    8-bit moments' blocks run in."""
     args = _translate_args(dict(args or {}))
     args["lr"] = args.get("lr", lr)
     key = resolve_name(name)
@@ -204,7 +214,8 @@ def get_optimizer(name: str, params, args: dict | None = None,
     if key in ("adamw8bit", "adam8bit"):
         from .optim8bit import Adam8bit, AdamW8bit
 
-        return (AdamW8bit if key == "adamw8bit" else Adam8bit)(params, **args)
+        return (AdamW8bit if key == "adamw8bit" else Adam8bit)(params, layouts=layouts,
+                                                               **args)
     if key == "adamw":
         args.setdefault("weight_decay", 1e-4)
         args.setdefault("eps", 1e-8)

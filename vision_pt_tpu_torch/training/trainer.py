@@ -53,10 +53,12 @@ from ..config import TrainConfig
 from ..data.bucket import prefetch_iterator
 from ..parallel.mesh import (
     batch_mean,
+    flax_perms,
     full_parameters,
     global_norm,
     make_mesh,
     reduce_replicated_grads,
+    reshard,
     shard_batch,
     shard_module,
 )
@@ -183,17 +185,42 @@ class Trainer:
     def prepare_model(self):
         if self.model is None:
             raise RuntimeError("register_model_class first")
+        if self.mesh is not None:
+            self._check_mesh_support()
         self.model.before_setup_model()
         self.model.setup_model()
         self.setup_peft_if_needed()
         self.model.after_setup_model()
         if self.mesh is not None:
-            if self.model.mesh_draws is None or self.config.peft is not None:
-                raise NotImplementedError(
-                    f"{type(self.model).__name__}"
-                    f"{' with PEFT' if self.config.peft is not None else ''} under "
-                    "trainer.mesh is not ported: ROADMAP Queue 1 item 5")
             shard_module(self.model.trainable(), self.mesh)
+
+    def _peft_targets(self) -> list:
+        from ..peft import PeftTargetConfig
+
+        raw = self.config.peft
+        if raw is None:
+            return []
+        return [PeftTargetConfig.model_validate(t)
+                for t in (raw if isinstance(raw, list) else [raw])]
+
+    def _check_mesh_support(self):
+        """Refuse, before any surgery, what the mesh path does not hold
+        against one device: a workload with no ``mesh_draws``, an axis
+        outside its ``mesh_axes``, a PEFT type other than LoRA."""
+        name = type(self.model).__name__
+        if self.model.mesh_draws is None:
+            raise NotImplementedError(f"{name} under trainer.mesh is not ported: "
+                                      "ROADMAP Queue 1 item 5")
+        for axis in ("tensor", "seq"):
+            if self.mesh[axis].size() > 1 and axis not in self.model.mesh_axes:
+                raise NotImplementedError(
+                    f"the {axis} axis of trainer.mesh for {name} is not ported: "
+                    "ROADMAP Queue 1 item 5")
+        for target in self._peft_targets():
+            if target.config.type != "lora":
+                raise NotImplementedError(
+                    f"{target.config.type} under trainer.mesh is not ported: "
+                    "ROADMAP Queue 1 item 5")
 
     def setup_peft_if_needed(self):
         """Adapter surgery on the trainable, optional adapter weights to
@@ -203,18 +230,14 @@ class Trainer:
         from safetensors.torch import load_file
 
         from ..peft import (
-            PeftTargetConfig,
             freeze_all_but_adapters,
             load_peft_weight,
             print_trainable_parameters,
             replace_to_peft_layer,
         )
 
-        raw = self.config.peft
-        targets = [PeftTargetConfig.model_validate(t)
-                   for t in (raw if isinstance(raw, list) else [raw])]
         trainable = self.model.trainable()
-        for target in targets:
+        for target in self._peft_targets():
             replaced = replace_to_peft_layer(trainable, target.include_keys,
                                              target.exclude_keys, target.config,
                                              seed=self.config.seed)
@@ -244,19 +267,22 @@ class Trainer:
         self._params = [p for p in trainable.parameters() if p.requires_grad]
         opt_args = {k: v for k, v in args.items() if k not in ("lr", "learning_rate")}
         if self.mesh is not None:
-            if resolve_name(cfg.optimizer.name) not in MESH_OPTIMIZERS:
+            name = resolve_name(cfg.optimizer.name)
+            if name not in MESH_OPTIMIZERS:
                 raise NotImplementedError(
                     f"optimizer {cfg.optimizer.name!r} under trainer.mesh is not "
                     "held against one device: ROADMAP Queue 1 item 5")
-            if any(isinstance(p, DTensor) for p in self._params):
-                # one parameter at a time: the foreach kernels take no mix
-                # of sharded and whole parameters
+            if name in ("adamw", "adam", "sgd") and any(isinstance(p, DTensor)
+                                                       for p in self._params):
+                # torch's: one parameter at a time, the foreach kernels take
+                # no mix of sharded and whole parameters
                 opt_args["foreach"] = False
         # schedule-free takes the schedule itself (optax's two counts)
         self._schedule_free = is_schedule_free(cfg.optimizer.name)
         self.optimizer = get_optimizer(
             cfg.optimizer.name, self._params, opt_args, lr=self.lr_schedule(0),
-            lr_schedule=self.lr_schedule if self._schedule_free else None)
+            lr_schedule=self.lr_schedule if self._schedule_free else None,
+            layouts=flax_perms(trainable))
         if cfg.trainer.use_ema:
             self.ema_state = ema_lib.init_ema(trainable)
 
@@ -519,6 +545,8 @@ class Trainer:
                 loss, metrics = self.train_step(arrays, generator,
                                                 at_accum_boundary=at_boundary)
                 self.global_step += 1
+                if self.global_step >= 1 + cfg.trainer.profile_steps:
+                    self._stop_profile()  # the trace holds the steps alone
 
                 self.model.log("train/loss", loss, on_step=True, on_epoch=True)
                 self.model.log("train/step_time", time.perf_counter() - step_t0,
@@ -547,20 +575,17 @@ class Trainer:
 
     def _maybe_profile(self):
         """``torch.profiler`` over steps [1, 1 + profile_steps) when
-        ``profile_dir`` is set (step 0 holds the first calls' set-up); on the
+        ``profile_dir`` is set (step 0 holds the first calls' set-up), stopped
+        right after the last of them, before any save or preview; on the
         card the trace holds the device's kernels."""
         cfg = self.config.trainer
-        if cfg.profile_dir is None:
-            return
-        if self.global_step == 1 and self._profiler is None:
+        if cfg.profile_dir is not None and self.global_step == 1 and self._profiler is None:
             from torch.profiler import ProfilerActivity, profile
 
             activity = (ProfilerActivity.CUDA if self.device.type == "cuda"
                         else ProfilerActivity.CPU)
             self._profiler = profile(activities=[activity])
             self._profiler.start()
-        elif self._profiler is not None and self.global_step >= 1 + cfg.profile_steps:
-            self._stop_profile()
 
     def _stop_profile(self):
         """Close the trace and write this rank's chrome trace."""
@@ -613,27 +638,32 @@ class Trainer:
             p.copy_(value)
 
     def _save_model(self, epoch: int, steps: int):
+        # each file is written before the parameters are put back: a state
+        # dict's tensors may be the parameters themselves (``.cpu()`` of a
+        # CPU tensor is no copy)
         self.model.before_save_model()
         metadata = self.model.get_metadata_to_save() or None
         original = self._swap_in_schedule_free_eval_params()
         try:
             state_dict = self._state_dict_to_save()
+            for cb in self.saving_callbacks if is_main_process() else []:
+                path = cb.save(state_dict, epoch, steps, metadata=metadata)
+                print(f"[saving] wrote {path}")
         finally:
             self._restore_params(original)
-        for cb in self.saving_callbacks if is_main_process() else []:
-            path = cb.save(state_dict, epoch, steps, metadata=metadata)
-            print(f"[saving] wrote {path}")
         if self.ema_state is not None:
             # the EMA copy goes to an ema_-prefixed file
             trainable = self.model.trainable()
             original = ema_lib.swap_in_ema_params(trainable, self.ema_state)
-            ema_sd = self._state_dict_to_save()
-            ema_lib.restore_params(trainable, original)
-            for cb in self.saving_callbacks if is_main_process() else []:
-                template = cb.save_name_template
-                cb.save_name_template = "ema_" + template
-                cb.save(ema_sd, epoch, steps, metadata=metadata)
-                cb.save_name_template = template
+            try:
+                ema_sd = self._state_dict_to_save()
+                for cb in self.saving_callbacks if is_main_process() else []:
+                    template = cb.save_name_template
+                    cb.save_name_template = "ema_" + template
+                    cb.save(ema_sd, epoch, steps, metadata=metadata)
+                    cb.save_name_template = template
+            finally:
+                ema_lib.restore_params(trainable, original)
         barrier("save_model")
         self.model.after_save_model()
 
@@ -656,6 +686,8 @@ class Trainer:
                     for j, img in enumerate(images):
                         tracker.log_image(f"preview/{i}_{j}", img, self.global_step)
         finally:
+            if self.mesh is not None:
+                reshard(self.model.trainable())
             self._restore_params(original)
         barrier("preview")
         self.model.after_preview()

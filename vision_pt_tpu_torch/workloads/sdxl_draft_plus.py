@@ -41,6 +41,7 @@ class SDXLForDRaFTPlusTrainingConfig(SDXLForTextToImageTrainingConfig):
 
 
 class SDXLDRaFTPlusTraining(SDXLForTextToImageTraining):
+    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
     model_config: SDXLForDRaFTPlusTrainingConfig
     model_config_class = SDXLForDRaFTPlusTrainingConfig
 

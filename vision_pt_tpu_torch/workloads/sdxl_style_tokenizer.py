@@ -55,6 +55,7 @@ class StyleTokenizerTrainable(nn.Module):
 
 
 class SDXLStyleTokenizerTraining(SDXLForTextToImageTraining):
+    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
     model: SDXLModelWithStyleTokenizer
     model_config: SDXLModelWithStyleTokenizerTrainingConfig
     model_config_class = SDXLModelWithStyleTokenizerTrainingConfig

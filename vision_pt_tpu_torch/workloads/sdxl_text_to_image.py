@@ -51,6 +51,11 @@ class SDXLForTextToImageTraining(ModelForTraining):
     model_config: SDXLForTextToImageTrainingConfig
     model_config_class = SDXLForTextToImageTrainingConfig
     pipeline_class = SDXLModel
+    # under trainer.mesh: data and fsdp only (the tensor rules would split
+    # GeGLU's fused halves, the LoRA branches and the text towers: ROADMAP
+    # Queue 1 item 5); vae_noise only when the step encodes the images
+    mesh_draws = ("vae_noise", "timesteps", "noise")
+    mesh_axes = ("data", "fsdp")
 
     def setup_model(self):
         cfg = self.model_config
@@ -91,6 +96,9 @@ class SDXLForTextToImageTraining(ModelForTraining):
     # ------------------------------------------------------------ batch
 
     def prepare_batch(self, batch: dict) -> dict[str, torch.Tensor]:
+        """Every tensor with the batch's rows on its leading axis (a mesh
+        splits them there): the token ids (batch, chunks, 77), the size and
+        crop conditions, the images or the cached latents."""
         captions: list[str] = batch["caption"]
         max_len = self.model_config.max_token_length
         te = self.model.text_encoder
@@ -98,7 +106,8 @@ class SDXLForTextToImageTraining(ModelForTraining):
         for name, tokenizer in (("ids1", te.tokenizer_1), ("ids2", te.tokenizer_2)):
             ids, _ = tokenize_long_prompt(tokenizer, captions, max_length=max_len,
                                           chunk_length=CHUNK_LENGTH)
-            out[name] = torch.as_tensor(ids).long().to(self.device)
+            out[name] = torch.as_tensor(ids).long().reshape(
+                len(captions), -1, ids.shape[-1]).to(self.device)
         for name in ("original_size", "target_size", "crop_coords_top_left"):
             out[name] = torch.as_tensor(np.asarray(batch[name], np.float32)).to(self.device)
         if "latents" in batch:
@@ -140,7 +149,9 @@ class SDXLForTextToImageTraining(ModelForTraining):
         else:  # UNet-only training: the pipeline's frozen encoders
             te1 = self.model.text_encoder.text_encoder_1
             te2 = self.model.text_encoder.text_encoder_2
-        out1, out2 = te1(ids1), te2(ids2)
+        # (batch, chunks, 77) -> the chunks as rows of their own
+        out1 = te1(ids1.reshape(-1, ids1.shape[-1]))
+        out2 = te2(ids2.reshape(-1, ids2.shape[-1]))
         ehs = torch.cat([_merge_chunks(out1.penultimate_hidden_state, batch_size),
                          _merge_chunks(out2.penultimate_hidden_state, batch_size)],
                         dim=-1)
