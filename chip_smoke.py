@@ -106,8 +106,18 @@ without a result line:
    shipped (depth 24, 768 wide, patch 2 over a 128 x 128 x 4 latent, so
    S = 4170 in every block; batch 16, bf16, gradient checkpointing, AdamW
    1e-4) and only its paths rewritten: the 64 latents cache_latents wrote,
-   one epoch = 4 steps; exactly 48 flash forward, 24 flash backward and no
-   packed launches per step; the last step runs under the profiler;
+   one epoch = 4 steps, ``trainer.deterministic``; exactly 48 flash
+   forward, 24 flash backward and no packed launches per step; the last
+   step runs under the profiler;
+9c. latent_mesh_trainer (started beside mesh_trainer, so the two torchrun
+   processes' start-up and load overlap): the latent_trainer phase's config
+   under ``torchrun --standalone --nproc_per_node 1`` on the latent entry
+   point with ``trainer.mesh`` {data 1, fsdp 1, tensor 1, seq 1},
+   ``distributed_init`` and a ``profile_dir`` (steps 1-2): the group must be
+   NCCL, the 4 losses and the saved file bit-equal to the latent_trainer
+   phase's, the trace 2 x 48 launches of #7 and 2 x 24 of #8; s/step and
+   peak memory per rank beside the no-mesh run's, and the seconds it adds
+   past mesh_trainer's run;
 10. latent_parity: one training step of the latent workload at full width,
    depth cut to 2 (fp16: 1, batch 1), a 64 x 64 latent (S = 1098, still the
    flash path), batch 2, on the card (kernels) and on the CPU (plain versions),
@@ -341,9 +351,10 @@ N = 8192), beside F.linear on the weight dequantized beforehand.
 
 22. text_sampler (after parity): text-conditioned JiT at full width: an
    HF-style Qwen3-VL directory written from a seed on the card (a
-   ``config.json`` nesting ``text_config``; the 28-layer, 2048-wide text
-   tower, 1.72 B parameters, bf16 safetensors in 2 shards; norm scales
-   drawn, not ones), loaded through ``JiTModel`` with ``TextContextConfig``
+   ``config.json`` nesting ``text_config``; the 2048-wide text tower cut to
+   TEXT_TOWER_LAYERS = 8 of its 28 layers, 0.71 B of 1.72 B parameters, bf16
+   safetensors in 2 shards; norm scales drawn, not ones; the seconds the
+   cut saves, from this run's write and load rate), loaded through ``JiTModel`` with ``TextContextConfig``
    (``TextEncoder.from_local``, fp32 as in the JAX package) and JiT-B/16
    with context 2048, bf16; the Qwen word-hash tokenizer; 3 requests of
    ``generate`` at 256^2, 8 prompts of 1-12 words, CFG 2, 20 steps: exactly
@@ -404,6 +415,7 @@ limit as nvidia-smi prints them, and the result line.
 
 from __future__ import annotations
 
+import glob
 import io
 import json
 import os
@@ -1589,7 +1601,6 @@ def phase_mesh_trainer(tmp: str, no_mesh: dict) -> dict:
     import yaml
     from safetensors.torch import load_file
 
-    torch.cuda.empty_cache()  # the card for the torchrun process
     work = os.path.join(tmp, "mesh")
     cfg = json.loads(json.dumps(no_mesh["cfg"]))
     cfg["trainer"].update(mesh={"data": 1, "fsdp": 1, "tensor": 1, "seq": 1},
@@ -1655,7 +1666,59 @@ def phase_mesh_trainer(tmp: str, no_mesh: dict) -> dict:
           f"steps, the trainer phase's {no_mesh_fwd} / {no_mesh_bwd} a step")
     check(len(saved) == len(theirs) == 2 and all(equal.values()),
           f"saved {saved} against {theirs}: equal {equal}")
-    return {"fwd": fwd, "bwd": bwd}
+    return {"fwd": fwd, "bwd": bwd, "run_seconds": seconds}
+
+
+def start_latent_mesh_trainer(tmp: str, no_mesh: dict) -> dict:
+    """Start ``latent_mesh_trainer``'s torchrun process (it runs beside
+    ``mesh_trainer``'s, so the two processes' start-up and load overlap);
+    ``phase_latent_mesh_trainer`` waits for it."""
+    torch.cuda.empty_cache()  # the card for the torchrun processes
+    script = os.path.join(tmp, "latent_mesh_entry.py")
+    with open(script, "w") as f:
+        f.write(MESH_ENTRY_SCRIPT.format(entry="jit.latent_class_to_image"))
+    mesh = {"data": 1, "fsdp": 1, "tensor": 1, "seq": 1}
+    return _mesh_start(tmp, "latent", no_mesh, script, mesh, MESH_PROFILE_STEPS)
+
+
+def phase_latent_mesh_trainer(started: dict, no_mesh: dict, beside: dict) -> dict:
+    """The latent_trainer phase's run (``configs/jit/latent_arb_1024.yml`` as
+    shipped, its paths rewritten, ``trainer.deterministic``) through
+    ``torchrun`` on the latent entry point with a one-rank mesh over all four
+    axes, the distributed init and the profiler over MESH_PROFILE_STEPS
+    steps: its losses and saved file bit for bit, and the #7 / #8 launches of
+    the trace against the latent_trainer phase's per step. ``beside`` is
+    ``mesh_trainer``'s result: the seconds this run adds to the card's path
+    are those past that run's."""
+    r = _mesh_result(started, no_mesh)
+    check(r["exit"] == 0, f"latent_mesh_trainer: torchrun exit {r['exit']}: {r['log_tail']}")
+    steady = r["step_time"][1:]
+    emit("latent_mesh_trainer", config="configs/jit/latent_arb_1024.yml (the latent_trainer "
+         "phase's: depth 24, hidden 768, batch 16, S 4170)",
+         beside="mesh_trainer's torchrun run, started together: the two processes' host-bound "
+                "step times share the host",
+         added_seconds=r["run_seconds"] - beside["run_seconds"],
+         mesh_trainer_run_seconds=beside["run_seconds"],
+         **{k: v for k, v in r.items() if k != "log_tail"},
+         bit_equal=r["losses"] == no_mesh["losses"],
+         seconds_per_step=float(np.mean(steady)) if steady else None,
+         seconds_per_step_no_mesh=float(np.mean(no_mesh["step_seconds"][1:3])),
+         expected_per_step={"#7": LATENT_STEP_LAUNCHES[6], "#8": LATENT_STEP_LAUNCHES[7]})
+    group = r["group"]
+    check(group is not None and group[0] == "nccl" and group[1:3] == ("0", "1"),
+          f"latent_mesh_trainer: process group {group}")
+    check(len(r["losses"]) == len(no_mesh["losses"]) == 4
+          and r["losses"] == no_mesh["losses"],
+          f"latent_mesh_trainer: losses {r['losses']} against {no_mesh['losses']}")
+    check(r["trace_launches"] == r["expected_launches"] == {
+              "#7": MESH_PROFILE_STEPS * LATENT_STEP_LAUNCHES[6],
+              "#8": MESH_PROFILE_STEPS * LATENT_STEP_LAUNCHES[7], "#9": 0},
+          f"latent_mesh_trainer: the trace's launches {r['trace_launches']}, expected "
+          f"{MESH_PROFILE_STEPS} x 48 / 24")
+    check(len(r["saved"]) == len(r["saved_no_mesh"]) == 1 and all(r["files_equal"].values()),
+          f"latent_mesh_trainer: saved {r['saved']} against {r['saved_no_mesh']}: "
+          f"equal {r['files_equal']}")
+    return r
 
 
 RING_SHAPE = (2, 4096, 16, 64)  # B, S, H, D
@@ -1999,11 +2062,13 @@ def _cpu_encode(state: str, folder: str):
     return list(batch["caption"]), dist.mean.numpy(), std, seconds
 
 
-def phase_latent_trainer(tmp: str) -> tuple[int, ...]:
+def phase_latent_trainer(tmp: str) -> tuple[tuple[int, ...], dict]:
     """The port's latent entry point on ``configs/jit/latent_arb_1024.yml`` as
-    shipped, paths rewritten, over the cache phase_cache_latents wrote;
-    returns the kernel launches of the whole run (the sanity check and 4
-    steps)."""
+    shipped, paths rewritten (and ``trainer.deterministic``, so that
+    ``latent_mesh_trainer`` can hold its run to the bit), over the cache
+    phase_cache_latents wrote; returns the kernel launches of the whole run
+    (the sanity check and 4 steps) and the config, losses, step times, peak
+    memory and saved file that ``latent_mesh_trainer`` reads."""
     import yaml
 
     from vision_pt_tpu_torch.train.jit.latent_class_to_image import run
@@ -2018,6 +2083,7 @@ def phase_latent_trainer(tmp: str) -> tuple[int, ...]:
     cfg["saving"]["callbacks"][0]["save_dir"] = os.path.join(tmp, "latent_out")
     cfg["tracker"]["log_dir"] = os.path.join(tmp, "latent_logs")
     cfg["num_train_epochs"] = 1
+    cfg["trainer"]["deterministic"] = True
     path = os.path.join(tmp, "latent.yml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
@@ -2078,7 +2144,9 @@ def phase_latent_trainer(tmp: str) -> tuple[int, ...]:
     check(len(saved) == 1, f"saved {saved}")
     del trainer, denoiser
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"config": path, "losses": losses, "step_seconds": step_seconds,
+                    "peak_memory_bytes": peak, "out": os.path.join(tmp, "latent_out"),
+                    "per_step": per_step}
 
 
 def phase_latent_parity(tmp: str) -> None:
@@ -2708,14 +2776,14 @@ def phase_sdxl_trainer(tmp: str, label: str) -> tuple[tuple[int, ...], dict]:
 # alone (the epoch's preview runs after the trace is closed)
 SDXL_MESH_LABELS = ("lora", "qlora")
 SDXL_MESH_PROFILE_STEPS = 1
-# the command the phase runs under torchrun: the entry point's CLI, then this
+# the command the torchrun phases run: an entry point's CLI, then this
 # rank's peak device memory over the training steps, taken as the no-mesh
 # phase takes it (reset at the first step, read after each)
-SDXL_MESH_SCRIPT = """import sys
+MESH_ENTRY_SCRIPT = """import sys
 
 import torch
 
-from vision_pt_tpu_torch.train.sdxl.text_to_image import main
+from vision_pt_tpu_torch.train.{entry} import main
 from vision_pt_tpu_torch.training.trainer import Trainer
 
 peaks, inner = [], Trainer.train_step
@@ -2733,25 +2801,28 @@ Trainer.train_step = measured
 try:
     main(sys.argv[1:], standalone_mode=False)
 finally:
-    print(f"[peak_memory] {max(peaks, default=0)}", flush=True)
+    print(f"[peak_memory] {{max(peaks, default=0)}}", flush=True)
 """
 
 
-def _sdxl_mesh_start(tmp: str, label: str, no_mesh: dict, script: str):
-    """Start one config of ``sdxl_mesh_trainer`` under torchrun; returns
-    what ``_sdxl_mesh_result`` reads."""
+def _mesh_start(tmp: str, label: str, no_mesh: dict, script: str, mesh: dict,
+                profile_steps: int):
+    """Start a no-mesh phase's config under torchrun with ``mesh``, the
+    distributed init, the profiler over ``profile_steps`` steps and
+    ``trainer.deterministic``; returns what ``_mesh_result`` reads."""
     import yaml
 
     work = os.path.join(tmp, f"mesh_{label}")
     os.makedirs(work, exist_ok=True)
     with open(no_mesh["config"]) as f:
         cfg = yaml.safe_load(f)
-    cfg["trainer"].update(mesh={"data": 1, "fsdp": 1}, distributed_init=True,
+    cfg["trainer"].update(mesh=mesh, distributed_init=True,
                           profile_dir=os.path.join(work, "profile"),
-                          profile_steps=SDXL_MESH_PROFILE_STEPS, deterministic=True)
+                          profile_steps=profile_steps, deterministic=True)
     cfg["tracker"]["log_dir"] = os.path.join(work, "logs")
     cfg["saving"]["callbacks"][0]["save_dir"] = os.path.join(work, "out")
-    cfg["preview"]["callbacks"][0]["save_dir"] = os.path.join(work, "preview")
+    if cfg.get("preview"):
+        cfg["preview"]["callbacks"][0]["save_dir"] = os.path.join(work, "preview")
     path = os.path.join(work, "config.yml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
@@ -2762,11 +2833,11 @@ def _sdxl_mesh_start(tmp: str, label: str, no_mesh: dict, script: str):
     log = open(os.path.join(work, "run.log"), "w")
     proc = subprocess.Popen(command, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
     return {"proc": proc, "log": log, "work": work, "cfg": cfg, "command": command,
-            "t0": time.perf_counter()}
+            "profile_steps": profile_steps, "t0": time.perf_counter()}
 
 
-def _sdxl_mesh_result(started: dict, no_mesh: dict) -> dict:
-    """Wait for a run ``_sdxl_mesh_start`` began (killed past 600 s); its exit
+def _mesh_result(started: dict, no_mesh: dict) -> dict:
+    """Wait for a run ``_mesh_start`` began (killed past 600 s); its exit
     code, group, losses, step times, peak memory, trace launches and files
     against ``no_mesh``."""
     from safetensors.torch import load_file
@@ -2789,16 +2860,16 @@ def _sdxl_mesh_result(started: dict, no_mesh: dict) -> dict:
                       text)
     peak = re.search(r"\[peak_memory\] (\d+)", text)
     trained = re.search(r"training finished in ([0-9.]+)s", text)
-    logs = os.path.join(work, "logs")
-    with open(os.path.join(logs, os.listdir(logs)[0])) as f:
+    logs = glob.glob(os.path.join(work, "logs", "**", "*.metrics.jsonl"), recursive=True)
+    with open(logs[0]) as f:
         records = [json.loads(line) for line in f]
     losses = [r["train/loss"] for r in records if "train/loss" in r]
     step_time = [r["train/step_time"] for r in records if "train/step_time" in r]
     trace = os.path.join(work, "profile", "trace_rank0.json")
     traced = _trace_launches(trace) if os.path.exists(trace) else (0, 0, 0)
-    # the traced step, by the no-mesh run's counts
-    expected = tuple(SDXL_MESH_PROFILE_STEPS * no_mesh["per_step"][1][n - 1]
-                     for n in (7, 8, 9))
+    # the traced steps, by the no-mesh run's counts of its second step
+    profile_steps = started["profile_steps"]
+    expected = tuple(profile_steps * no_mesh["per_step"][1][n - 1] for n in (7, 8, 9))
     saved = sorted(os.listdir(os.path.join(work, "out")))
     theirs = sorted(os.listdir(no_mesh["out"]))
     equal = {}
@@ -2814,7 +2885,7 @@ def _sdxl_mesh_result(started: dict, no_mesh: dict) -> dict:
             "step_time": step_time, "step_time_no_mesh": no_mesh["step_seconds"],
             "peak_memory_bytes": int(peak.group(1)) if peak else None,
             "peak_memory_bytes_no_mesh": no_mesh["peak_memory_bytes"],
-            "trace": os.path.basename(trace), "profiled_steps": SDXL_MESH_PROFILE_STEPS,
+            "trace": os.path.basename(trace), "profiled_steps": profile_steps,
             "trace_launches": dict(zip(("#7", "#8", "#9"), traced)),
             "expected_launches": dict(zip(("#7", "#8", "#9"), expected)),
             "saved": saved, "saved_no_mesh": theirs, "files_equal": equal}
@@ -2830,11 +2901,12 @@ def phase_sdxl_mesh_trainer(tmp: str, no_mesh: dict[str, dict]) -> dict:
     torch.cuda.empty_cache()  # the card for the torchrun processes
     script = os.path.join(tmp, "sdxl_mesh_entry.py")
     with open(script, "w") as f:
-        f.write(SDXL_MESH_SCRIPT)
+        f.write(MESH_ENTRY_SCRIPT.format(entry="sdxl.text_to_image"))
     t0 = time.perf_counter()
-    started = {label: _sdxl_mesh_start(tmp, label, no_mesh[label], script)
+    started = {label: _mesh_start(tmp, label, no_mesh[label], script,
+                                  {"data": 1, "fsdp": 1}, SDXL_MESH_PROFILE_STEPS)
                for label in SDXL_MESH_LABELS}
-    runs = {label: _sdxl_mesh_result(run, no_mesh[label]) for label, run in started.items()}
+    runs = {label: _mesh_result(run, no_mesh[label]) for label, run in started.items()}
     emit("sdxl_mesh_trainer", configs={k: SDXL_TRAIN_CONFIGS[k]["path"] for k in runs},
          cuts="the sdxl_lora_trainer / sdxl_qlora_trainer phases' (their files, 1024^2, "
               "batch 2, 2 steps), trainer.deterministic: true in both; the two torchrun "
@@ -5649,15 +5721,21 @@ def _text_jit_config(tower: str, dtype: str):
                      denoiser=JiT_B_16_Config(context_dim=2048))
 
 
+# the text tower's depth in text_sampler: Qwen3-VL-2B's full width, 8 of its 28
+# layers (the tower's attention is plain; no kernel runs in it), which pays
+# for latent_mesh_trainer's seconds on the card's path
+TEXT_TOWER_LAYERS, QWEN3_VL_2B_LAYERS = 8, 28
+
+
 def phase_text_sampler(tmp: str) -> tuple[int, ...]:
-    """Text-conditioned JiT-B/16 over the full Qwen3-VL-2B text tower, loaded
-    from a directory through ``from_local``; returns the launches of the 3
-    timed requests."""
+    """Text-conditioned JiT-B/16 over the Qwen3-VL-2B text tower at full
+    width and TEXT_TOWER_LAYERS layers, loaded from a directory through
+    ``from_local``; returns the launches of the 3 timed requests."""
     from vision_pt_tpu_torch.models.jit import JiTModel
     from vision_pt_tpu_torch.models.jit.text_encoder import QwenWordHashTokenizer
 
     tower = os.path.join(tmp, "qwen3_vl_2b_text")
-    write_s = _write_qwen_tower(tower, 28, 0, "cuda")
+    write_s = _write_qwen_tower(tower, TEXT_TOWER_LAYERS, 0, "cuda")
     file_bytes = sum(os.path.getsize(os.path.join(tower, f)) for f in os.listdir(tower))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5669,6 +5747,11 @@ def phase_text_sampler(tmp: str) -> tuple[int, ...]:
     found = None if encoder.tokenizer is None else type(encoder.tokenizer).__name__
     encoder.tokenizer = QwenWordHashTokenizer()
     tower_params = sum(p.numel() for p in encoder.model.parameters())
+    layer_params = sum(p.numel() for p in encoder.model.layers[0].parameters())
+    # the tower's write and load scale with its bytes: the seconds the cut
+    # saves, at this run's rate
+    full_params = tower_params + (QWEN3_VL_2B_LAYERS - TEXT_TOWER_LAYERS) * layer_params
+    cut_saved_s = (write_s + load_s) * (full_params / tower_params - 1)
     prompts = list(TEXT_PROMPTS)
 
     def request(seed, steps=STEPS):
@@ -5701,6 +5784,8 @@ def phase_text_sampler(tmp: str) -> tuple[int, ...]:
     launches = _counts()
     emit("text_sampler", model="JiT-B/16 (context 2048) + Qwen3-VL-2B text tower "
          "(random weights, seed 0)", tower_layers=encoder.model.config.num_hidden_layers,
+         cut=f"{TEXT_TOWER_LAYERS} of the tower's {QWEN3_VL_2B_LAYERS} layers, full width",
+         cut_saved_seconds=cut_saved_s, full_tower_params=full_params,
          tower_params=tower_params, tower_param_dtype="float32", tower_file_bytes=file_bytes,
          tower_write_seconds=write_s, load_seconds=load_s, tokenizer="Qwen word-hash",
          tokenizer_from_directory=found,
@@ -6209,7 +6294,7 @@ def _run(args: list[str], started: float, smi: str, work: str) -> int:
     launches["text_sampler"] = phase_text_sampler(tmp)
     phase_text_parity(work)
     launches["losses"] = phase_losses(work)
-    launches["latent_trainer"] = phase_latent_trainer(tmp)
+    launches["latent_trainer"], latent_no_mesh = phase_latent_trainer(tmp)
     phase_latent_parity(tmp)
     launches.update(phase_jit_variants_trainer(tmp))
     launches["x_loss_trainer"] = phase_x_loss_trainer(tmp)
@@ -6235,7 +6320,9 @@ def _run(args: list[str], started: float, smi: str, work: str) -> int:
     launches.update(phase_inference_server(sdxl_tmp))
     # last on the card's path: the worker's queue ends last, and every
     # phase before these submits its CPU halves earlier
-    phase_mesh_trainer(tmp, no_mesh)
+    latent_started = start_latent_mesh_trainer(tmp, latent_no_mesh)
+    phase_latent_mesh_trainer(latent_started, latent_no_mesh,
+                              phase_mesh_trainer(tmp, no_mesh))
     phase_ring()
     _HALVES.drain()
     launches.update(phase_e2e_feed(tempfile.mkdtemp(dir=work)))

@@ -123,7 +123,8 @@ _JAX_STEPS = {}
 
 
 def jax_step(name, label2id):
-    """(parameters, loss, gradients) of one JAX step, computed once."""
+    """(parameters, loss, gradients) of one JAX step under ``nnx.jit``,
+    computed once a module."""
     if name not in _JAX_STEPS:
         workload = getattr(jvariants, WORKLOADS[name][0])(
             JaxTrainConfig.model_validate(config_dict(name, label2id)))
@@ -147,8 +148,12 @@ def jax_step(name, label2id):
         def loss_fn(t):
             return workload.compute_loss(t, batch, key)
 
+        @nnx.jit
+        def step(t):
+            return nnx.value_and_grad(loss_fn, has_aux=True)(t)
+
         with jattn.attention_dtype(None):
-            (loss, _), grads = nnx.value_and_grad(loss_fn, has_aux=True)(trainable)
+            (loss, _), grads = step(trainable)
         grads = {_path_to_key(tuple(path)): np.asarray(getattr(v, "value", v))
                  for path, v in nnx.to_flat_state(grads)}
         _JAX_STEPS[name] = (flat, float(loss), grads, jax_draws(name, key))

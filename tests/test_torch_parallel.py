@@ -238,11 +238,12 @@ def test_optimizers_not_held_under_a_mesh_raise(tmp_path, one_rank_group, name):
 
 
 def test_workloads_not_held_under_a_mesh_raise(tmp_path, one_rank_group):
-    from vision_pt_tpu_torch.workloads.jit_variants import JiTForTreadTraining
+    from tests.test_torch_sdxl_training import TINY_MODEL
+    from vision_pt_tpu_torch.workloads.sdxl_rope_distill import SDXLRoPEDistillTraining
 
     config = _tiny_config(tmp_path, mesh={"data": 1})
-    config["model"]["denoiser"].update(tread_start_block=0, tread_end_block=2)
-    trainer = _trainer(config, JiTForTreadTraining)
+    config["model"] = {**TINY_MODEL, "tokenizer": "word-hash"}
+    trainer = _trainer(config, SDXLRoPEDistillTraining)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
         trainer.before_train()
 

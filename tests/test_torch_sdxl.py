@@ -126,9 +126,32 @@ def _unet_pair(config):
     return junet, unet
 
 
+@nnx.jit
+def _jit_call(module, *args):
+    """A JAX module's forward under ``nnx.jit`` (eager, the reference's op-by-op
+    dispatch took most of these tests' time)."""
+    return module(*args)
+
+
+@nnx.jit
+def _jax_encode(vae, image):
+    dist = vae.encode(image)
+    return dist.mean, dist.logvar
+
+
+@nnx.jit
+def _jax_decode(vae, latents):
+    return vae.decode(latents)
+
+
+@nnx.jit
+def _jax_tiled_decode(vae, latents):
+    return vae.tiled_decode(latents, tile_latent_size=8)
+
+
 def _run_both(junet, unet, args):
     with jattention_dtype(None):
-        want = np.asarray(junet(*map(jnp.asarray, args)))
+        want = np.asarray(_jit_call(junet, *map(jnp.asarray, args)))
     with tattn.attention_dtype(None), torch.no_grad():
         got = unet(*map(torch.from_numpy, args)).numpy()
     return got, want
@@ -184,18 +207,17 @@ def test_vae_matches_jax(models):
     jmodel, model = models
     rng = np.random.default_rng(2)
     image = rng.uniform(-1, 1, size=(1, 32, 32, 3)).astype(np.float32)
-    jdist = jmodel.vae.encode(jnp.asarray(image))
+    jmean, jlogvar = _jax_encode(jmodel.vae, jnp.asarray(image))
     latents = rng.normal(size=(1, 12, 12, 4)).astype(np.float32)
     with torch.no_grad():
         dist = model.vae.encode(torch.from_numpy(image))
         decoded = model.vae.decode(torch.from_numpy(latents))
         tiled = model.vae.tiled_decode(torch.from_numpy(latents), tile_latent_size=8)
-    _close(dist.mean.numpy(), jdist.mean, 1e-4)
-    _close(dist.logvar.numpy(), jdist.logvar, 1e-4)
-    _close(decoded.numpy(), jmodel.vae.decode(jnp.asarray(latents)), 1e-4)
+    _close(dist.mean.numpy(), jmean, 1e-4)
+    _close(dist.logvar.numpy(), jlogvar, 1e-4)
+    _close(decoded.numpy(), _jax_decode(jmodel.vae, jnp.asarray(latents)), 1e-4)
     assert tiled.shape == (1, 96, 96, 3)
-    _close(tiled.numpy(), jmodel.vae.tiled_decode(jnp.asarray(latents),
-                                                  tile_latent_size=8), 1e-4)
+    _close(tiled.numpy(), _jax_tiled_decode(jmodel.vae, jnp.asarray(latents)), 1e-4)
 
 
 def test_scheduler_matches_jax():

@@ -37,9 +37,10 @@ def _cross_mask(query_mask, key_mask):
 
 
 class CrossAttention(Attention):
-    """Cross-attention with separate query and key rotary tables."""
-
-    supports_tensor_parallel = False  # not held under a mesh (ROADMAP Queue 1 item 5)
+    """Cross-attention with separate query and key rotary tables. Under
+    tensor parallelism ``to_q`` (over the image tokens) and ``to_k`` /
+    ``to_v`` (over the context) are split by columns and ``to_o`` by rows,
+    as in ``Attention``: each rank attends over its own heads."""
 
     def forward(self, hidden_states, key_value_states, query_rope_freqs,
                 key_rope_freqs, query_mask=None, key_mask=None):
@@ -76,6 +77,8 @@ class PopeCrossAttention(PopeAttention):
 class CrossJiTBlock(nn.Module):
     """Cross-attention + SwiGLU, with the image and the context normalized
     apart before the attention."""
+
+    fsdp_unit = True  # gathered alone under FSDP (parallel.mesh)
 
     def __init__(self, hidden_dim, num_heads, mlp_ratio=4.0, qkv_bias=True,
                  qk_norm=True, use_bias=True, eps=1e-6,

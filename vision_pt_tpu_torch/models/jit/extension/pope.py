@@ -118,21 +118,33 @@ class NormalizedPopeEmbedder(PopeEmbedder):
 class PopeAttention(Attention):
     """Attention with PoPE's q/k transform and the learned K phase bias
     ``pope_bias`` (H, D), fp32 whatever the parameter dtype. q/k run at
-    2 * head_dim (scale (2 * head_dim) ** -0.5), v at head_dim."""
+    2 * head_dim (scale (2 * head_dim) ** -0.5), v at head_dim.
 
-    # pope_bias holds every head: not split with the projections' columns
-    supports_tensor_parallel = False
+    Under tensor parallelism ``pope_bias`` stays whole, as the JAX rules
+    keep it (H * D under 2**14 elements at every shipped width): each rank
+    takes the rows of its own heads, and the gradient, which holds only
+    those rows, is summed over the tensor ranks with the QKNorm gains'."""
+
+    tensor_partial = (*Attention.tensor_partial, "pope_bias")
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.pope_bias = nn.Parameter(
             torch.zeros(self.num_heads, self.head_dim, dtype=torch.float32))
 
+    def _local_bias(self, heads: int) -> torch.Tensor:
+        """The rows of ``pope_bias`` for this rank's ``heads`` heads (all
+        of them off a tensor-parallel mesh)."""
+        if heads == self.num_heads:
+            return self.pope_bias
+        start = heads * self.to_q.weight.device_mesh.get_local_rank()
+        return self.pope_bias[start:start + heads]
+
     def _pope_qk(self, q, k, query_freqs, key_freqs):
         if self.q_norm is not None:
             q = self.q_norm(q)
             k = self.k_norm(k)
-        bias = torch.clamp(self.pope_bias, -math.pi, math.pi)
+        bias = torch.clamp(self._local_bias(k.shape[2]), -math.pi, math.pi)
         return (apply_pope(q, query_freqs),
                 apply_pope(k, key_freqs, learned_bias=bias))
 

@@ -30,6 +30,8 @@ class UJiTBlock(nn.Module):
     """Attention + SwiGLU with pre, post or sandwich norms and an optional
     concat-skip merge; the attention's q/k norms are always RMS."""
 
+    fsdp_unit = True  # gathered alone under FSDP (parallel.mesh)
+
     def __init__(self, hidden_dim, num_heads, mlp_ratio=4.0, qkv_bias=True,
                  qk_norm=True, use_bias=True, has_skip_connection=False,
                  eps=1e-6, positional_encoding="rope", norm_type="rms",

@@ -312,6 +312,14 @@ def _fsdp_units(module: nn.Module) -> list[nn.Module]:
     return units
 
 
+def _parameters_of(part) -> list[nn.Parameter]:
+    """The parameters of a submodule or a parameter named by
+    ``tensor_partial`` (none for None)."""
+    if isinstance(part, nn.Parameter):
+        return [part]
+    return [] if part is None else list(part.parameters())
+
+
 def shard_module(module: nn.Module, mesh, axis: str = "fsdp",
                  min_size_to_shard: int = 2**14) -> None:
     """Place the parameters of ``module`` in place: tensor parallelism by
@@ -329,8 +337,7 @@ def shard_module(module: nn.Module, mesh, axis: str = "fsdp",
         parents = {name.rpartition(".")[0] for name in plan}
         tensor_partial = [p for name, sub in module.named_modules() if name in parents
                           for child in getattr(sub, "tensor_partial", ())
-                          if getattr(sub, child, None) is not None
-                          for p in getattr(sub, child).parameters()]
+                          for p in _parameters_of(getattr(sub, child, None))]
 
     replicated, shard_dims = [], {}
     for name, sub in module.named_modules():

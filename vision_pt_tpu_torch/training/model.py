@@ -31,6 +31,10 @@ class ModelForTraining(ABC):
     # this rank's rows of with the batch; None: the workload does not run
     # under a mesh (ROADMAP Queue 1 item 5)
     mesh_draws: tuple[str, ...] | None = None
+    # the draws every rank takes whole (one for the whole batch, such as
+    # TREAD's route permutation); every rank draws the same from the
+    # trainer's generator
+    mesh_whole_draws: tuple[str, ...] = ()
     # the mesh axes it runs over; another axis of size > 1 raises
     mesh_axes: tuple[str, ...] = ("data", "fsdp", "tensor", "seq")
 

@@ -25,7 +25,8 @@ stops.
 Multi-device runs (``trainer.mesh``, ``trainer.distributed_init``) compute
 the one-device step: every rank reads the whole batch and draws the whole
 batch's timesteps and noise from the trainer's generator, then takes its
-rows (``shard_batch`` over data x fsdp); the model is placed by
+rows (``shard_batch`` over data x fsdp; a draw for the whole batch, the
+workload's ``mesh_whole_draws``, stays whole); the model is placed by
 ``parallel.shard_module``; a seq axis puts self-attention on the ring for
 the step. Rank 0 alone writes trackers, saved models, previews and train
 states, between barriers; saved tensors are gathered whole first.
@@ -431,13 +432,16 @@ class Trainer:
         return contextlib.nullcontext()
 
     def _local_rows(self, batch: dict, draws: dict) -> tuple[dict, dict]:
-        """This rank's rows of the batch and of the per-sample draws."""
-        other = set(draws) - set(self.model.mesh_draws)
+        """This rank's rows of the batch and of the per-sample draws; the
+        workload's whole draws stay whole."""
+        whole = set(self.model.mesh_whole_draws)
+        other = set(draws) - set(self.model.mesh_draws) - whole
         if other:
             raise NotImplementedError(
                 f"draws {sorted(other)} under trainer.mesh are not ported: "
                 "ROADMAP Queue 1 item 5")
-        return shard_batch(batch, self.mesh), shard_batch(draws, self.mesh)
+        return shard_batch(batch, self.mesh), {
+            k: v if k in whole else shard_batch(v, self.mesh) for k, v in draws.items()}
 
     def train_step(self, batch: dict, generator: torch.Generator,
                    at_accum_boundary: bool = True):

@@ -7,6 +7,10 @@ multi-resolution ``lowres_loss`` terms. The U-JiT (square and ARB), Cross,
 IG, LoIG and TREAD workloads swap the model class and, where the JAX package
 does, add their loss terms. TREAD's route permutation is one of the step's
 draws (``route_perm``), so a test can hand in the JAX package's.
+
+Each runs under ``trainer.mesh`` over data, fsdp, tensor and seq, as the
+base workload does: the per-sample timesteps and noise (and the batch's
+size fields) are split by rows, TREAD's permutation stays whole.
 """
 
 from __future__ import annotations
@@ -42,8 +46,6 @@ class JiTConfigForArbTraining(JiTConfigForTraining):
 class JiTForArbClassToImageTraining(JiTForClassToImageTraining):
     """ARB variant: the batch provides per-sample size conditioning, and
     optional multi-resolution lowres losses are added."""
-    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
-
     model_config: JiTConfigForArbTraining
     model_config_class = JiTConfigForArbTraining
 
@@ -103,7 +105,6 @@ class UJiTConfigForTraining(JiTConfigForTraining):
 
 
 class JiTForUJiTTraining(JiTForClassToImageTraining):
-    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
     model_class = UJiTModel
     model_config_class = UJiTConfigForTraining
 
@@ -125,7 +126,6 @@ class CrossJiTConfigForTraining(JiTConfigForTraining):
 
 
 class JiTForCrossTraining(JiTForClassToImageTraining):
-    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
     model_class = CrossJiTModel
     model_config_class = CrossJiTConfigForTraining
 
@@ -143,7 +143,6 @@ class JiTForIGTraining(JiTForClassToImageTraining):
     """Internal-guidance training: the main head's target is the image plus
     ``ig_scale`` times the detached gap between the two heads; the
     intermediate head is trained toward the clean image."""
-    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
 
     model_class = IGJiTModel
     model_config_class = IGJiTConfigForTraining
@@ -177,7 +176,6 @@ class LoIGJiTConfigForTraining(JiTConfigForTraining):
 class JiTForLoIGTraining(JiTForClassToImageTraining):
     """Low-rank internal guidance: both heads are trained toward the clean
     image."""
-    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
 
     model_class = LoIGJiTModel
     model_config_class = LoIGJiTConfigForTraining
@@ -207,8 +205,10 @@ class TreadJiTConfigForTraining(JiTConfigForTraining):
 
 class JiTForTreadTraining(JiTForClassToImageTraining):
     """TREAD token-routing training; the routing runs only in the training
-    step, with the permutation drawn beside the timesteps and noise."""
-    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
+    step, with the permutation drawn beside the timesteps and noise. The
+    permutation is one for the whole batch: under a mesh every rank draws
+    the same one and keeps it whole."""
+    mesh_whole_draws = ("route_perm",)
 
     model_class = JiTWithTreadModel
     model_config_class = TreadJiTConfigForTraining
