@@ -75,7 +75,8 @@ without a result line:
    NCCL, every step's loss within 1e-5 relative of the trainer phase's, the
    saved model and EMA files equal to its files, and the chrome trace must
    hold as many launches of #1 and of #2 a profiled step as the trainer
-   phase counted a step (4 + 4); s/step of both runs as the trainer logs it;
+   phase counted a step (4 + 4), and its 4-step preview must be written,
+   sampled under the mesh; s/step of both runs as the trainer logs it;
 6c. ring (after mesh_trainer): ``ops.ring_attention.ring_attention`` over the seq axis of a
    one-rank NCCL mesh (no point-to-point send runs with one rank) at B 2,
    S 4096, H 16, D 64, bf16, kv_lens (4096, 1000): forward and backward
@@ -94,8 +95,8 @@ without a result line:
 9. cache_latents (after attention_probes): the port's caching tool (``tools.data.cache_latents.run``)
    on the card over 64 synthetic 1024^2 images with captions of 1-4 of four
    classes, batch 2, the SDXL VAE at full width with random weights from a
-   seed, fp32 inputs, an fp16 store, the convolutions' TF32 flag as the run
-   leaves it (phase 8 turns it off; the phase line states it);
+   seed, fp32 inputs, an fp16 store, PyTorch's default TF32 switches
+   (cuDNN convolutions on; the phase line states them);
    the first image's cached mean and std within 1e-2 relative L2 of the
    same image encoded on the CPU in fp32, a limit that must fail the image
    flipped left-right; no kernel launches (the VAE's attention
@@ -172,8 +173,26 @@ without a result line:
    ``profile_dir`` (step 1): the group must be NCCL rank 0 of 1, each loss
    within 1e-5 relative of its no-mesh run's, the LoRA file equal to its
    file, and the chrome trace must hold that run's per-step launches of #7,
-   #8 and #9 (140 / 70 / 0 and 140 / 70 / 280); s/step and the peak memory
-   over the steps of both runs;
+   #8 and #9 (140 / 70 / 0 and 140 / 70 / 280), and each run must write its
+   phase's 2-step preview, sampled under the mesh; s/step and the peak
+   memory over the steps of both runs;
+16d. sdxl_adapter_mesh_trainer (started beside sdxl_mesh_trainer's two
+   runs): ip_adapter_trainer's config (``train.sdxl.ip_adapter_ref`` at full
+   width and depth, 1024^2, batch 2, the full-size CLIP tower, both sides
+   ``trainer.deterministic``; no preview, as in that phase) the same way:
+   NCCL rank 0 of 1, the losses and the adapter file bit for bit,
+   140 / 69 / 0 launches of #7 / #8 / #9 in the profiled step, peak memory
+   within 1% of the no-mesh run's, and how long it ran past
+   sdxl_mesh_trainer's runs;
+16e. sdxl_adapter_mesh_reduced (one torchrun process started after
+   sdxl_adapter_mesh_trainer, beside cogview4_sampler and inference_server,
+   collected after them): PFG, RoPE
+   distillation, DRaFT+ (2 sampler steps, the small PickScore), the style
+   tokenizer, LoHa over an NF4 base and LoRA under prodigy and under
+   adafactor at sdxl_parity's size (512^2, one layer and transformer per
+   stage), each run without the mesh and then under {data 1, fsdp 1} in the
+   process: losses and files bit for bit, the mesh run's trace the no-mesh
+   second step's #7 / #8 / #9 (#9 only over the NF4 base);
 17. sdxl_lora_parity: one LoRA training step (nonzero lora_up, a cached
    latent, batch 1: SDXL_LORA_PARITY_CUT, injected draws) of sdxl_parity's
    model at 512^2, card (kernels) against
@@ -228,8 +247,8 @@ without a result line:
    token); exactly the 144 (IP) and 2
    (PFG) adapter and projector tensors trained and changed (fp64
    fingerprints of every parameter, the tower's too); the adapter file saved
-   and loaded back equal; then one timed 5-step CFG-5 1024^2 request with a
-   reference image, exactly 350 launches of #7; one more IP step
+   and loaded back equal; then one timed 2-step CFG-5 1024^2 request with a
+   reference image, exactly 140 launches of #7; one more IP step
    profiled after the timed ones;
 17g. adapter_entry_points: ``ip_adapter_self``, ``ip_adapter_kyara`` and
    ``prompt_free_ref`` one step each at sdxl_parity's depth, 512^2 (6 + 2
@@ -253,8 +272,8 @@ without a result line:
    the first two, none for the style tokenizer) at SDXL-base's full width
    and depth, 1024^2, batch 2, 2 steps (step 2 timed): RoPE distillation
    with the workload's defaults (#7 240, #8 80 a step; a 2-step preview, 140),
-   DRaFT+ over the PickScore tower (10 sampler steps, truncation 1, CFG 5:
-   #7 840, #8 70 a step; its first, untimed step profiled, device-only), the style
+   DRaFT+ over the PickScore tower (2 sampler steps, truncation 1, CFG 5:
+   #7 280, #8 70 a step; its first, untimed step profiled, device-only), the style
    tokenizer's StyleTokenizerConfig() over the timm tower on the referenced
    images with ``<|style|>`` in every caption (#7 140, #8 70; a 2-step
    preview with a reference image, 140); exactly the LoRA tensors (or the 4
@@ -352,7 +371,7 @@ N = 8192), beside F.linear on the weight dequantized beforehand.
 22. text_sampler (after parity): text-conditioned JiT at full width: an
    HF-style Qwen3-VL directory written from a seed on the card (a
    ``config.json`` nesting ``text_config``; the 2048-wide text tower cut to
-   TEXT_TOWER_LAYERS = 8 of its 28 layers, 0.71 B of 1.72 B parameters, bf16
+   TEXT_TOWER_LAYERS = 4 of its 28 layers (the line gives the parameters), bf16
    safetensors in 2 shards; norm scales drawn, not ones; the seconds the
    cut saves, from this run's write and load rate), loaded through ``JiTModel`` with ``TextContextConfig``
    (``TextEncoder.from_local``, fp32 as in the JAX package) and JiT-B/16
@@ -415,6 +434,7 @@ limit as nvidia-smi prints them, and the result line.
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import io
 import json
@@ -1638,6 +1658,7 @@ def phase_mesh_trainer(tmp: str, no_mesh: dict) -> dict:
     fwd, bwd, _ = _trace_launches(trace) if os.path.exists(trace) else (0, 0, 0)
     saved = sorted(os.listdir(os.path.join(work, "out")))
     theirs = sorted(os.listdir(no_mesh["out"]))
+    previews = os.listdir(os.path.join(work, "preview"))
     equal = {}
     for ours_name, theirs_name in zip(saved, theirs):
         a = load_file(os.path.join(work, "out", ours_name))
@@ -1654,7 +1675,7 @@ def phase_mesh_trainer(tmp: str, no_mesh: dict) -> dict:
          trace=os.path.basename(trace), profiled_steps=MESH_PROFILE_STEPS,
          trace_launches={"fwd": fwd, "bwd": bwd},
          launches_per_step_no_mesh={"fwd": no_mesh_fwd, "bwd": no_mesh_bwd},
-         saved=saved, saved_no_mesh=theirs, files_equal=equal)
+         saved=saved, saved_no_mesh=theirs, files_equal=equal, previews=len(previews))
     check(group is not None and group.group(1) == "nccl"
           and group.groups()[1:3] == ("0", "1"), f"process group {group and group.groups()}")
     check(len(losses) == len(no_mesh["losses"]) == TRAINER_STEPS
@@ -1666,6 +1687,8 @@ def phase_mesh_trainer(tmp: str, no_mesh: dict) -> dict:
           f"steps, the trainer phase's {no_mesh_fwd} / {no_mesh_bwd} a step")
     check(len(saved) == len(theirs) == 2 and all(equal.values()),
           f"saved {saved} against {theirs}: equal {equal}")
+    # the trainer phase's preview, sampled under the mesh
+    check(len(previews) == 1, f"mesh previews {previews}")
     return {"fwd": fwd, "bwd": bwd, "run_seconds": seconds}
 
 
@@ -1883,6 +1906,25 @@ STEP_PARITY_CASES = (("jit", "float32", None), ("jit", "bfloat16", None),
                      ("latent", "float16", FP16_PARITY_DEPTH["latent"]))
 
 
+@contextlib.contextmanager
+def _tf32_off():
+    """TF32 off for fp32 matmuls (precision "highest") and cuDNN
+    convolutions, restored after: the card-vs-CPU phases' floors hold fp32
+    products at full precision, and every other phase runs as a user's run
+    does (torch's defaults, or what its trainer config sets). Matmuls go
+    through ``set_float32_matmul_precision``: a trainer config sets that
+    ("high"), and torch refuses to read it once the legacy matmul switch
+    disagrees. Also a decorator (``@_tf32_off()``)."""
+    precision, cudnn = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.set_float32_matmul_precision(precision)
+
+
 def phase_train_parity(label2id: str) -> None:
     """One JiT-B/16 training step's loss and gradients on the card and on
     the CPU (#1/#2 at S 298, blocks 0-3; fp16 at depth 5, batch 1)."""
@@ -1911,9 +1953,8 @@ def _jit_sample(label2id: str, dtype: str, device: str):
     return out.float().cpu().numpy(), _counts()[0]
 
 
+@_tf32_off()
 def phase_parity(label2id: str) -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     for dtype in ("float32", "bfloat16"):
         future = _HALVES.take(("parity", dtype), f"parity {dtype}", _jit_sample,
                               label2id, dtype, "cpu")
@@ -2149,6 +2190,7 @@ def phase_latent_trainer(tmp: str) -> tuple[tuple[int, ...], dict]:
                     "per_step": per_step}
 
 
+@_tf32_off()
 def phase_latent_parity(tmp: str) -> None:
     """One latent training step's loss and gradients on the card and on the
     CPU: full width, depth 2 (fp16: 1, batch 1), a 64 x 64 latent (S = 1098),
@@ -2416,6 +2458,7 @@ def _cpu_model_run(model, run, *args):
     return run(model.to("cpu"), *args)
 
 
+@_tf32_off()
 def phase_sdxl_parity() -> None:
     """The same weights and draws on the card (kernels) and on the CPU (the
     plain versions of the same path, in the worker): full widths,
@@ -2806,10 +2849,11 @@ finally:
 
 
 def _mesh_start(tmp: str, label: str, no_mesh: dict, script: str, mesh: dict,
-                profile_steps: int):
+                profile_steps: int, nice: int = 0):
     """Start a no-mesh phase's config under torchrun with ``mesh``, the
-    distributed init, the profiler over ``profile_steps`` steps and
-    ``trainer.deterministic``; returns what ``_mesh_result`` reads."""
+    distributed init, the profiler over ``profile_steps`` steps,
+    ``trainer.deterministic`` and the no-mesh run's preview, at niceness
+    ``nice``; returns what ``_mesh_result`` reads."""
     import yaml
 
     work = os.path.join(tmp, f"mesh_{label}")
@@ -2826,8 +2870,9 @@ def _mesh_start(tmp: str, label: str, no_mesh: dict, script: str, mesh: dict,
     path = os.path.join(work, "config.yml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
-    command = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc_per_node", "1", script, "--config", path]
+    command = ["nice", "-n", str(nice)] * bool(nice) + [
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        "--nproc_per_node", "1", script, "--config", path]
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
     log = open(os.path.join(work, "run.log"), "w")
@@ -2839,7 +2884,7 @@ def _mesh_start(tmp: str, label: str, no_mesh: dict, script: str, mesh: dict,
 def _mesh_result(started: dict, no_mesh: dict) -> dict:
     """Wait for a run ``_mesh_start`` began (killed past 600 s); its exit
     code, group, losses, step times, peak memory, trace launches and files
-    against ``no_mesh``."""
+    against ``no_mesh``, and its previews (None without a preview)."""
     from safetensors.torch import load_file
 
     proc, work = started["proc"], started["work"]
@@ -2853,7 +2898,8 @@ def _mesh_result(started: dict, no_mesh: dict) -> dict:
     with open(os.path.join(work, "run.log")) as f:
         text = f.read()
     out = {"command": " ".join(started["command"][1:]), "exit": proc.returncode,
-           "log_tail": text[-3000:] if proc.returncode else None, "run_seconds": seconds}
+           "log_tail": text[-3000:] if proc.returncode else None, "run_seconds": seconds,
+           "ended_wall": os.path.getmtime(os.path.join(work, "run.log"))}
     if proc.returncode:
         return out
     group = re.search(r"\[distributed\] (\w+) group: rank (\d+) of (\d+), device (\S+)",
@@ -2877,6 +2923,9 @@ def _mesh_result(started: dict, no_mesh: dict) -> dict:
         a = load_file(os.path.join(work, "out", ours_name))
         b = load_file(os.path.join(no_mesh["out"], theirs_name))
         equal[ours_name] = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    preview = os.path.join(work, "preview")
+    previews = (len(os.listdir(preview)) if os.path.isdir(preview) else 0
+                ) if started["cfg"].get("preview") else None
     return {**out, "mesh": started["cfg"]["trainer"]["mesh"],
             "group": group.groups() if group else None,
             "train_seconds": float(trained.group(1)) if trained else None,
@@ -2888,7 +2937,8 @@ def _mesh_result(started: dict, no_mesh: dict) -> dict:
             "trace": os.path.basename(trace), "profiled_steps": profile_steps,
             "trace_launches": dict(zip(("#7", "#8", "#9"), traced)),
             "expected_launches": dict(zip(("#7", "#8", "#9"), expected)),
-            "saved": saved, "saved_no_mesh": theirs, "files_equal": equal}
+            "saved": saved, "saved_no_mesh": theirs, "files_equal": equal,
+            "previews": previews}
 
 
 def phase_sdxl_mesh_trainer(tmp: str, no_mesh: dict[str, dict]) -> dict:
@@ -2909,8 +2959,9 @@ def phase_sdxl_mesh_trainer(tmp: str, no_mesh: dict[str, dict]) -> dict:
     runs = {label: _mesh_result(run, no_mesh[label]) for label, run in started.items()}
     emit("sdxl_mesh_trainer", configs={k: SDXL_TRAIN_CONFIGS[k]["path"] for k in runs},
          cuts="the sdxl_lora_trainer / sdxl_qlora_trainer phases' (their files, 1024^2, "
-              "batch 2, 2 steps), trainer.deterministic: true in both; the two torchrun "
-              "runs side by side, so their host-bound step times share the host",
+              "batch 2, 2 steps, the 2-step preview), trainer.deterministic: true in both; "
+              "the two torchrun runs side by side, so their host-bound step times share "
+              "the host",
          tolerance=MESH_LOSS_RTOL, runs=runs, runs_seconds=time.perf_counter() - t0)
     for label, r in runs.items():
         check(r["exit"] == 0, f"sdxl_mesh_trainer {label}: torchrun exit {r['exit']}: "
@@ -2929,7 +2980,324 @@ def phase_sdxl_mesh_trainer(tmp: str, no_mesh: dict[str, dict]) -> dict:
         check(len(r["saved"]) == len(r["saved_no_mesh"]) == 1 and all(r["files_equal"].values()),
               f"sdxl_mesh_trainer {label}: saved {r['saved']} against {r['saved_no_mesh']}: "
               f"equal {r['files_equal']}")
+        # the no-mesh phase's preview, sampled under the mesh (the FSDP units
+        # resharded after it)
+        check(r["previews"] == 1, f"sdxl_mesh_trainer {label}: previews {r['previews']}")
     return runs
+
+
+# ---------------------------------- the SDXL adapter trainers under the mesh
+
+# sdxl_adapter_mesh_trainer: ip_adapter_trainer's run (train.sdxl.ip_adapter_ref,
+# SDXL-base at full width and depth, 1024^2, batch 2, the full-size CLIP
+# tower; both sides trainer.deterministic) through torchrun under
+# {data 1, fsdp 1}, the profiler over its second step: #7 / #8 140 / 69.
+# It starts beside sdxl_mesh_trainer's two runs: the three no-mesh peaks
+# (23.8, 19.8 and 12.1 GB on one NVIDIA H100 80GB HBM3 at 700 W) fit the card
+ADAPTER_MESH_FAMILIES = ("ip_adapter",)
+# the adapter mesh processes run at this niceness: they have slack, and the
+# parent's phases beside them (host-bound) then keep the host's cores
+SIDE_NICE = 19
+ADAPTER_MESH_TRACE = {"#7": 140, "#8": 69, "#9": 0}
+ADAPTER_MESH_PEAK_RTOL = 0.01
+
+
+def start_sdxl_adapter_mesh_trainer(tmp: str, no_mesh: dict) -> dict:
+    """Start ip_adapter_trainer's config under torchrun with the mesh."""
+    script = os.path.join(tmp, "sdxl_adapter_mesh_entry.py")
+    with open(script, "w") as f:
+        f.write(MESH_ENTRY_SCRIPT.format(entry="sdxl.ip_adapter_ref"))
+    return _mesh_start(tmp, "ip_adapter", no_mesh, script, {"data": 1, "fsdp": 1},
+                       SDXL_MESH_PROFILE_STEPS, nice=SIDE_NICE)
+
+
+def phase_sdxl_adapter_mesh_trainer(started: dict, no_mesh: dict, beside: dict) -> dict:
+    """The IP-Adapter run under the mesh against ip_adapter_trainer's: the
+    losses and the adapter file bit for bit, #7 / #8 in the profiled step,
+    peak memory within ADAPTER_MESH_PEAK_RTOL; how long it ran past
+    sdxl_mesh_trainer's runs (``beside``), which it started with."""
+    phase = "sdxl_adapter_mesh_trainer"
+    r = _mesh_result(started, no_mesh)
+    past = (r["ended_wall"] - max(b["ended_wall"] for b in beside.values())
+            if r["exit"] == 0 and all(b["exit"] == 0 for b in beside.values()) else None)
+    peak, theirs = r.get("peak_memory_bytes"), no_mesh["peak_memory_bytes"]
+    emit(phase, entry="train.sdxl.ip_adapter_ref", config=SDXL_TRAIN_CONFIGS["lora"]["path"],
+         cuts="ip_adapter_trainer's (its file and tower, 1024^2, batch 2, 2 steps), "
+              "trainer.deterministic: true in both; started beside sdxl_mesh_trainer's two "
+              "torchrun runs at niceness SIDE_NICE, so its host-bound step times share the "
+              "host and the card",
+         run=r, seconds_past_sdxl_mesh_trainer=past,
+         peak_rel_gap=abs(peak - theirs) / theirs if peak else None)
+    check(r["exit"] == 0, f"{phase}: torchrun exit {r['exit']}: {r['log_tail']}")
+    group = r["group"]
+    check(group is not None and group[0] == "nccl" and group[1:3] == ("0", "1"),
+          f"{phase}: process group {group}")
+    check(len(r["losses"]) == SDXL_TRAIN_STEPS and r["losses"] == r["losses_no_mesh"],
+          f"{phase}: losses {r['losses']} against {r['losses_no_mesh']}")
+    check(r["trace_launches"] == r["expected_launches"] == ADAPTER_MESH_TRACE,
+          f"{phase}: the trace's launches {r['trace_launches']}, the no-mesh step's "
+          f"{r['expected_launches']}, expected {ADAPTER_MESH_TRACE}")
+    check(len(r["saved"]) == len(r["saved_no_mesh"]) == 1 and all(r["files_equal"].values()),
+          f"{phase}: saved {r['saved']} against {r['saved_no_mesh']}: {r['files_equal']}")
+    check(peak is not None and abs(peak - theirs) <= ADAPTER_MESH_PEAK_RTOL * theirs,
+          f"{phase}: peak memory {peak} against {theirs}")
+    return r
+
+
+# sdxl_adapter_mesh_reduced: one torchrun process at sdxl_parity's size (512^2,
+# full widths, one layer and one transformer per stage: stage 2's
+# self-attentions at S 1024 take #7 / #8) runs each case twice, without the
+# mesh and then under {data 1, fsdp 1}, both trainer.deterministic; the pair
+# must give the same losses and file bit for bit, and the mesh run's
+# profiled second step the no-mesh second step's #7 / #8 / #9. Reduced, not
+# full: DRaFT+ alone peaks at 73.3 GB at full width (draft_plus_trainer's run),
+# which no other run can sit beside. Each case: (entry point, shipped config,
+# model, data folder, PEFT type or None, optimizer or None)
+ADAPTER_MESH_REDUCED = {
+    "prompt_free": ("prompt_free_self", "lora", "pfg", "images", None, None),
+    "rope_distill": ("rope_distill", "lora", "rope", "images", "lora", None),
+    "draft_plus": ("draft_plus", "lora", "draft", "images", "lora", None),
+    "style_tokenizer": ("style_tokenizer", "lora", "style", "referenced", None, None),
+    "loha_nf4": (None, "qlora", "nf4", "images", "loha", None),
+    "prodigy": ("text_to_image", "lora", "base", "images", "lora",
+                {"name": "prodigy", "args": {"lr": 1.0}}),
+    "adafactor": ("text_to_image", "lora", "base", "images", "lora",
+                  {"name": "adafactor", "args": {"lr": 1e-3}}),
+}
+ADAPTER_MESH_REDUCED_STEPS = 2
+# the process's own script: this file's function that runs the cases
+ADAPTER_MESH_REDUCED_SCRIPT = """import sys
+
+import chip_smoke
+
+chip_smoke.adapter_mesh_reduced_main(sys.argv[1])
+"""
+
+
+def _mesh_reduced_configs(tmp: str, records: dict) -> dict:
+    """Each case's config pair (no mesh, mesh), written; the cuts."""
+    import yaml
+
+    reduced = {"layers_per_block": 1, "num_transformers_per_block": [1, 1, 1]}
+    timm_path, timm_shape = records["timm_small"]
+    timm = {"type": "timm", "weights_path": timm_path, "feature_dim": timm_shape["embed_dim"],
+            "num_heads": timm_shape["num_heads"]}
+    models = {
+        "pfg": {"adapter": {"image_encoder": timm}},
+        "rope": {}, "base": {}, "nf4": {},
+        "draft": {"total_steps": ADAPTER_MESH_REDUCED_STEPS, "sample_height": PARITY_SIDE,
+                  "sample_width": PARITY_SIDE,
+                  "reward_models": [{"type": "pickscore",
+                                     "weights_path": records["pickscore_small"],
+                                     "tokenizer": "word-hash"}]},
+        "style": {"adapter": {"image_encoder": timm}},
+    }
+    cases = {}
+    for name, (entry, base, model, folder, peft, optimizer) in ADAPTER_MESH_REDUCED.items():
+        with open(os.path.join(ROOT, SDXL_TRAIN_CONFIGS[base]["path"])) as f:
+            cfg = yaml.safe_load(f)
+        cfg["model"] = {"checkpoint_path": None, "dtype": cfg["model"]["dtype"],
+                        "tokenizer": "word-hash", **models[model]}
+        cfg["model"]["denoiser"] = {**cfg["model"].get("denoiser", {}), **reduced}
+        if peft is None:
+            cfg["peft"] = None
+        else:
+            cfg["peft"]["config"]["type"] = peft
+        if optimizer is not None:
+            cfg["optimizer"] = optimizer
+        cfg["dataset"].update(folder=records[folder], bucket_base_size=PARITY_SIDE,
+                              num_repeats=ADAPTER_MESH_REDUCED_STEPS)
+        if name == "style_tokenizer":
+            cfg["dataset"]["caption_processors"] = [{"type": "prefix",
+                                                     "prefix": STYLE_PREFIX}]
+        cfg["num_train_epochs"] = 1
+        cfg["preview"] = None
+        cfg.setdefault("trainer", {})["deterministic"] = True
+        pair = {}
+        for side in ("no_mesh", "mesh"):
+            work = os.path.join(tmp, "adapter_mesh_reduced", name, side)
+            os.makedirs(work, exist_ok=True)
+            side_cfg = json.loads(json.dumps(cfg))
+            side_cfg["tracker"]["log_dir"] = os.path.join(work, "logs")
+            side_cfg["saving"]["callbacks"][0]["save_dir"] = os.path.join(work, "out")
+            if side == "mesh":
+                side_cfg["trainer"].update(mesh={"data": 1, "fsdp": 1}, distributed_init=True,
+                                           profile_dir=os.path.join(work, "profile"),
+                                           profile_steps=1)
+            path = os.path.join(work, "config.yml")
+            with open(path, "w") as f:
+                yaml.safe_dump(side_cfg, f)
+            pair[side] = {"config": path, "out": os.path.join(work, "out"),
+                          "trace": os.path.join(work, "profile", "trace_rank0.json")}
+        cases[name] = {"entry": entry, **pair}
+    cuts = ["sdxl_parity's model: full widths, one layer and one transformer per stage, "
+            f"{PARITY_SIDE}^2 buckets", "random weights from the seed, word-hash tokenizer",
+            f"{SDXL_TRAIN_IMAGES} synthetic images, num_repeats "
+            f"{ADAPTER_MESH_REDUCED_STEPS}, batch 2: {ADAPTER_MESH_REDUCED_STEPS} steps",
+            "preview: null", "trainer.deterministic: true on both sides",
+            "the towers: sdxl_adapter_parity's small timm ViT and sdxl_slice14_parity's "
+            "small PickScore (2 layers, 128 wide, the token counts kept)",
+            f"DRaFT+ {ADAPTER_MESH_REDUCED_STEPS} sampler steps at {PARITY_SIDE}^2",
+            "LoHa over NF4: the QLoRA config's UNet linears quantized in place on the card "
+            "(QLORA_QUANT_KEYS' modules) instead of read from a prequantized file"]
+    return {"cases": cases, "cuts": cuts}
+
+
+def start_sdxl_adapter_mesh_reduced(tmp: str, records: dict) -> dict:
+    """Write the cases' configs and start the torchrun process over them."""
+    spec = _mesh_reduced_configs(tmp, records)
+    work = os.path.join(tmp, "adapter_mesh_reduced")
+    spec_path, script = os.path.join(work, "spec.json"), os.path.join(work, "cases.py")
+    spec["result"] = os.path.join(work, "result.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    with open(script, "w") as f:
+        f.write(ADAPTER_MESH_REDUCED_SCRIPT)
+    command = ["nice", "-n", str(SIDE_NICE), sys.executable, "-m", "torch.distributed.run",
+               "--standalone", "--nproc_per_node", "1", script, spec_path]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+    log = open(os.path.join(work, "run.log"), "w")
+    proc = subprocess.Popen(command, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    return {"proc": proc, "log": log, "work": work, "spec": spec, "command": command,
+            "t0": time.perf_counter()}
+
+
+def adapter_mesh_reduced_main(spec_path: str) -> None:
+    """The torchrun process of sdxl_adapter_mesh_reduced: each case's config
+    without the mesh, then under it, in this process (one mesh of one NCCL
+    rank for all); per-step launches and losses, the trace's launches, the
+    files compared; the results as one JSON file."""
+    import importlib
+
+    from safetensors.torch import load_file
+
+    import vision_pt_tpu_torch.training.trainer as trainer_module
+    from vision_pt_tpu_torch.ops.quant import quantize_inplace
+    from vision_pt_tpu_torch.parallel.mesh import make_mesh
+    from vision_pt_tpu_torch.train.sdxl.text_to_image import train
+    from vision_pt_tpu_torch.training.trainer import Trainer
+    from vision_pt_tpu_torch.workloads.sdxl_text_to_image import SDXLForTextToImageTraining
+
+    class InPlaceNF4(SDXLForTextToImageTraining):
+        """The QLoRA config's NF4 base, quantized on the card after the build."""
+
+        def setup_model(self):
+            super().setup_model()
+            # QLORA_QUANT_KEYS' linears by their module paths
+            quantize_inplace(self.model.denoiser, "bnb_nf4",
+                             include_keys=["attn1", "attn2", ".ff.", "proj_in", "proj_out"])
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    meshes = {}
+
+    def cached_mesh(config=None, devices=None):
+        # one DeviceMesh (one set of NCCL groups) for every case
+        if "mesh" not in meshes:
+            meshes["mesh"] = make_mesh(config, devices)
+        return meshes["mesh"]
+
+    trainer_module.make_mesh = cached_mesh
+    inner = Trainer.train_step
+    results = {}
+    for name, case in spec["cases"].items():
+        result = {}
+        for side in ("no_mesh", "mesh"):
+            per_step, losses, peaks = [], [], []
+
+            def counting(self, *args, **kwargs):
+                if not per_step:
+                    torch.cuda.reset_peak_memory_stats()
+                before = _counts()
+                loss, metrics = inner(self, *args, **kwargs)
+                per_step.append(_diff(_counts(), before))
+                losses.append(float(loss))
+                peaks.append(torch.cuda.max_memory_allocated())
+                return loss, metrics
+
+            Trainer.train_step = counting
+            t0 = time.perf_counter()
+            try:
+                if case["entry"] is None:
+                    trainer = train(case[side]["config"], None, InPlaceNF4)
+                else:
+                    trainer = importlib.import_module(
+                        f"vision_pt_tpu_torch.train.sdxl.{case['entry']}").run(
+                            case[side]["config"])
+            except Exception as e:  # recorded; the parent's checks report it
+                result[side] = {"error": f"{type(e).__name__}: {e}"}
+                continue
+            finally:
+                Trainer.train_step = inner
+            trace = case[side]["trace"]
+            result[side] = {
+                "seconds": time.perf_counter() - t0, "losses": losses, "per_step": per_step,
+                "peak_memory_bytes": max(peaks, default=None), "steps": trainer.global_step,
+                "mesh": list(trainer.mesh.shape) if trainer.mesh is not None else None,
+                "saved": sorted(os.listdir(case[side]["out"])),
+                "trace_launches": _trace_launches(trace) if os.path.exists(trace) else None}
+            del trainer
+            torch.cuda.empty_cache()
+        if all("error" not in result[s] for s in ("no_mesh", "mesh")):
+            files = [load_file(os.path.join(case[s]["out"], result[s]["saved"][0]))
+                     for s in ("no_mesh", "mesh") if len(result[s]["saved"]) == 1]
+            result["files_equal"] = len(files) == 2 and files[0].keys() == files[1].keys() \
+                and all(torch.equal(files[0][k], files[1][k]) for k in files[0])
+            result["file_keys"] = len(files[0]) if files else 0
+        results[name] = result
+        print(f"[adapter_mesh_reduced] {name}: {json.dumps(result)}", flush=True)
+    with open(spec["result"], "w") as f:
+        json.dump(results, f)
+
+
+def phase_sdxl_adapter_mesh_reduced(started: dict, beside: dict) -> dict:
+    """Wait for the reduced process (killed past 600 s); each case's pair:
+    the same losses and file bit for bit, the mesh run under NCCL's one rank,
+    its trace's #7 / #8 / #9 the no-mesh second step's, #7 and #8 launched
+    (and #9 over the NF4 base)."""
+    phase = "sdxl_adapter_mesh_reduced"
+    proc = started["proc"]
+    try:
+        proc.wait(timeout=max(1.0, 600 - (time.perf_counter() - started["t0"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    started["log"].close()
+    log = os.path.join(started["work"], "run.log")
+    with open(log) as f:
+        text = f.read()
+    results = {}
+    if proc.returncode == 0 and os.path.exists(started["spec"]["result"]):
+        with open(started["spec"]["result"]) as f:
+            results = json.load(f)
+    ended = os.path.getmtime(log)
+    emit(phase, command=" ".join(started["command"][1:]), exit=proc.returncode,
+         log_tail=text[-3000:] if proc.returncode else None, cuts=started["spec"]["cuts"],
+         run_seconds=ended - (time.time() - (time.perf_counter() - started["t0"])),
+         seconds_past_beside=ended - max(b["ended_wall"] for b in beside.values()),
+         beside=sorted(beside),
+         cases=results)
+    check(proc.returncode == 0 and set(results) == set(ADAPTER_MESH_REDUCED),
+          f"{phase}: exit {proc.returncode}, cases {sorted(results)}: {text[-2000:]}")
+    for name, r in results.items():
+        bare, mesh = r["no_mesh"], r["mesh"]
+        check("error" not in bare and "error" not in mesh, f"{phase} {name}: {r}")
+        check(bare["mesh"] is None and mesh["mesh"] == [1, 1, 1, 1],
+              f"{phase} {name}: meshes {bare['mesh']}, {mesh['mesh']}")
+        check(len(bare["losses"]) == ADAPTER_MESH_REDUCED_STEPS
+              and bare["losses"] == mesh["losses"] and all(np.isfinite(bare["losses"])),
+              f"{phase} {name}: losses {mesh['losses']} against {bare['losses']}")
+        check(r["files_equal"] and r["file_keys"] > 0,
+              f"{phase} {name}: files {mesh['saved']} against {bare['saved']}")
+        second = bare["per_step"][1]
+        expected = [second[6], second[7], second[8]]
+        check(mesh["per_step"] == bare["per_step"] and mesh["trace_launches"] == expected
+              and expected[0] > 0 and expected[1] > 0
+              and (expected[2] > 0) == (name == "loha_nf4"),
+              f"{phase} {name}: trace {mesh['trace_launches']}, no-mesh step 2 {expected}, "
+              f"per step {mesh['per_step']} against {bare['per_step']}")
+    return results
 
 
 # ---------------------------------- the inference server
@@ -3245,24 +3613,14 @@ def _cpu_twin(workload_cls, config, card):
 
 
 def _exact_fp32():
-    """TF32 off for matmuls and cuDNN, fp32 matmul precision "highest" and
-    fp32 attention, for the fp32 witnesses; restored after."""
-    import contextlib
-
+    """TF32 off for matmuls and cuDNN (``_tf32_off``) and fp32 attention,
+    for the fp32 witnesses; restored after."""
     from vision_pt_tpu_torch.ops.attention import attention_dtype
 
     @contextlib.contextmanager
     def scope():
-        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
-                torch.get_float32_matmul_precision())
-        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
-        try:
-            with attention_dtype(None):
-                yield
-        finally:
-            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32[:2]
-            torch.set_float32_matmul_precision(tf32[2])
+        with _tf32_off(), attention_dtype(None):
+            yield
 
     return scope()
 
@@ -3478,6 +3836,7 @@ def _parity_case(phase: str, label: str, workload_cls, config, card, batch, draw
     return run[2]
 
 
+@_tf32_off()
 def phase_sdxl_lora_parity() -> None:
     """One LoRA training step, card against CPU: sdxl_parity's model at
     512^2, random weights, nonzero lora_up, cached latents, injected draws,
@@ -3553,6 +3912,7 @@ def _unwrap_adapters(tree) -> None:
         setattr(tree.get_submodule(parent) if parent else tree, name, layer.linear)
 
 
+@_tf32_off()
 def phase_sdxl_flow_match_parity() -> dict[str, tuple[int, ...]]:
     """The flow-match workload card against CPU at 512^2 on one model: (a) a
     LoRA step from images with injected VAE noise, timesteps and noise, (c)
@@ -3662,6 +4022,7 @@ OPTIMIZER_STEPS, OPTIMIZER_FLOOR = 20, 1e-5
 INT8_SHAPES = ((2, 1024, 1280, 640), (1, 5, 36, 20))
 
 
+@_tf32_off()
 def phase_optimizers() -> tuple[int, ...]:
     """Each optax rule 20 steps on the same numpy-made parameters and
     gradients, card against CPU, every parameter within OPTIMIZER_FLOOR
@@ -4455,6 +4816,7 @@ def _variant_steps(device: str, label2id: str):
     return steps, sample
 
 
+@_tf32_off()
 def phase_jit_variants_parity(label2id: str) -> dict[str, tuple[int, ...]]:
     """Each variant's training step on the card (kernels) and on the CPU
     (plain versions, in the worker), then a 2-step IG-guided CFG sample;
@@ -4735,6 +5097,7 @@ def _cogview4_parity_run(model, inputs: dict):
             time.perf_counter() - t0)
 
 
+@_tf32_off()
 def phase_cogview4_parity() -> None:
     """The same weights and inputs on the card (kernels) and on the CPU (the
     plain versions of the same path, in the worker): full widths, 2 DiT and
@@ -4850,7 +5213,10 @@ ADAPTER_FAMILIES = {
                         referenced=False),
 }
 ADAPTER_STEP_LAUNCHES = _expect({7: 140, 8: 69})
-ADAPTER_REQUEST_LAUNCHES = _expect({7: 70 * SDXL_STEPS})
+# the adapter requests' steps: 2, not SDXL_STEPS (5), for the adapter mesh
+# phases' seconds on the card's path
+ADAPTER_REQUEST_STEPS = 2
+ADAPTER_REQUEST_LAUNCHES = _expect({7: 70 * ADAPTER_REQUEST_STEPS})
 # sdxl_adapter_parity: sdxl_lora_parity's model and floors; a step takes
 # #7 3 times and #8 2 (stage 2's self-attentions at S 1024, the first one
 # without a backward), a PARITY_SAMPLE_STEPS-step CFG sample #7 3 times a step
@@ -4931,11 +5297,11 @@ def _write_referenced_images(folder: str, images: str) -> None:
 
 
 def _adapter_train_config(tmp: str, name: str, model: dict, folder: str,
-                          reduced: bool) -> tuple[str, list]:
+                          reduced: bool, deterministic: bool = False) -> tuple[str, list]:
     """configs/sdxl/text_to_image_lora.yml's trainer settings (bucket settings,
     optimizer, saving, recompute) with the adapter's model, no LoRA and no
-    preview; full: SDXL_TRAIN_STEPS steps; reduced: sdxl_parity's depth at 512^2, 1 step.
-    Returns the path and the cuts."""
+    preview; full: SDXL_TRAIN_STEPS steps; reduced: sdxl_parity's depth at 512^2, 1 step;
+    ``deterministic``: trainer.deterministic. Returns the path and the cuts."""
     import yaml
 
     with open(os.path.join(ROOT, SDXL_TRAIN_CONFIGS["lora"]["path"])) as f:
@@ -4954,6 +5320,10 @@ def _adapter_train_config(tmp: str, name: str, model: dict, folder: str,
             "word-hash tokenizer (the repository has no CLIP vocabulary)",
             "peft: null (only the adapter and projector train)",
             "preview: null", "output paths in a temporary directory"]
+    if deterministic:
+        cfg.setdefault("trainer", {})["deterministic"] = True
+        cuts.append("trainer.deterministic: true, as in sdxl_adapter_mesh_trainer, which "
+                    "compares its losses and adapter file with this run's bit for bit")
     if reduced:
         cfg["model"]["denoiser"] = {"layers_per_block": 1,
                                     "num_transformers_per_block": [1, 1, 1]}
@@ -5049,13 +5419,17 @@ def _adapter_params(family: str, names) -> set[str]:
     return {n for n in names if n.startswith("projector.")}
 
 
-def phase_adapter_trainer(tmp: str, family: str, towers: dict) -> dict[str, tuple[int, ...]]:
+def phase_adapter_trainer(tmp: str, family: str,
+                          towers: dict) -> tuple[dict[str, tuple[int, ...]], dict]:
     """``train.sdxl.ip_adapter_ref`` / ``prompt_free_self`` at SDXL-base's full
     width and depth, 1024^2, batch 2, SDXL_TRAIN_STEPS steps, over the full-size tower; the
     adapter file saved, loaded back and compared; exactly the adapter's and
     projector's parameters changed; for the IP-Adapter one more step,
-    profiled; then one timed SDXL_STEPS-step CFG-5 request with a reference image.
-    Returns the run's and the request's launches."""
+    profiled; then one timed ADAPTER_REQUEST_STEPS-step CFG-5 request with a
+    reference image.
+    Returns the run's and the request's launches, and the config, losses,
+    launches, step times, peak memory and saved files that
+    ``sdxl_adapter_mesh_trainer`` holds its run against."""
     from safetensors.torch import load_file
 
     spec = ADAPTER_FAMILIES[family]
@@ -5069,7 +5443,8 @@ def phase_adapter_trainer(tmp: str, family: str, towers: dict) -> dict[str, tupl
         _write_referenced_images(folder, images)
     weights, shape = towers[family]
     path, cuts = _adapter_train_config(tmp, family, _adapter_model(family, weights, shape),
-                                       folder, reduced=False)
+                                       folder, reduced=False,
+                                       deterministic=family in ADAPTER_MESH_FAMILIES)
     out = _adapter_run(spec["entry"], path)
     trainer = out["trainer"]
     work = os.path.join(tmp, family)
@@ -5094,14 +5469,14 @@ def phase_adapter_trainer(tmp: str, family: str, towers: dict) -> dict[str, tupl
         batch = trainer.model.prepare_batch(next(iter(trainer.train_dataset)))
         profile(f"{phase}_step", lambda: trainer.train_step(batch, trainer._next_generator()))
 
-    # the request: SDXL_STEPS steps, CFG 5, 1024^2, a reference image
+    # the request: ADAPTER_REQUEST_STEPS steps, CFG 5, 1024^2, a reference image
     reference = {"ip_adapter": "reference_images", "prompt_free": "reference_image"}[family]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
     image = model.generate(SDXL_PROMPT[0], negative_prompt=SDXL_PROMPT[1], width=SDXL_SIDE,
-                           height=SDXL_SIDE, num_inference_steps=SDXL_STEPS,
+                           height=SDXL_SIDE, num_inference_steps=ADAPTER_REQUEST_STEPS,
                            cfg_scale=SDXL_CFG, seed=1, max_token_length=SDXL_TOKENS,
                            **{reference: _reference_image(7)})
     torch.cuda.synchronize()
@@ -5140,9 +5515,12 @@ def phase_adapter_trainer(tmp: str, family: str, towers: dict) -> dict[str, tupl
     check(pixels.shape == (SDXL_SIDE, SDXL_SIDE, 3) and pixels.std() > 1.0,
           f"{phase}: the image is {pixels.shape}, std {pixels.std():.3g}")
     launches = {phase: out["run_launches"], f"{family}_request": request}
+    no_mesh = {"config": path, "out": os.path.join(work, "out"), "losses": losses,
+               "per_step": out["per_step"], "step_seconds": out["step_seconds"],
+               "peak_memory_bytes": out["peak"]}
     del trainer, model, out
     torch.cuda.empty_cache()
-    return launches
+    return launches, no_mesh
 
 
 # a reduced-depth step (sdxl_parity's depth, 512^2, per-layer recompute as
@@ -5193,6 +5571,7 @@ def phase_adapter_entry_points(tmp: str, towers: dict) -> dict[str, tuple[int, .
     return launches
 
 
+@_tf32_off()
 def phase_sdxl_adapter_parity(tmp: str, towers: dict) -> dict[str, tuple[int, ...]]:
     """Card against CPU for each family at sdxl_lora_parity's model (512^2,
     full widths, one layer and one transformer per stage) over the small
@@ -5289,9 +5668,11 @@ def phase_sdxl_adapter_parity(tmp: str, towers: dict) -> dict[str, tuple[int, ..
     return launches
 
 
-def phase_adapters(tmp: str) -> dict[str, tuple[int, ...]]:
+def phase_adapters(tmp: str) -> tuple[dict[str, tuple[int, ...]], dict]:
     """The IP-Adapter and PFG phases over towers written once: the parity
-    phase, the two full-width trainers, the other entry points."""
+    phase, the two full-width trainers, the other entry points. Returns the
+    launches, and the IP-Adapter trainer's record and the small timm tower
+    for the mesh phases."""
     t0 = time.perf_counter()
     full = {"ip_adapter": ("clip", CLIP_L14), "prompt_free": ("timm", VIT_B16_448)}
     towers, small = {}, {}
@@ -5309,10 +5690,12 @@ def phase_adapters(tmp: str) -> dict[str, tuple[int, ...]]:
     # the parity phase first: its CPU halves run in the worker beside the
     # trainers
     launches = phase_sdxl_adapter_parity(tmp, small)
+    records = {"timm_small": small["prompt_free"]}
     for family in ADAPTER_FAMILIES:
-        launches.update(phase_adapter_trainer(tmp, family, towers))
+        family_launches, records[family] = phase_adapter_trainer(tmp, family, towers)
+        launches.update(family_launches)
     launches.update(phase_adapter_entry_points(tmp, towers))
-    return launches
+    return launches, records
 
 
 # ---------------------------------- RoPE distillation, DRaFT+, style tokenizer
@@ -5329,9 +5712,10 @@ PICKSCORE_H14 = {"projection_dim": 1024,
                                        num_hidden_layers=32, num_attention_heads=16,
                                        image_size=224, patch_size=14, hidden_act="gelu")}
 SLICE_STEPS = 2  # 2 images, num_repeats 2, batch 2
-# DRaFT+'s sampler in its trainer phase: 10 steps, not the workload's 25
-# (with SLICE_STEPS, to leave room for mesh_trainer and ring)
-DRAFT_SAMPLER_STEPS = 10
+# DRaFT+'s sampler in its trainer phase: 2 steps, not the workload's 25
+# (10 to leave room for mesh_trainer and ring, 2 for the adapter mesh
+# phases): the differentiated last step is the same
+DRAFT_SAMPLER_STEPS = 2
 STYLE_PREFIX = "<|style|>, "
 # the three entry points at 1024^2, batch 2, recompute (70 self-attentions at
 # S >= 1024 a UNet call):
@@ -5341,7 +5725,7 @@ STYLE_PREFIX = "<|style|>, "
 #   #7 140;
 # - DRaFT+: DRAFT_SAMPLER_STEPS - 1 sampler steps without autograd (70
 #   each), the last one's forward and recompute, its reference call without
-#   the adapters: #7 840, #8 70 (the UNet at B 4: 2 captions under CFG);
+#   the adapters: #7 280, #8 70 (the UNet at B 4: 2 captions under CFG);
 # - the style tokenizer: #7 140, #8 70: the pooled embedding of encoder 2
 #   carries the style rows into the time embedding, so the gradient reaches
 #   the first self-attention too (an IP-Adapter step's #8 is 69); its 2-step
@@ -5500,6 +5884,7 @@ def phase_slice_trainer(tmp: str, name: str, model: dict, folder: str, frozen,
     return launches
 
 
+@_tf32_off()
 def phase_slice14_parity(towers: dict) -> dict[str, tuple[int, ...]]:
     """Card against CPU for the three workloads at sdxl_parity's model
     (512^2, full widths, one layer and one transformer per stage), batch 1,
@@ -5577,10 +5962,12 @@ def phase_slice14_parity(towers: dict) -> dict[str, tuple[int, ...]]:
     return launches
 
 
-def phase_slice14(tmp: str) -> dict[str, tuple[int, ...]]:
+def phase_slice14(tmp: str) -> tuple[dict[str, tuple[int, ...]], dict]:
     """RoPE distillation, DRaFT+ and the style tokenizer: towers written once
     (PickScore's CLIP-H/14 and the small one, the ViT-B/16-448 timm tower and
-    the small one), the parity phase, then the three full-width trainers."""
+    the small one), the parity phase, then the three full-width trainers.
+    Returns the launches, and the small PickScore and the data folders for
+    sdxl_adapter_mesh_reduced."""
     from vision_pt_tpu_torch.tools.bench.draft_plus_gap import (
         SMALL_PICKSCORE,
         write_pickscore,
@@ -5639,7 +6026,8 @@ def phase_slice14(tmp: str) -> dict[str, tuple[int, ...]]:
             reference=reference,
             caption_processors=[{"type": "prefix", "prefix": STYLE_PREFIX}]),
     })
-    return launches
+    return launches, {"pickscore_small": small["pickscore"], "images": images,
+                      "referenced": referenced}
 
 
 # ---------------------------------- text-conditioned JiT, the feed, the losses
@@ -5721,10 +6109,11 @@ def _text_jit_config(tower: str, dtype: str):
                      denoiser=JiT_B_16_Config(context_dim=2048))
 
 
-# the text tower's depth in text_sampler: Qwen3-VL-2B's full width, 8 of its 28
-# layers (the tower's attention is plain; no kernel runs in it), which pays
-# for latent_mesh_trainer's seconds on the card's path
-TEXT_TOWER_LAYERS, QWEN3_VL_2B_LAYERS = 8, 28
+# the text tower's depth in text_sampler: Qwen3-VL-2B's full width, 4 of its 28
+# layers (the tower's attention is plain; no kernel runs in it): 8 paid for
+# latent_mesh_trainer's seconds on the card's path, 4 for the adapter mesh
+# phases'
+TEXT_TOWER_LAYERS, QWEN3_VL_2B_LAYERS = 4, 28
 
 
 def phase_text_sampler(tmp: str) -> tuple[int, ...]:
@@ -5844,9 +6233,8 @@ def _text_parity_run(dtype: str, device: str, work: str) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+@_tf32_off()
 def phase_text_parity(work: str) -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     for dtype in ("float32", "bfloat16"):
         future = _HALVES.take(("text_parity", dtype), f"text_parity {dtype}",
                               _text_parity_run, dtype, "cpu", work)
@@ -5952,9 +6340,8 @@ def _losses_run(device: str, work: str) -> dict:
             "shortcut_loss": float(value), "launches": _counts()}
 
 
+@_tf32_off()
 def phase_losses(work: str) -> tuple[int, ...]:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     future = _HALVES.take("losses", "losses", _losses_run, "cpu", work)
     card = _losses_run("cuda", work)
     check(card["launches"] == LOSSES_LAUNCHES,
@@ -6305,19 +6692,33 @@ def _run(args: list[str], started: float, smi: str, work: str) -> int:
     launches.update(phase_sdxl_flow_match_parity())
     # every phase that submits a CPU half runs before the SDXL trainers, so
     # the worker is never left waiting for its next job
-    launches.update(phase_adapters(tempfile.mkdtemp(dir=work)))
-    launches.update(phase_slice14(tempfile.mkdtemp(dir=work)))
+    adapter_launches, adapter_records = phase_adapters(tempfile.mkdtemp(dir=work))
+    launches.update(adapter_launches)
+    slice_launches, slice_records = phase_slice14(tempfile.mkdtemp(dir=work))
+    launches.update(slice_launches)
     phase_cogview4_parity()
     sdxl_tmp = tempfile.mkdtemp(dir=work)
     sdxl_runs = {}
     for label in ("lora", "qlora", "flow_match"):
         launches[f"sdxl_{label}_trainer"], sdxl_runs[label] = phase_sdxl_trainer(sdxl_tmp,
                                                                                   label)
-    # before inference_server, which deletes the NF4 file the QLoRA run reads
-    phase_sdxl_mesh_trainer(sdxl_tmp, sdxl_runs)
+    # before inference_server, which deletes the NF4 file the QLoRA run reads;
+    # the adapter mesh runs start beside sdxl_mesh_trainer's two and end with them
+    torch.cuda.empty_cache()
+    adapter_started = start_sdxl_adapter_mesh_trainer(sdxl_tmp, adapter_records["ip_adapter"])
+    sdxl_mesh_runs = phase_sdxl_mesh_trainer(sdxl_tmp, sdxl_runs)
+    phase_sdxl_adapter_mesh_trainer(adapter_started, adapter_records["ip_adapter"],
+                                    sdxl_mesh_runs)
+    # the reduced adapter mesh cases' process runs beside the CogView4 sampler
+    # and the server, device-bound phases whose peaks (38.8 and 36.6 GB) leave
+    # the card room for its own (18.7 GB, its DRaFT+ case)
+    reduced_started = start_sdxl_adapter_mesh_reduced(tempfile.mkdtemp(dir=work),
+                                                      {**adapter_records, **slice_records})
     launches["optimizers"] = phase_optimizers()
     launches.update(phase_cogview4_sampler())
     launches.update(phase_inference_server(sdxl_tmp))
+    phase_sdxl_adapter_mesh_reduced(reduced_started, {"inference_server": {
+        "exit": 0, "ended_wall": time.time()}})
     # last on the card's path: the worker's queue ends last, and every
     # phase before these submits its CPU halves earlier
     latent_started = start_latent_mesh_trainer(tmp, latent_no_mesh)

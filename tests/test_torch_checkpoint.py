@@ -22,6 +22,7 @@ from vision_pt_tpu_torch.data.square_class_image import SyntheticClassImageDatas
 from vision_pt_tpu_torch.training.checkpoint import TrainStateCheckpointer
 from vision_pt_tpu_torch.training.trainer import Trainer
 from vision_pt_tpu_torch.workloads.jit_class_to_image import JiTForClassToImageTraining
+from tests.test_torch_sdxl_distributed import one_torch_thread  # noqa: F401,E402
 
 TINY = dict(patch_size=8, hidden_size=32, depth=2, num_heads=1, bottleneck_dim=8,
             context_dim=16, context_start_block=1, rope_axes_dims=[8, 12, 12],

@@ -25,6 +25,7 @@ from vision_pt_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
     flash_attention_with_lse,
 )
+from tests.test_torch_sdxl_distributed import one_torch_thread  # noqa: F401,E402
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 CASES = [

@@ -56,6 +56,7 @@ from vision_pt_tpu_torch.peft import (
     calculate_trainable_parameters,
 )
 from vision_pt_tpu_torch.workloads import sdxl_ip_adapter as workload_module
+from tests.test_torch_sdxl_distributed import one_torch_thread  # noqa: F401,E402
 
 TINY_UNET = dict(hidden_dim=32, block_out_channels=[32, 32, 64],
                  num_transformers_per_block=[1, 1, 1], num_head_channels=16,

@@ -40,6 +40,7 @@ import vision_pt_tpu_torch.models.jit.extension.uvit as tuvit
 from vision_pt_tpu_torch.models.jit.convert import from_jax_state
 from vision_pt_tpu_torch.models.jit.pipeline import JiTModel
 from vision_pt_tpu_torch.ops import attention as tattn
+from tests.test_torch_sdxl_distributed import one_torch_thread  # noqa: F401,E402
 
 TINY = dict(
     patch_size=4, hidden_size=64, depth=4, num_heads=2, bottleneck_dim=16,

@@ -35,6 +35,7 @@ from vision_pt_tpu_torch.config import TrainConfig
 from vision_pt_tpu_torch.models.jit.convert import from_jax_state
 from vision_pt_tpu_torch.ops import attention as tattn
 from vision_pt_tpu_torch.ops.timestep.sampling import sample_timestep
+from tests.test_torch_sdxl_distributed import one_torch_thread  # noqa: F401,E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 LOSS_TOL, GRAD_TOL, SAMPLE_TOL = 1e-5, 1e-4, 1e-5  # relative, fp32

@@ -26,8 +26,9 @@ from 1024 elements (``MIN_SHARD``), so the tiny weights are split:
   JAX ``compute_loss`` (traced with ``nnx.eval_shape``), and 0 under the
   other meshes.
 Also the tensor-parallel rules over each variant's tree against JAX's; the
-refusals that stay (SDXL ``tensor`` / ``seq``, an SDXL adapter workload,
-LoHa, an optax-family optimizer), every one naming ROADMAP Queue 1 item 5;
+refusals that stay (SDXL ``tensor`` / ``seq``, also with an adapter
+workload, LoHa or an optax-family optimizer), every one naming ROADMAP
+Queue 1 item 5;
 and every ``train/jit`` entry point under a 2-rank ``torchrun``-style group
 (``trainer.distributed_init``, {data 2}, two steps so the profiler's trace
 holds one, rank 0's save).
@@ -58,6 +59,7 @@ from vision_pt_tpu_torch.data.square_class_image import (
     SyntheticClassImageDatasetConfig,
     _SyntheticClassBucket,
 )
+from tests.test_torch_sdxl_distributed import one_torch_thread  # noqa: F401,E402
 
 WORLD, SEED, BATCH, SIZE, STEPS, MIN_SHARD = 4, 0, 8, 16, 2, 1024
 LATENT_SIDE = 8  # 8 x 8 x 4 latents, patch 2: the square variants' 16 patches
@@ -100,6 +102,8 @@ ENTRY_POINTS = {"arb_class_to_image": 0, "arb_class_to_image_ujit": 0,
                 "class_to_image_cross": 0, "class_to_image_ig": 1,
                 "class_to_image_loig": 1, "class_to_image_tread": 1,
                 "class_to_image_ujit": 1}
+# the refusals that stay: the tensor and seq axes of the SDXL workloads, with
+# an adapter workload, LoHa and an optax-family optimizer among them
 REFUSALS = ("sdxl_tensor", "sdxl_seq", "sdxl_adapter", "loha", "optax")
 
 
@@ -320,7 +324,6 @@ def _refusal(name, inputs):
     message, or None if nothing raised."""
     from vision_pt_tpu_torch.config import TrainConfig
     from vision_pt_tpu_torch.training.trainer import Trainer
-    from vision_pt_tpu_torch.workloads.jit_class_to_image import JiTForClassToImageTraining
     from vision_pt_tpu_torch.workloads.sdxl_rope_distill import SDXLRoPEDistillTraining
     from vision_pt_tpu_torch.workloads.sdxl_text_to_image import SDXLForTextToImageTraining
 
@@ -333,21 +336,18 @@ def _refusal(name, inputs):
                         SDXLForTextToImageTraining),
         "sdxl_seq": ({**sdxl, "trainer": {"mesh": {"data": 2, "seq": 2}}},
                      SDXLForTextToImageTraining),
-        "sdxl_adapter": ({**sdxl, "trainer": {"mesh": {"data": 4}}}, SDXLRoPEDistillTraining),
+        "sdxl_adapter": ({**sdxl, "trainer": {"mesh": {"data": 2, "seq": 2}}},
+                         SDXLRoPEDistillTraining),
         "loha": ({**sdxl, "peft": {**lora, "config": {**lora["config"], "type": "loha"}},
-                  "trainer": {"mesh": {"data": 4}}}, SDXLForTextToImageTraining),
-        "optax": ({**_config("pope", inputs, {"data": 4}),
-                   "optimizer": {"name": "lion", "args": {"lr": 1e-3}}},
-                  JiTForClassToImageTraining),
+                  "trainer": {"mesh": {"data": 2, "tensor": 2}}}, SDXLForTextToImageTraining),
+        "optax": ({**sdxl, "optimizer": {"name": "lion", "args": {"lr": 1e-3}},
+                   "trainer": {"mesh": {"fsdp": 2, "tensor": 2}}}, SDXLRoPEDistillTraining),
     }[name]
     trainer = Trainer(TrainConfig.model_validate(config), device="cpu")
     trainer.register_train_dataset_class(SyntheticClassImageDatasetConfig)
     trainer.register_model_class(workload)
     try:
-        if name == "optax":
-            trainer.before_train()  # raises in prepare_optimizer
-        else:
-            trainer.prepare_model()  # raises before the model is built
+        trainer.prepare_model()  # raises before the model is built
     except NotImplementedError as e:
         return {"raised": str(e)}
     return {"raised": None}

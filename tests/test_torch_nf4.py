@@ -31,6 +31,7 @@ from vision_pt_tpu_torch.ops.quant.nf4_matmul import (
     dequant_matmul_4bit,
     dequant_matmul_4bit_reference,
 )
+from tests.test_torch_sdxl_distributed import one_torch_thread  # noqa: F401,E402
 
 QUANT_TYPES = ["nf4", "fp4"]
 

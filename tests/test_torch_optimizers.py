@@ -33,6 +33,7 @@ from vision_pt_tpu.training import optim8bit as joptim8bit
 from vision_pt_tpu.training.optimizer import get_optimizer as jax_get_optimizer
 from vision_pt_tpu_torch.training import optax_optimizers
 from vision_pt_tpu_torch.training.optimizer import ScheduleFreeAdamW, get_optimizer
+from tests.test_torch_sdxl_distributed import one_torch_thread  # noqa: F401,E402
 
 STEPS = 20
 SHAPES = [(7, 5), (300,)]

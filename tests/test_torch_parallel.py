@@ -228,24 +228,54 @@ def _trainer(config, workload=None):
     return trainer
 
 
+def _one_rank_step(tmp_path, config, workload=None, batch=None):
+    """One step of the trainer on ``config`` without a mesh and under
+    {1, 1, 1, 1}: each side's loss and trained tensors after it (on the
+    first batch of the dataset unless ``batch`` is given)."""
+    from vision_pt_tpu_torch.ops.attention import attention_dtype
+
+    runs = []
+    for mesh in (None, {"data": 1, "fsdp": 1, "tensor": 1, "seq": 1}):
+        trainer = _trainer({**config, "trainer": {**config["trainer"], "mesh": mesh}},
+                           workload)
+        trainer.before_train()
+        arrays = trainer.model.prepare_batch(
+            batch if batch is not None else next(iter(trainer.train_dataset)))
+        with attention_dtype(None):
+            loss, _ = trainer.train_step(arrays, torch.Generator().manual_seed(0))
+        runs.append((float(loss), {n: p.detach().clone() for n, p in
+                                   trainer.model.trainable().named_parameters()
+                                   if p.requires_grad}))
+    (loss, params), (mesh_loss, mesh_params) = runs
+    assert mesh_loss == loss and params.keys() == mesh_params.keys() and params
+    assert all(torch.equal(params[k], mesh_params[k]) for k in params)
+
+
 @pytest.mark.parametrize("name", ["prodigy", "lion", "rmsprop", "adafactor"])
 def test_optimizers_not_held_under_a_mesh_raise(tmp_path, one_rank_group, name):
-    config = _tiny_config(tmp_path, mesh={"data": 1})
+    """Each optax rule runs under a mesh (the name is from when they were
+    refused there): under a one-rank mesh each takes the one-device update
+    to the bit."""
+    config = _tiny_config(tmp_path)
     config["optimizer"] = {"name": name, "args": {"lr": 1e-3}}
-    trainer = _trainer(config)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        trainer.before_train()
+    _one_rank_step(tmp_path, config)
 
 
 def test_workloads_not_held_under_a_mesh_raise(tmp_path, one_rank_group):
-    from tests.test_torch_sdxl_training import TINY_MODEL
+    """RoPE distillation runs under a mesh (the name is from when the
+    adapter workloads were refused there): under a one-rank mesh the loss
+    and the trained tensors are the one-device step's, the low-res draws
+    taken with the rows."""
+    from tests.test_torch_sdxl_rope import make_batch
+    from tests.test_torch_sdxl_training import PEFT, TINY_MODEL
     from vision_pt_tpu_torch.workloads.sdxl_rope_distill import SDXLRoPEDistillTraining
 
-    config = _tiny_config(tmp_path, mesh={"data": 1})
-    config["model"] = {**TINY_MODEL, "tokenizer": "word-hash"}
-    trainer = _trainer(config, SDXLRoPEDistillTraining)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        trainer.before_train()
+    assert {"lowres_vae_noise", "lowres_noise"} <= set(SDXLRoPEDistillTraining.mesh_draws)
+    config = _tiny_config(tmp_path)
+    config.update(model={**TINY_MODEL, "denoiser": {**TINY_MODEL["denoiser"],
+                                                    "rope_dims": [8, 8]},
+                         "tokenizer": "word-hash"}, peft=PEFT)
+    _one_rank_step(tmp_path, config, SDXLRoPEDistillTraining, make_batch())
 
 
 def test_one_rank_mesh_trains_as_one_device(tmp_path, one_rank_group):

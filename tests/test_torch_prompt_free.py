@@ -51,6 +51,7 @@ from vision_pt_tpu_torch.models.sdxl.convert import from_jax_state
 from vision_pt_tpu_torch.ops import attention as tattn
 from vision_pt_tpu_torch.peft import LoRAConfig, replace_to_peft_layer
 from vision_pt_tpu_torch.workloads import sdxl_prompt_free as workload_module
+from tests.test_torch_sdxl_distributed import one_torch_thread  # noqa: F401,E402
 
 PROJECTOR_ARGS = {"linear": {}, "mlp": {"hidden_dim": 48}, "resampler": {"num_heads": 4}}
 CONTEXT = TINY_UNET["context_dim"]

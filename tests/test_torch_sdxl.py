@@ -51,6 +51,7 @@ from vision_pt_tpu_torch.ops.long_prompt import chunk_token_ids
 from vision_pt_tpu_torch.ops.quant import quantize_inplace
 from vision_pt_tpu_torch.tools import inference_cli
 from vision_pt_tpu_torch.utils import state_dict as tstate_dict
+from tests.test_torch_sdxl_distributed import one_torch_thread  # noqa: F401,E402
 
 TINY_UNET = dict(
     hidden_dim=32,

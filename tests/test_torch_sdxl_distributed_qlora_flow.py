@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_sdxl_distributed import (
+from tests.test_torch_sdxl_distributed import (  # noqa: F401 (one_torch_thread)
     _ok,
     check_against,
     check_file,
@@ -27,6 +27,7 @@ from tests.test_torch_sdxl_distributed import (
     check_resume,
     check_sharded,
     make_runs,
+    one_torch_thread,
 )
 
 CASES = ["qlora_data2_fsdp2", "flow_data2_fsdp2"]

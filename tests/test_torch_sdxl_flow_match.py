@@ -55,6 +55,7 @@ from vision_pt_tpu_torch.ops import attention as tattn
 from vision_pt_tpu_torch.peft import LoRAConfig, freeze_all_but_adapters, replace_to_peft_layer
 from vision_pt_tpu_torch.workloads.sdxl_flow_match import SDXLForFlowMatchingTraining
 from vision_pt_tpu_torch.workloads.sdxl_text_to_image import SDXLTrainable
+from tests.test_torch_sdxl_distributed import one_torch_thread  # noqa: F401,E402
 
 BRANCHES = [("velocity", "velocity"), ("image", "velocity"), ("image", "image")]
 T = np.asarray([0.31, 0.87], np.float32)  # the sampler's t, before * 1000

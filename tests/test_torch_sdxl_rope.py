@@ -58,6 +58,7 @@ from vision_pt_tpu_torch.models.sdxl.denoiser import Denoiser
 from vision_pt_tpu_torch.ops import attention as tattn
 from vision_pt_tpu_torch.peft import LoRAConfig, freeze_all_but_adapters, replace_to_peft_layer
 from vision_pt_tpu_torch.workloads import sdxl_rope_distill as workload_module
+from tests.test_torch_sdxl_distributed import one_torch_thread  # noqa: F401,E402
 
 ROPE_UNET = {**TINY_UNET, "rope_dims": [8, 8]}
 ROPE_MODEL = {**TINY_MODEL, "denoiser": ROPE_UNET}

@@ -62,6 +62,7 @@ from vision_pt_tpu_torch.workloads.sdxl_text_to_image import (
     SDXLForTextToImageTraining,
     SDXLTrainable,
 )
+from tests.test_torch_sdxl_distributed import one_torch_thread  # noqa: F401,E402
 
 TINY_UNET = dict(hidden_dim=32, block_out_channels=[32, 32, 64],
                  num_transformers_per_block=[1, 1, 1], num_head_channels=16,

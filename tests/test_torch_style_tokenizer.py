@@ -50,6 +50,7 @@ from vision_pt_tpu_torch.models.sdxl.adapter import style_tokenizer as sdxl_styl
 from vision_pt_tpu_torch.models.sdxl.convert import from_jax_state
 from vision_pt_tpu_torch.ops import attention as tattn
 from vision_pt_tpu_torch.workloads import sdxl_style_tokenizer as workload_module
+from tests.test_torch_sdxl_distributed import one_torch_thread  # noqa: F401,E402
 
 STYLE = 49408
 TE1 = TINY_MODEL["text_encoder_1_config"]

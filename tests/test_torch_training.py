@@ -54,6 +54,7 @@ from vision_pt_tpu_torch.training.trainer import Trainer
 from vision_pt_tpu_torch.workloads.jit_class_to_image import (
     JiTForClassToImageTraining,
 )
+from tests.test_torch_sdxl_distributed import one_torch_thread  # noqa: F401,E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SEED, BATCH, SIZE, STEPS = 0, 4, 32, 5

@@ -288,30 +288,36 @@ class CLIPTextModel(nn.Module):
         # a copy: the default configs are shared by every model built
         self.config = replace(self.config, vocab_size=new_num_tokens)
 
-    def _embed_with_style(self, input_ids, style_embeddings, style_token_id):
+    def _embed_with_style(self, input_ids, style_embeddings, style_token_id,
+                          style_offset=0):
         """Token embeddings with every occurrence of ``style_token_id``, in
         flat scan order over the batch and its chunks, replaced by the next
         row of ``style_embeddings`` (the reference's masked_scatter; past the
-        last row the last one repeats), then the positions added."""
+        last row the last one repeats), then the positions added. The first
+        occurrence takes row ``style_offset`` (the occurrences in the rows
+        of the batch before ``input_ids``, when these are a block of it)."""
         emb = self.text_model.embeddings
         tok = emb.token_embedding(input_ids)
         hidden = tok.shape[-1]
         flat_mask = (input_ids == style_token_id).reshape(-1)
         flat_styles = style_embeddings.reshape(-1, hidden)
-        occurrence = torch.cumsum(flat_mask.int(), dim=0) - 1
+        occurrence = torch.cumsum(flat_mask.int(), dim=0) - 1 + style_offset
         gathered = flat_styles[occurrence.clamp(0, flat_styles.shape[0] - 1)].to(tok.dtype)
         tok = torch.where(flat_mask[:, None], gathered, tok.reshape(-1, hidden))
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None]
         return tok.reshape(*input_ids.shape, hidden) + emb.position_embedding(pos)
 
     def forward(self, input_ids: torch.Tensor, style_embeddings: torch.Tensor | None = None,
-                style_token_id: int | None = None) -> CLIPTextModelOutput:
+                style_token_id: int | None = None,
+                style_offset: torch.Tensor | int = 0) -> CLIPTextModelOutput:
         """``style_embeddings`` (with ``style_token_id``): the style
-        tokenizer's rows in place of the placeholder's embeddings."""
+        tokenizer's rows in place of the placeholder's embeddings, from row
+        ``style_offset`` on."""
         tm = self.text_model
         if style_embeddings is not None:
             assert style_token_id is not None
-            x = self._embed_with_style(input_ids, style_embeddings, style_token_id)
+            x = self._embed_with_style(input_ids, style_embeddings, style_token_id,
+                                       style_offset)
         else:
             x = tm.embeddings(input_ids)
         seq = input_ids.shape[1]

@@ -425,6 +425,36 @@ def reduce_replicated_grads(module: nn.Module) -> None:
                          _axis_size(mesh, "data") * _axis_size(mesh, "fsdp"))
 
 
+def _split_key(t: torch.Tensor) -> tuple:
+    """(mesh, the names of the axes it is split on) of a DTensor; (None, ())
+    for a whole tensor."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return None, ()
+    names = t.device_mesh.mesh_dim_names
+    return t.device_mesh, tuple(names[i] for i, pl in enumerate(t.placements)
+                                if pl.is_shard())
+
+
+def shard_sum(values: list[torch.Tensor], like: list[torch.Tensor]) -> torch.Tensor:
+    """The sum over every element of the tensors ``like`` of some function
+    whose sum over this rank's elements of ``like[i]`` is ``values[i]``: a
+    DTensor's partial sums are added over the mesh axes it is split on, a
+    whole tensor's are taken once (not once a rank). Every rank of the
+    groups gets the same value."""
+    sums: dict[tuple, torch.Tensor] = {}
+    for value, t in zip(values, like):
+        key = _split_key(t)
+        sums[key] = sums[key] + value if key in sums else value.clone()
+    total = None
+    for (mesh, names), s in sums.items():
+        for name in names:
+            dist.all_reduce(s, group=mesh.get_group(name))
+        total = s if total is None else total + s
+    return total
+
+
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     """The L2 norm over every element of ``tensors``; for DTensors the
     squares of each shard are summed over the mesh axes it is split on."""
@@ -432,21 +462,7 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
 
     if not any(isinstance(t, DTensor) for t in tensors):
         return torch.nn.utils.get_total_norm(tensors, norm_type=2.0)
-    sums: dict[tuple, torch.Tensor] = {}
-    for t in tensors:
-        key: tuple = (None, ())
-        if isinstance(t, DTensor):
-            names = t.device_mesh.mesh_dim_names
-            key = (t.device_mesh, tuple(names[i] for i, pl in enumerate(t.placements)
-                                        if pl.is_shard()))
-        square = _local(t).float().square().sum()
-        sums[key] = sums[key] + square if key in sums else square
-    total = None
-    for (mesh, names), s in sums.items():
-        for name in names:
-            dist.all_reduce(s, group=mesh.get_group(name))
-        total = s if total is None else total + s
-    return total.sqrt()
+    return shard_sum([_local(t).float().square().sum() for t in tensors], tensors).sqrt()
 
 
 def reshard(module: nn.Module) -> None:
@@ -506,7 +522,7 @@ def full_tensors(tree: Any) -> Any:
     return tree
 
 
-def _rows(mesh) -> tuple[int, int]:
+def batch_rows(mesh) -> tuple[int, int]:
     """(index, count) of this rank's block of batch rows over data x fsdp."""
     data, fsdp = _axis_size(mesh, "data"), _axis_size(mesh, "fsdp")
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
@@ -517,7 +533,7 @@ def shard_batch(batch: Any, mesh) -> Any:
     """This rank's rows of every array in ``batch`` (leading axis), split
     over data x fsdp as ``P(("data", "fsdp"))`` splits it: the tensor and
     seq ranks of one (data, fsdp) coordinate take the same rows."""
-    index, count = _rows(mesh)
+    index, count = batch_rows(mesh)
 
     def place(x):
         if isinstance(x, (torch.Tensor, np.ndarray)) and x.ndim > 0:
@@ -532,6 +548,41 @@ def shard_batch(batch: Any, mesh) -> Any:
         return x
 
     return place(batch)
+
+
+class _GatherRows(torch.autograd.Function):
+    """All-gather of the batch ranks' row blocks in row order; the backward
+    sums the whole gradient over those ranks (every rank's loss may read
+    every row) and takes this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.rows = mesh, x.shape[0]
+        out = x.contiguous()
+        for axis in ("fsdp", "data"):  # the fsdp blocks of one data row first
+            n = _axis_size(mesh, axis)
+            if n > 1:
+                parts = [torch.empty_like(out) for _ in range(n)]
+                dist.all_gather(parts, out, group=mesh.get_group(axis))
+                out = torch.cat(parts)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        for group in _batch_groups(ctx.mesh):
+            dist.all_reduce(grad, group=group)
+        index, _ = batch_rows(ctx.mesh)
+        return grad[index * ctx.rows:(index + 1) * ctx.rows], None
+
+
+def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole batch's rows of ``x`` (this rank's block, as ``shard_batch``
+    split it) on every rank, with the gradient carried back to the rank that
+    computed each row."""
+    if not _batch_groups(mesh):
+        return x
+    return _GatherRows.apply(x, mesh)
 
 
 def replicated(mesh):

@@ -42,6 +42,15 @@ def convert_hf_clip_text(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     return out
 
 
+def _resize_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_out, n_in) weights of the antialiased bicubic resize of one axis:
+    ``F.interpolate`` of the fp32 identity along its rows (the fp32 weights
+    it and the JAX package resize with), held in fp64."""
+    eye = torch.eye(n_in, dtype=torch.float32, device=device)[None, None]
+    return F.interpolate(eye, size=(n_out, n_in), mode="bicubic", align_corners=False,
+                         antialias=True)[0, 0].double()
+
+
 def clip_preprocess_images(images: torch.Tensor, image_size: int = 224,
                            input_range: tuple[float, float] = (-1.0, 1.0)) -> torch.Tensor:
     """Differentiable CLIP preprocessing of NHWC images: to [0, 1], an
@@ -51,8 +60,13 @@ def clip_preprocess_images(images: torch.Tensor, image_size: int = 224,
     square."""
     lo, hi = input_range
     x = torch.clamp((images.float() - lo) / (hi - lo), 0.0, 1.0)
-    x = F.interpolate(x.permute(0, 3, 1, 2), size=(image_size, image_size), mode="bicubic",
-                      align_corners=False, antialias=True).permute(0, 2, 3, 1)
+    # the resize as its two (out, in) weight matrices, the products in fp64
+    # (no TF32): its backward is then two products, which run in a fixed order
+    # on the card (F.interpolate's antialiased backward adds atomically there)
+    _, h, w, _ = x.shape
+    rows, cols = (_resize_matrix(size, image_size, x.device) for size in (h, w))
+    x = torch.matmul(torch.matmul(rows, x.double().permute(0, 3, 1, 2)), cols.T)
+    x = x.float().permute(0, 2, 3, 1)
     mean = torch.tensor(CLIP_IMAGE_MEAN, device=x.device)
     std = torch.tensor(CLIP_IMAGE_STD, device=x.device)
     return (x - mean) / std

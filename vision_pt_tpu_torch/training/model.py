@@ -20,6 +20,7 @@ from pydantic import BaseModel
 from torch import nn
 
 from ..config import TrainConfig
+from ..parallel.mesh import shard_batch
 
 
 class ModelForTraining(ABC):
@@ -37,6 +38,9 @@ class ModelForTraining(ABC):
     mesh_whole_draws: tuple[str, ...] = ()
     # the mesh axes it runs over; another axis of size > 1 raises
     mesh_axes: tuple[str, ...] = ("data", "fsdp", "tensor", "seq")
+    # the trainer's DeviceMesh under ``trainer.mesh`` (set before the model
+    # is built), else None
+    mesh = None
 
     def __init__(self, config: TrainConfig, device: torch.device) -> None:
         self.config = config
@@ -85,6 +89,11 @@ class ModelForTraining(ABC):
     @abstractmethod
     def draw_randoms(self, batch: dict, generator: torch.Generator) -> dict:
         """The step's random draws (timesteps, noise)."""
+
+    def shard_rows(self, batch: dict, mesh) -> dict:
+        """This rank's rows of the prepared batch under ``trainer.mesh``: a
+        block of every array's leading axis (``shard_batch``)."""
+        return shard_batch(batch, mesh)
 
     @abstractmethod
     def compute_loss(self, trainable: nn.Module, batch: dict, draws: dict

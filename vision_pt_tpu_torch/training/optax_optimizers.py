@@ -19,6 +19,15 @@ next update: the Trainer writes its schedule there before every step, which
 is where optax reads ``learning_rate(count)``. The state sits in the
 parameters' dtype, as optax keeps it (Adafactor's momentum in
 ``dtype_momentum``).
+
+Under ``trainer.mesh`` a parameter sharded by FSDP (a DTensor) updates its
+own shard, its elementwise state sharded alike, and each rule takes its
+whole-array quantities over the whole array: Prodigy's two sums over every
+parameter (a shard's terms summed over the ranks that split it, a whole
+parameter's counted once), so every rank holds the same d; Adafactor runs
+on the DTensors themselves, so its factored dims see the whole shape and
+its means (the row and column means, made whole on every rank; the block
+RMS; the parameter-scale RMS) are the whole array's.
 """
 
 from __future__ import annotations
@@ -26,18 +35,45 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import _local, shard_sum
 from ..utils.dtype import str_to_dtype
 from .optimizer import StateKeepsDtype
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor made whole on every rank (its shards gathered, its partial
+    sums added), else ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _replicated_like(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x`` (whole on every rank) as a replicated DTensor on ``t``'s mesh
+    when ``t`` is a DTensor, so the two broadcast; else ``x``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        return x
+    mesh = t.device_mesh
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
 class _Optax(StateKeepsDtype, torch.optim.Optimizer):
-    """Shared walk over the parameters that have a gradient."""
+    """Shared walk over the parameters that have a gradient. State the shape
+    of a parameter is made like it (a DTensor for a sharded one); the
+    elementwise rules write it in place through this rank's shard."""
 
     def _with_grads(self):
         for group in self.param_groups:
             for p in group["params"]:
                 if p.grad is not None:
                     yield group, p
+
+    @staticmethod
+    def _store(state: dict, **values: torch.Tensor) -> None:
+        for name, value in values.items():
+            _local(state[name]).copy_(value)
 
     @staticmethod
     def _scaled(lr: float, update: torch.Tensor) -> torch.Tensor:
@@ -65,11 +101,11 @@ class Lion(_Optax):
             state = self.state[p]
             if not state:
                 state["mu"] = torch.zeros_like(p)
-            g, mu = p.grad, state["mu"]
+            param, g, mu = _local(p), _local(p.grad), _local(state["mu"])
             update = torch.sign((1.0 - b1) * g + b1 * mu)
-            state["mu"] = ((1 - b2) * g + b2 * mu).to(mu.dtype)
-            update = update + group["weight_decay"] * p
-            self._apply(p, self._scaled(-group["lr"], update))
+            self._store(state, mu=((1 - b2) * g + b2 * mu).to(mu.dtype))
+            update = update + group["weight_decay"] * param
+            self._apply(param, self._scaled(-group["lr"], update))
 
 
 class RMSprop(_Optax):
@@ -97,13 +133,13 @@ class RMSprop(_Optax):
                     state["mu"] = torch.zeros_like(p)
                 if group["momentum"] is not None:
                     state["trace"] = torch.zeros_like(p)
-            g = p.grad
-            nu = (1 - decay) * g**2 + decay * state["nu"]
-            state["nu"] = nu
+            param, g = _local(p), _local(p.grad)
+            nu = (1 - decay) * g**2 + decay * _local(state["nu"])
+            self._store(state, nu=nu)
             mu = None
             if group["centered"]:
-                mu = (1 - decay) * g + decay * state["mu"]
-                state["mu"] = mu
+                mu = (1 - decay) * g + decay * _local(state["mu"])
+                self._store(state, mu=mu)
             if group["bias_correction"]:
                 state["count"] += 1
                 correction = 1 - torch.tensor(decay, dtype=torch.float32) ** state["count"]
@@ -116,11 +152,11 @@ class RMSprop(_Optax):
                        else 1 / (torch.sqrt(nu) + eps))
             update = self._scaled(-group["lr"], scaling * g)
             if group["momentum"] is not None:
-                trace = update + group["momentum"] * state["trace"]
+                trace = update + group["momentum"] * _local(state["trace"])
                 update = (update + group["momentum"] * trace if group["nesterov"]
                           else trace)
-                state["trace"] = trace
-            self._apply(p, update)
+                self._store(state, trace=trace)
+            self._apply(param, update)
 
 
 class Adagrad(_Optax):
@@ -139,12 +175,12 @@ class Adagrad(_Optax):
             if not state:
                 state["sum_of_squares"] = torch.full_like(
                     p, group["initial_accumulator_value"])
-            g = p.grad
-            total = g * g + state["sum_of_squares"]
-            state["sum_of_squares"] = total
+            param, g = _local(p), _local(p.grad)
+            total = g * g + _local(state["sum_of_squares"])
+            self._store(state, sum_of_squares=total)
             inverse = torch.where(total > 0, torch.rsqrt(total + group["eps"]),
                                   torch.zeros_like(total))
-            self._apply(p, self._scaled(-group["lr"], inverse * g))
+            self._apply(param, self._scaled(-group["lr"], inverse * g))
 
 
 def _factored_dims(shape: tuple[int, ...], factored: bool,
@@ -163,9 +199,9 @@ class Adafactor(_Optax):
     """``optax.adafactor``: the factored second-moment scaling
     (``scale_by_factored_rms``), block-RMS clipping, the rate, the
     parameter-scale multiplication, the optional momentum and decay, then
-    the sign flip. The factored dims are chosen on the port's own layout
-    (linears (out, in), convs OIHW); the update does not depend on which of
-    the two is the row."""
+    the sign flip. The factored dims are chosen on the whole shape in the
+    port's own layout (linears (out, in), convs OIHW); the update does not
+    depend on which of the two is the row."""
 
     def __init__(self, params, lr: float = 1e-3, min_dim_size_to_factor: int = 128,
                  decay_rate: float = 0.8, decay_offset: int = 0,
@@ -190,7 +226,7 @@ class Adafactor(_Optax):
         dims = _factored_dims(tuple(g.shape), group["factored"],
                               group["min_dim_size_to_factor"])
         step = torch.tensor(state["count"] - group["decay_offset"] + 1,
-                            dtype=torch.float32, device=g.device)
+                            dtype=torch.float32, device=_local(g).device)
         decay = 1.0 - step ** (-group["decay_rate"])
         grad_sqr = g * g + group["eps"]
         if dims is None:
@@ -198,13 +234,17 @@ class Adafactor(_Optax):
             state["v"] = v
             return g * v ** -0.5
         d1, d0 = dims
-        v_row = (decay * state["v_row"] + (1.0 - decay) * grad_sqr.mean(dim=d0)).to(dtype)
-        v_col = (decay * state["v_col"] + (1.0 - decay) * grad_sqr.mean(dim=d1)).to(dtype)
+        # the row and column means, whole on every rank
+        v_row = (decay * state["v_row"]
+                 + (1.0 - decay) * _whole(grad_sqr.mean(dim=d0))).to(dtype)
+        v_col = (decay * state["v_col"]
+                 + (1.0 - decay) * _whole(grad_sqr.mean(dim=d1))).to(dtype)
         state["v_row"], state["v_col"] = v_row, v_col
         reduced_d1 = d1 - 1 if d1 > d0 else d1
         row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
         col_factor = v_col ** -0.5
-        return g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+        return (g * _replicated_like(g, row_factor.unsqueeze(d0))
+                * _replicated_like(g, col_factor.unsqueeze(d1)))
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -218,18 +258,18 @@ class Adafactor(_Optax):
                     state["v"] = torch.zeros_like(p)
                 else:
                     d1, d0 = dims
-                    state["v_row"] = torch.zeros_like(p).sum(dim=d0)
-                    state["v_col"] = torch.zeros_like(p).sum(dim=d1)
+                    state["v_row"] = _whole(torch.zeros_like(p).sum(dim=d0))
+                    state["v_col"] = _whole(torch.zeros_like(p).sum(dim=d1))
                 if group["momentum"] is not None:
                     state["ema"] = torch.zeros_like(p, dtype=group["dtype_momentum"])
             update = self._scale_by_factored_rms(group, state, p.grad)
             state["count"] += 1
             if group["clipping_threshold"] is not None:
-                rms = torch.sqrt(torch.mean(update * update))
+                rms = torch.sqrt(_whole(torch.mean(update * update)))
                 update = update / torch.clamp_min(rms / group["clipping_threshold"], 1.0)
             update = self._scaled(group["lr"], update)
             if group["multiply_by_parameter_scale"]:
-                rms = torch.sqrt(torch.mean(p * p))
+                rms = torch.sqrt(_whole(torch.mean(p * p)))
                 update = update * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
             if group["momentum"] is not None:
                 m = group["momentum"]
@@ -281,30 +321,33 @@ class Prodigy(_Optax):
               / (1 - torch.tensor(b1, **f32) ** count))
         estim_lr = shared["estim_lr"]
         dlr = estim_lr * lr * bc
-        numerator_acum = torch.zeros((), **f32)
-        denominator = torch.zeros((), **f32)
+        numerators, denominators = [], []
         for group, p in self._with_grads():
             state = self.state[p]
             if not state:
                 state.update(exp_avg=torch.zeros_like(p), exp_avg_sq=torch.zeros_like(p),
                              grad_sum=torch.zeros_like(p), params0=p.detach().clone())
-            g = p.grad
+            param, g = _local(p), _local(p.grad)
             dg = estim_lr * g
-            numerator_acum += torch.sum(g * (state["params0"] - p))
-            state["exp_avg"] = b1 * state["exp_avg"] + (1 - b1) * dg
-            state["exp_avg_sq"] = b2 * state["exp_avg_sq"] + (1 - b2) * dg * dg
+            numerators.append(torch.sum(g * (_local(state["params0"]) - param)))
             scale = estim_lr if self.safeguard_warmup else dlr
-            state["grad_sum"] = beta3 * state["grad_sum"] + scale * dg / lr0
-            denominator += torch.sum(torch.abs(state["grad_sum"]))
+            grad_sum = beta3 * _local(state["grad_sum"]) + scale * dg / lr0
+            self._store(state, exp_avg=b1 * _local(state["exp_avg"]) + (1 - b1) * dg,
+                        exp_avg_sq=b2 * _local(state["exp_avg_sq"]) + (1 - b2) * dg * dg,
+                        grad_sum=grad_sum)
+            denominators.append(torch.sum(torch.abs(grad_sum)))
+        # over every parameter's every element: the same d on every rank
+        numerator_acum = shard_sum(numerators, params)
+        denominator = shard_sum(denominators, params)
         numerator_weighted = (beta3 * shared["numerator_weighted"]
                               + (estim_lr / lr0) * dlr * numerator_acum)
         lr_estimate = self.estim_lr_coef * numerator_weighted / denominator
         estim_lr = torch.maximum(estim_lr, lr_estimate)
         for group, p in self._with_grads():
-            state = self.state[p]
-            update = (-group["weight_decay"] * dlr * p
-                      - dlr * state["exp_avg"] / (torch.sqrt(state["exp_avg_sq"])
-                                                  + estim_lr * group["eps"]))
-            self._apply(p, update)
+            state, param = self.state[p], _local(p)
+            update = (-group["weight_decay"] * dlr * param
+                      - dlr * _local(state["exp_avg"])
+                      / (torch.sqrt(_local(state["exp_avg_sq"])) + estim_lr * group["eps"]))
+            self._apply(param, update)
         shared.update(count=count, estim_lr=estim_lr,
                       numerator_weighted=numerator_weighted)

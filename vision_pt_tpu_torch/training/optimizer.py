@@ -183,14 +183,6 @@ def is_schedule_free(name: str) -> bool:
     return "schedulefree" in name.lower() or "schedule_free" in name.lower()
 
 
-# the optimizers whose update is held against one device under a mesh:
-# torch's and schedule-free (elementwise on each shard), the 8-bit Adams
-# (their blocks and absmax taken over the whole array); the optax rules
-# raise there
-MESH_OPTIMIZERS = ("adamw", "adam", "sgd", "schedule_free_adamw", "schedule_free_radam",
-                   "adamw8bit", "adam8bit")
-
-
 def resolve_name(name: str) -> str:
     """The JAX package's optimizer name for a config name."""
     key = _ALIASES.get(name.lower(), name.lower())

@@ -70,7 +70,7 @@ from ..utils.logging import get_trackers
 from . import ema as ema_lib
 from .checkpoint import TrainStateCheckpointer
 from .model import ModelForTraining
-from .optimizer import MESH_OPTIMIZERS, get_optimizer, is_schedule_free, resolve_name
+from .optimizer import get_optimizer, is_schedule_free, resolve_name
 from .scheduler import get_lr_schedule
 
 
@@ -188,6 +188,7 @@ class Trainer:
             raise RuntimeError("register_model_class first")
         if self.mesh is not None:
             self._check_mesh_support()
+            self.model.mesh = self.mesh
         self.model.before_setup_model()
         self.model.setup_model()
         self.setup_peft_if_needed()
@@ -207,7 +208,7 @@ class Trainer:
     def _check_mesh_support(self):
         """Refuse, before any surgery, what the mesh path does not hold
         against one device: a workload with no ``mesh_draws``, an axis
-        outside its ``mesh_axes``, a PEFT type other than LoRA."""
+        outside its ``mesh_axes``."""
         name = type(self.model).__name__
         if self.model.mesh_draws is None:
             raise NotImplementedError(f"{name} under trainer.mesh is not ported: "
@@ -216,11 +217,6 @@ class Trainer:
             if self.mesh[axis].size() > 1 and axis not in self.model.mesh_axes:
                 raise NotImplementedError(
                     f"the {axis} axis of trainer.mesh for {name} is not ported: "
-                    "ROADMAP Queue 1 item 5")
-        for target in self._peft_targets():
-            if target.config.type != "lora":
-                raise NotImplementedError(
-                    f"{target.config.type} under trainer.mesh is not ported: "
                     "ROADMAP Queue 1 item 5")
 
     def setup_peft_if_needed(self):
@@ -269,10 +265,6 @@ class Trainer:
         opt_args = {k: v for k, v in args.items() if k not in ("lr", "learning_rate")}
         if self.mesh is not None:
             name = resolve_name(cfg.optimizer.name)
-            if name not in MESH_OPTIMIZERS:
-                raise NotImplementedError(
-                    f"optimizer {cfg.optimizer.name!r} under trainer.mesh is not "
-                    "held against one device: ROADMAP Queue 1 item 5")
             if name in ("adamw", "adam", "sgd") and any(isinstance(p, DTensor)
                                                        for p in self._params):
                 # torch's: one parameter at a time, the foreach kernels take
@@ -440,7 +432,7 @@ class Trainer:
             raise NotImplementedError(
                 f"draws {sorted(other)} under trainer.mesh are not ported: "
                 "ROADMAP Queue 1 item 5")
-        return shard_batch(batch, self.mesh), {
+        return self.model.shard_rows(batch, self.mesh), {
             k: v if k in whole else shard_batch(v, self.mesh) for k, v in draws.items()}
 
     def train_step(self, batch: dict, generator: torch.Generator,

@@ -21,6 +21,7 @@ from PIL import Image
 
 from ..models.sdxl.text_encoder import CHUNK_LENGTH, _merge_chunks
 from ..ops.long_prompt import tokenize_long_prompt
+from ..parallel.mesh import batch_rows, shard_batch
 from ..peft.functional import while_peft_disabled
 from ..reward import load_reward_models
 from .sdxl_text_to_image import (
@@ -41,7 +42,7 @@ class SDXLForDRaFTPlusTrainingConfig(SDXLForTextToImageTrainingConfig):
 
 
 class SDXLDRaFTPlusTraining(SDXLForTextToImageTraining):
-    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
+    mesh_draws = ("latents", "step_noise")
     model_config: SDXLForDRaFTPlusTrainingConfig
     model_config_class = SDXLForDRaFTPlusTrainingConfig
 
@@ -74,6 +75,17 @@ class SDXLDRaFTPlusTraining(SDXLForTextToImageTraining):
                    cfg_scale=torch.tensor(float(batch.get("cfg_scale", cfg.cfg_scale)),
                                           device=self.device))
         return out
+
+    def shard_rows(self, batch: dict, mesh) -> dict:
+        """This rank's prompts under ``trainer.mesh``: the block of the
+        positive rows and the same block of the negative rows (a block of
+        [positive; negative] would part them), and their captions for the
+        reward models."""
+        index, count = batch_rows(mesh)
+        rows = len(self._current_prompts) // count
+        self._current_prompts = self._current_prompts[index * rows:(index + 1) * rows]
+        return {k: torch.cat([shard_batch(half, mesh) for half in v.chunk(2)])
+                if v.dim() > 0 else v for k, v in batch.items()}
 
     def draw_randoms(self, batch: dict, generator: torch.Generator) -> dict:
         """The initial latents (standard normal, before the largest sigma

@@ -66,7 +66,6 @@ def drop_image(rng: np.random.Generator, rate: float, batch_size: int,
 
 
 class SDXLIPAdapterSelfTraining(SDXLForTextToImageTraining):
-    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
     model: SDXLModelWithIPAdapter
     model_config: SDXLModelWithIPAdapterTrainingConfig
     model_config_class = SDXLModelWithIPAdapterTrainingConfig

@@ -49,7 +49,6 @@ class PFGTrainable(nn.Module):
 
 
 class SDXLPFGSelfTraining(SDXLForTextToImageTraining):
-    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
     model: SDXLModelWithPFG
     model_config: SDXLModelWithPFGTrainingConfig
     model_config_class = SDXLModelWithPFGTrainingConfig

@@ -61,7 +61,7 @@ def downscale(pixel_values, original_size, target_size, crop_coords, ratio: floa
 
 
 class SDXLRoPEDistillTraining(SDXLForTextToImageTraining):
-    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
+    mesh_draws = ("vae_noise", "timesteps", "noise", "lowres_vae_noise", "lowres_noise")
     model: SDXLWithRoPEModel
     model_config: SDXLForRoPEDistillTrainingConfig
     model_config_class = SDXLForRoPEDistillTrainingConfig

@@ -26,6 +26,7 @@ from ..models.sdxl.adapter.style_tokenizer import (
 from ..models.sdxl.text_encoder import CHUNK_LENGTH, _merge_chunks
 from ..ops.long_prompt import tokenize_long_prompt
 from ..ops.loss.diffusion import loss_with_predicted_noise, prepare_noised_latents
+from ..parallel.mesh import gather_rows
 from ..peft import freeze_all_but_adapters
 from .sdxl_ip_adapter import drop_image, resize_images
 from .sdxl_prompt_free import SDXLPFGSelfTraining
@@ -55,7 +56,6 @@ class StyleTokenizerTrainable(nn.Module):
 
 
 class SDXLStyleTokenizerTraining(SDXLForTextToImageTraining):
-    mesh_draws = None  # not held under a mesh: ROADMAP Queue 1 item 5
     model: SDXLModelWithStyleTokenizer
     model_config: SDXLModelWithStyleTokenizerTrainingConfig
     model_config_class = SDXLModelWithStyleTokenizerTrainingConfig
@@ -92,12 +92,18 @@ class SDXLStyleTokenizerTraining(SDXLForTextToImageTraining):
         max_len = self.model_config.max_token_length
         out = {}
         # encoder 1 sees the expanded placeholder, encoder 2 does not
-        for name, tokenizer, texts in (("ids1", te.tokenizer_1,
-                                        te.preprocess_style_token(list(captions))),
-                                       ("ids2", te.tokenizer_2, list(captions))):
+        for i, tokenizer, token_id, texts in (
+                (1, te.tokenizer_1, te.style_token_id_1,
+                 te.preprocess_style_token(list(captions))),
+                (2, te.tokenizer_2, te.style_token_id_2, list(captions))):
             ids, _ = tokenize_long_prompt(tokenizer, texts, max_length=max_len,
                                           chunk_length=CHUNK_LENGTH)
-            out[name] = torch.as_tensor(ids).long().to(self.device)
+            ids = torch.as_tensor(ids).long().to(self.device)
+            out[f"ids{i}"] = ids
+            # each row's first style row: the placeholders in the rows before
+            # it (a mesh rank's block starts at its first row's)
+            per_row = (ids == token_id).sum(dim=1)
+            out[f"style_offset_{i}"] = torch.cumsum(per_row, 0) - per_row
         image = batch["image"]
         if image.ndim == 4 and image.shape[-1] != 3 and image.shape[1] == 3:
             image = np.moveaxis(image, 1, -1)
@@ -126,11 +132,17 @@ class SDXLStyleTokenizerTraining(SDXLForTextToImageTraining):
         drop = batch["drop_image"][:, None, None]
         style_1 = torch.where(drop, 0.0, trainable.projector_1(features).style_tokens)
         style_2 = torch.where(drop, 0.0, trainable.projector_2(features).style_tokens)
+        if self.mesh is not None:
+            # the placeholders take rows in flat order over the whole batch:
+            # every rank's style rows, their gradients back to their rank
+            style_1, style_2 = (gather_rows(s, self.mesh) for s in (style_1, style_2))
         # the text encode WITH gradients into the style rows
         out1 = trainable.text_encoder["text_encoder_1"](
-            batch["ids1"], style_embeddings=style_1, style_token_id=te.style_token_id_1)
+            batch["ids1"], style_embeddings=style_1, style_token_id=te.style_token_id_1,
+            style_offset=batch["style_offset_1"][0])
         out2 = trainable.text_encoder["text_encoder_2"](
-            batch["ids2"], style_embeddings=style_2, style_token_id=te.style_token_id_2)
+            batch["ids2"], style_embeddings=style_2, style_token_id=te.style_token_id_2,
+            style_offset=batch["style_offset_2"][0])
         emb1 = _merge_chunks(out1.penultimate_hidden_state, batch_size)
         emb2 = _merge_chunks(out2.penultimate_hidden_state, batch_size)
         # encoder 1's expanded prompt may chunk longer: align on the shorter

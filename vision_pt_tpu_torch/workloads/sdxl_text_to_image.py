@@ -140,6 +140,15 @@ class SDXLForTextToImageTraining(ModelForTraining):
     def sample_timesteps(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
         return uniform_randint(generator, batch_size, 0, 1000, device=self.device)
 
+    # the image-drop generator of the adapter workloads, for train states
+    def get_host_rng_state(self) -> dict:
+        rng = getattr(self, "_drop_rng", None)
+        return {} if rng is None else {"drop_rng": rng.bit_generator.state}
+
+    def set_host_rng_state(self, state: dict) -> None:
+        if "drop_rng" in state:
+            self._drop_rng.bit_generator.state = state["drop_rng"]
+
     # ------------------------------------------------------------ loss
 
     def _encode_text(self, trainable, ids1, ids2, batch_size: int):
